@@ -1,0 +1,68 @@
+"""Model configuration (port of :mod:`repro.models.config`), reduced to the
+fields the port's dense decoder stack reads."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import torch
+
+from repro_torch.core.emt_linear import EMTConfig, IDEAL
+
+ATTN_KINDS = ("attn", "global", "local")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    rope_theta: float = 10000.0
+    rope_type: str = "default"
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    sliding_window: int = 0
+    layer_pattern: Tuple[str, ...] = ("attn",)
+    qk_norm: bool = False
+    attn_chunk: int = 4096           # KV chunk of the online-softmax path
+    # paged attention through the fused kernels (False: scatter + gather +
+    # _gqa_core, the plain path)
+    fused_paged_attn: bool = True
+    tie_embeddings: bool = False
+    embed_scale: bool = False
+    norm_eps: float = 1e-6
+    act: str = "silu"
+    dtype: Any = torch.bfloat16
+    emt: EMTConfig = IDEAL
+    logit_dtype: Any = torch.float32
+
+    def __post_init__(self):
+        if self.rope_type != "default":
+            raise NotImplementedError(
+                f"rope_type {self.rope_type!r} (M-RoPE) is ported with a "
+                f"later slice (ROADMAP Queue 1, remaining architectures)")
+        bad = sorted(set(self.layer_pattern) - set(ATTN_KINDS))
+        if bad:
+            raise NotImplementedError(
+                f"block kinds {bad} are ported with a later slice (ROADMAP "
+                f"Queue 1, remaining architectures)")
+
+    def blocks(self) -> Tuple[str, ...]:
+        """Resolve layer_pattern into a per-layer block-kind tuple."""
+        pat = self.layer_pattern
+        reps = -(-self.num_layers // len(pat))
+        return tuple((pat * reps)[: self.num_layers])
+
+    def emt_at(self, path: str) -> EMTConfig:
+        """EMT config of the layer at canonical `path` (one corner for the
+        whole model in this slice; per-layer placement comes later)."""
+        return self.emt
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
