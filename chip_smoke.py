@@ -16,8 +16,11 @@ Phases (any failure exits non-zero and prints no result line):
 4. serve 6 staggered requests through the port's ServingEngine at full
    gemma3-1b width (random weights from a seed; analog, all-global,
    per-row DAC scale, frozen noise, paged KV, chunked prefill), with every
-   kernel's launch count reset just before and read just after, and check
-   one chunk step's and one decode step's logits against the plain path.
+   kernel's launch count reset just before and read just after; then hold
+   every kernel call of one chunk step and one decode step to its plain
+   version on the model's activations, and those steps' logits to the
+   plain path's (1e-3 with a 24-bit activation DAC; the main path's 8-bit
+   DAC gap is reported with the level flips that cause it).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Every "ms" is the kernel's time in one
@@ -28,6 +31,7 @@ a decode step.  Bounds use the H100 SXM's published 3.35 TB/s and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -71,21 +75,17 @@ def rel_err(a, b) -> tuple:
 
 
 class Smoke:
-    """The phases; `device` and `smoke_model` exist so the script's Python
-    can be rehearsed on a CPU at smoke size (kernels then take their plain
-    versions and nothing is timed on a card)."""
+    """The phases, run in order by main()."""
 
-    def __init__(self, device="cuda", smoke_model=False):
+    def __init__(self):
         import torch
         self.torch = torch
-        self.dev = torch.device(device)
-        self.smoke_model = smoke_model
+        self.dev = torch.device("cuda")
         self.failures = []
         self.records = {}
 
     def sync(self):
-        if self.dev.type == "cuda":
-            self.torch.cuda.synchronize()
+        self.torch.cuda.synchronize()
 
     def fail(self, msg: str):
         print(f"FAIL: {msg}", flush=True)
@@ -127,8 +127,7 @@ class Smoke:
         from repro_torch.models import lm
         from repro_torch.serve.spec import build_config
         torch = self.torch
-        self.cfg = build_config(ARCH, "analog", smoke=self.smoke_model,
-                                all_global=True, a_per_row=True)
+        self.cfg = build_config(ARCH, "analog", smoke=False, a_per_row=True)
         t0 = time.perf_counter()
         self.params = lm.init_model_params(self.cfg, SEED, device=self.dev)
         self.sync()
@@ -447,9 +446,7 @@ class Smoke:
         captured; print each step's wall time, device busy time and top
         kernels.  Profiling single steps keeps the trace small."""
         from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU]
-        if self.dev.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         for r in reqs:
             eng.submit(r)
         seen = {"chunk": 0, "decode": 0}
@@ -501,8 +498,7 @@ class Smoke:
         eng = make()
         reqs = self._requests()
         self.sync()
-        if self.dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()
         for w in (k1.paged_attention_decode, k2.paged_prefill,
                   k3.emt_matmul):
             w.launches = 0
@@ -513,8 +509,7 @@ class Smoke:
         launches = {"paged_attention_decode": k1.paged_attention_decode
                     .launches, "paged_prefill": k2.paged_prefill.launches,
                     "emt_matmul": k3.emt_matmul.launches}
-        peak = (torch.cuda.max_memory_allocated()
-                if self.dev.type == "cuda" else 0)
+        peak = torch.cuda.max_memory_allocated()
         ntok = sum(len(r.tokens) for r in results)
         m = eng.metrics()
         print(f"  engine: {len(results)} requests, prompts "
@@ -643,37 +638,117 @@ class Smoke:
               f"{pools_ok[0]}")
         self.check(pools_ok[0], "K1 pools differ from the plain write")
 
-    def logits_vs_plain(self):
-        """Logits of the kernel path vs the plain path (the scatter + gather
-        + _gqa_core attention and the fluctuate + matmul projection).  Held
-        to 1e-3 in ideal mode, where the model is a continuous function.  In
-        analog mode every projection rounds x / scale to a DAC level, so a
-        float32 ulp of summation order flips levels at .5 ties and the
-        flips propagate (ROADMAP Queue 3): the gap and the argmax agreement
-        are reported there, and every kernel call of those steps is held to
-        its plain version by calls_vs_plain."""
-        from repro_torch.core.emt_linear import IDEAL
+    @contextlib.contextmanager
+    def _projections_through(self, fn):
+        """Route every analog projection through `fn` in place of K3."""
+        from repro_torch.kernels import ops
+        orig = ops._emt_matmul
+        ops._emt_matmul = fn
+        try:
+            yield
+        finally:
+            ops._emt_matmul = orig
+
+    @contextlib.contextmanager
+    def _record_levels(self, out: list):
+        """Append every projection's DAC levels to `out`, in call order."""
+        from repro_torch.core import emt_linear
+        orig = emt_linear.quant_levels
+
+        def record(*args, **kw):
+            levels, scale = orig(*args, **kw)
+            out.append(levels.detach())
+            return levels, scale
+
+        emt_linear.quant_levels = record
+        try:
+            yield
+        finally:
+            emt_linear.quant_levels = orig
+
+    def _run_path(self, cfg, plain=None, levels=None):
+        """One chunk + decode step pair on the kernel path, or, with
+        `plain` given, on the plain path: attention through scatter + gather
+        + _gqa_core (fused_paged_attn=False) and every projection through
+        `plain` in place of K3."""
+        with contextlib.ExitStack() as stack:
+            if plain is not None:
+                stack.enter_context(self._projections_through(plain))
+                cfg = cfg.replace(fused_paged_attn=False)
+            if levels is not None:
+                stack.enter_context(self._record_levels(levels))
+            return self._step_pair(cfg)
+
+    def _compare(self, label, a_pair, b_pair, limit=None):
         torch = self.torch
-        for mode, cfg_k in (("ideal", self.cfg.replace(emt=IDEAL)),
-                            ("analog", self.cfg)):
-            cfg_p = cfg_k.replace(fused_paged_attn=False,
-                                  emt=cfg_k.emt.replace(use_kernel=False))
-            self.__dict__.pop("_tokens", None)
-            kern = self._step_pair(cfg_k)
-            plain = self._step_pair(cfg_p)
-            for i, what in enumerate(("chunk step", "decode step")):
-                a, b = kern[i], plain[i]
-                d = (a - b).abs().max().item()
-                agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-                finite = bool(torch.isfinite(a).all())
-                print(f"  {mode} {what} logits, kernel vs plain path: "
-                      f"max|diff| {d:.3e} (|logit| max "
-                      f"{b.abs().max().item():.3f}), argmax agreement "
-                      f"{agree:.2f}, finite {finite}")
-                self.check(finite, f"{mode} {what} logits not finite")
-                if mode == "ideal":
-                    self.check(d <= 1e-3, f"ideal {what} logits differ by "
-                                          f"{d:.3e} > 1e-3")
+        for (a, b), what in zip(zip(a_pair, b_pair),
+                                ("chunk step", "decode step")):
+            d = (a - b).abs().max().item()
+            agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+            finite = bool(torch.isfinite(a).all() and torch.isfinite(b).all())
+            held = f", limit {limit:g}" if limit is not None else ""
+            print(f"  {label}, {what} logits: max|diff| {d:.3e} (|logit| "
+                  f"max {b.abs().max().item():.3f}{held}), argmax agreement "
+                  f"{agree:.2f}, finite {finite}")
+            self.check(finite, f"{label} {what} logits not finite")
+            if limit is not None:
+                self.check(d <= limit, f"{label} {what} logits differ by "
+                                       f"{d:.3e} > {limit:g}")
+
+    def logits_vs_plain(self):
+        """End-to-end logits of the kernel path (K1, K2, K3) against the
+        plain path on the card, analog mode with noise on.
+
+        Held to 1e-3 with a 24-bit activation DAC: its levels are finer
+        than float32's own rounding, so the model is continuous in its
+        inputs and the gap measures the kernels.  At the main path's 8-bit
+        DAC a float32 ulp of summation order can flip a level at a .5 tie,
+        and the flips propagate; there the script reports the gap beside
+        the gap between two plain paths that differ only in accumulation
+        precision (float32 vs float64 matmul), and counts the DAC levels
+        that differ between the kernel and plain paths."""
+        import dataclasses
+        from repro_torch.kernels import emt_matmul as k3
+        emt = self.cfg.emt
+
+        def plain_f64(x, w, sig, **kw):
+            return k3.plain(x.double(), w.double(), sig, **kw).float()
+
+        fine = self.cfg.replace(emt=emt.replace(
+            quant=dataclasses.replace(emt.quant, a_bits=24)))
+        self.__dict__.pop("_tokens", None)
+        self._compare("analog, 24-bit DAC: kernel vs plain path",
+                      self._run_path(fine),
+                      self._run_path(fine, plain=k3.plain), limit=1e-3)
+
+        self.__dict__.pop("_tokens", None)
+        lk, lp, l64 = [], [], []
+        kern = self._run_path(self.cfg, levels=lk)
+        plain = self._run_path(self.cfg, plain=k3.plain, levels=lp)
+        f64 = self._run_path(self.cfg, plain=plain_f64, levels=l64)
+        self._compare("analog, 8-bit DAC: kernel vs plain path", kern, plain)
+        self._compare("analog, 8-bit DAC: plain f32 vs plain f64 "
+                      "accumulation", plain, f64)
+        self._level_flips("kernel vs plain path", lk, lp)
+        self._level_flips("plain f32 vs plain f64 accumulation", lp, l64)
+
+    def _level_flips(self, label, la, lb):
+        """Count the DAC levels that differ between two runs of the step
+        pair, per projection in call order: 7 per layer + the unembed per
+        step; the pair runs a history chunk step, the chunk step, then the
+        decode step."""
+        per_step = 7 * self.cfg.num_layers + 1
+        self.check(len(la) == len(lb) == 3 * per_step,
+                   f"{len(la)} / {len(lb)} projections, want {3 * per_step}")
+        for step, what in ((1, "chunk step"), (2, "decode step")):
+            calls = range(step * per_step, (step + 1) * per_step)
+            flips = [int((la[c] != lb[c]).sum().item()) for c in calls]
+            total = sum(la[c].numel() for c in calls)
+            first = next((c for c, f in enumerate(flips) if f), None)
+            print(f"  analog, 8-bit DAC, {what}, {label}: DAC levels that "
+                  f"differ: layer 0 (its 7 projections' inputs) {flips[:7]}; "
+                  f"all projections {sum(flips)} of {total}; first at "
+                  f"projection {first}")
 
 
 def _flat(tree, prefix=""):

@@ -6,8 +6,7 @@ term, the analytic energy estimate in pJ, and read/cell counts, summed up
 the model with :func:`add_aux`.  In analog mode the noisy product goes
 through the fused technique-A kernel (``kernels/emt_matmul.py``), which
 computes the same arithmetic as JAX's ``fluctuate`` + ``@`` without a
-weight-sized noise tensor; ``use_kernel=False`` runs that plain arithmetic
-instead (the on-card reference path).
+weight-sized noise tensor.
 
 Scalar aux entries start as Python floats and become float32 tensors on the
 model's device as layers add into them, so accounting needs no host sync.
@@ -23,7 +22,7 @@ import torch
 
 from repro_torch.core import regularizer
 from repro_torch.core.device import DEFAULT_DEVICE, DeviceModel
-from repro_torch.core.noise import NoiseConfig, fluctuate
+from repro_torch.core.noise import NoiseConfig
 from repro_torch.core.quant import QuantConfig, quant_levels, quantize_weights
 from repro_torch.nn.param import ParamSpec, constant_init, fan_in_init
 
@@ -39,9 +38,6 @@ class EMTConfig:
     device: DeviceModel = DEFAULT_DEVICE
     rho_init: float = 4.0
     trainable_rho: bool = True
-    # analog products through the fused noisy-matmul kernel (False: the
-    # plain fluctuate + matmul arithmetic, the on-card reference path)
-    use_kernel: bool = True
     crossbar_tile: int = 128
     energy_accounting: str = "full"          # full | off
     store_int8: bool = False
@@ -146,16 +142,12 @@ def emt_dense(params: dict, x: torch.Tensor, cfg: EMTConfig, *, tag: str,
 
     if not cfg.noise.enabled:
         y = xin @ wq
-    elif cfg.use_kernel:
-        if cfg.noise.backend != "hash":
-            raise NotImplementedError(
-                f"noise backend {cfg.noise.backend!r} is ported with "
-                + _LATER)
+    elif cfg.noise.backend != "hash":
+        raise NotImplementedError(
+            f"noise backend {cfg.noise.backend!r} is ported with " + _LATER)
+    else:
         y = ops.emt_matmul(xin, wq, cfg.device.sigma_rel(rho),
                            device=cfg.device, seed=seed, plane=plane)
-    else:
-        y = xin @ fluctuate(wq, rho, cfg.device, cfg.noise, seed=seed,
-                            plane=plane)
     x_level = torch.mean(torch.abs(levels)).detach()
     reads_per_cell = float(n_tokens)
 

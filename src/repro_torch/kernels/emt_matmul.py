@@ -13,6 +13,7 @@ the kernel or raises.  ``emt_matmul.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,15 +34,20 @@ class NoiseParams(ctypes.Structure):
 
 def noise_params(device: DeviceModel) -> NoiseParams:
     """The RTN state table as the kernel compares it (float32 thresholds
-    and offsets, computed exactly as hashrng does)."""
-    n = device.num_states
+    and offsets, computed exactly as hashrng does), built once per table."""
+    return _noise_params(device.state_offsets, device.state_probs)
+
+
+@functools.lru_cache(maxsize=None)
+def _noise_params(offsets: tuple, probs: tuple) -> NoiseParams:
+    n = len(offsets)
     if n > MAX_STATES:
         raise ValueError(f"{n} RTN states exceed the kernel's {MAX_STATES}")
     p = NoiseParams()
     p.n_states = n
-    for i, t in enumerate(hashrng.state_thresholds(device.state_probs)):
+    for i, t in enumerate(hashrng.state_thresholds(probs)):
         p.thr[i] = t
-    for i, o in enumerate(hashrng.state_offset_table(device.state_offsets)):
+    for i, o in enumerate(hashrng.state_offset_table(offsets)):
         p.off[i] = o
     return p
 

@@ -8,6 +8,8 @@ energy/reg within rtol 1e-6: both sum |w| over weight-sized reductions in
 float32 in different orders.  K3's plain version within 1e-5 relative of
 the Pallas kernel in interpret mode (its K-tiled accumulation order).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,14 +73,18 @@ def _close(a, b, rtol):
 @pytest.mark.parametrize("mode,a_per_row,accounting",
                          [("ideal", False, "full"), ("analog", False, "full"),
                           ("analog", True, "full"), ("analog", True, "off")])
-@pytest.mark.parametrize("use_kernel", [True, False])
-def test_emt_dense_matches_jax(mode, a_per_row, accounting, use_kernel):
+@pytest.mark.parametrize("noise", [True, False])
+def test_emt_dense_matches_jax(mode, a_per_row, accounting, noise):
+    """noise=False is the noiseless quantized product (xin @ wq); noise=True
+    in analog mode goes through K3's wrapper (its plain version on the
+    CPU)."""
     rng = np.random.default_rng(2)
     w = _np(rng, 96, 80, scale=0.1)
     x = _np(rng, 3, 5, 96)
     raw = np.float32(treg.rho_init_raw(4.0))
     jc, tc = _cfgs(mode, a_per_row, accounting)
-    tc = tc.replace(use_kernel=use_kernel)
+    jc = jc.replace(noise=dataclasses.replace(jc.noise, enabled=noise))
+    tc = tc.replace(noise=dataclasses.replace(tc.noise, enabled=noise))
     tag = "dec/layer_001/mlp/wg"
     yj, aj = jel.emt_dense({"w": jnp.asarray(w), "rho_raw": jnp.asarray(raw)},
                            jnp.asarray(x), jc, tag=tag, seed=jnp.uint32(9))

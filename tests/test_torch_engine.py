@@ -35,7 +35,7 @@ def _models(a_per_row):
                       all_global=True, a_per_row=a_per_row).build_config() \
         .replace(num_layers=2)
     params_j = init_params(jlm.specs(cfg_j), jax.random.PRNGKey(0))
-    cfg_t = build_config(smoke=True, all_global=True, a_per_row=a_per_row,
+    cfg_t = build_config(smoke=True, a_per_row=a_per_row,
                          model_overrides={"num_layers": 2})
     params_t = tlm.load_jax_arrays(_tree_to_arrays(params_j), cfg_t,
                                    device="cpu")

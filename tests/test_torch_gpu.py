@@ -114,7 +114,7 @@ def test_engine_on_card_launches_every_kernel(cuda):
     from repro_torch.models import lm
     from repro_torch.serve.engine import GenRequest, ServingEngine
     from repro_torch.serve.spec import build_config
-    cfg = build_config(smoke=True, all_global=True, a_per_row=True,
+    cfg = build_config(smoke=True, a_per_row=True,
                        model_overrides={"num_layers": 2})
     params = lm.init_model_params(cfg, 0)
     eng = ServingEngine(cfg, params, batch_size=2, max_len=32, block_size=8,

@@ -33,7 +33,7 @@ def models():
         .replace(num_layers=2)
     params_j = init_params(jlm.specs(cfg_j), jax.random.PRNGKey(0))
     arrays = _tree_to_arrays(params_j)
-    cfg_t = build_config(smoke=True, all_global=True, a_per_row=True,
+    cfg_t = build_config(smoke=True, a_per_row=True,
                          model_overrides={"num_layers": 2})
     params_t = tlm.load_jax_arrays(arrays, cfg_t, device="cpu")
     return cfg_j, params_j, cfg_t, params_t, arrays
@@ -69,14 +69,13 @@ def test_seeded_init_full_width_specs_and_determinism(monkeypatch):
     """Full-width gemma3-1b has the published matrix sizes (embed/unembed
     301,989,888 + 26 x 26,836,992); the seeded init is deterministic; entry
     points default to the card and refuse to fall back to the CPU."""
-    cfg = build_config(smoke=False, all_global=True, a_per_row=True)
+    cfg = build_config(smoke=False, a_per_row=True)
     from repro_torch.utils.pytrees import flatten_with_paths
     mats = sum(int(np.prod(s.shape))
                for _, s in flatten_with_paths(tlm.specs(cfg))
                if len(s.shape) == 2)
     assert mats == 301_989_888 + 26 * 26_836_992
-    small = build_config(smoke=True, all_global=True,
-                         model_overrides={"num_layers": 2})
+    small = build_config(smoke=True, model_overrides={"num_layers": 2})
     a = tlm.init_model_params(small, 5, device="cpu")
     b = tlm.init_model_params(small, 5, device="cpu")
     assert torch.equal(a["embed"]["table"], b["embed"]["table"])
@@ -156,8 +155,7 @@ def test_plain_attention_path_matches_jax_fallback(models):
     kill-switch fallback."""
     cfg_j, params_j, cfg_t, params_t, _ = models
     cfg_j = cfg_j.replace(fused_paged_attn=False)
-    cfg_t = cfg_t.replace(fused_paged_attn=False,
-                          emt=cfg_t.emt.replace(use_kernel=False))
+    cfg_t = cfg_t.replace(fused_paged_attn=False)
     nb = B * MAX_LEN // BS
     kv = JKV(B, MAX_LEN, BS, nb)
     for s in range(B):
@@ -199,9 +197,11 @@ def test_plain_attention_path_matches_jax_fallback(models):
 
 
 def test_ring_layout_raises_until_ported():
-    cfg = build_config(smoke=True)               # 5:1 local:global, window 8
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3-1b", smoke=True)    # 5:1 local:global, window 8
     with pytest.raises(NotImplementedError, match="ring"):
         tlm.paged_lens(cfg, 48)
+    assert build_config(smoke=True).blocks() == ("attn",) * cfg.num_layers
 
 
 @pytest.mark.parametrize("chunk", [0, 5])
