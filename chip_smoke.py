@@ -6,28 +6,35 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi) and the torch/CUDA versions;
-2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    nvcc each, in parallel) and print ptxas' registers / shared memory /
    spills;
 3. hold every kernel against its plain PyTorch version on the card at the
-   main path's shapes (gemma3-1b, batch 4, block 16, chunk 16) and time it,
+   main paths' shapes (gemma3-1b, batch 4, block 16, chunk 16) and time it,
    its plain version and one PyTorch library call computing the same
-   function (a yardstick the port never calls), beside its bound;
+   function (a yardstick the port never calls), beside its bound; the
+   bit-serial kernel also shows every plane's noisy weight bit-exact;
 4. serve 6 staggered requests through the port's ServingEngine at full
-   gemma3-1b width (random weights from a seed; analog, all-global,
-   per-row DAC scale, frozen noise, paged KV, chunked prefill), with every
-   kernel's launch count reset just before and read just after; then hold
-   every kernel call of one chunk step and one decode step to its plain
-   version on the model's activations, and those steps' logits to the
-   plain path's (1e-3 with a 24-bit activation DAC; the main path's 8-bit
-   DAC gap is reported with the level flips that cause it).
+   gemma3-1b width (random weights from a seed; all-global, per-row DAC
+   scale, frozen noise, paged KV, chunked prefill) on two paths: analog
+   (every projection technique A on the default cell) and the "mixed"
+   device placement (attention analog on PCM, MLPs bit-serial on RRAM, the
+   unembed analog on PCM).  Each path's run resets every kernel's launch
+   count just before and reads it just after; the mixed run books its
+   energy per corner.  Then, for each path, every kernel call of one chunk
+   step and one decode step is held to its plain version on the model's
+   activations, and those steps' logits to the plain path's (1e-3 with a
+   24-bit activation DAC; the main paths' 8-bit DAC gap is reported with
+   the level flips that cause it).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Every "ms" is the kernel's time in one
 main-path step: K1 = the 26 decode-attention launches of a decode step,
 K2 = the 26 prefill launches of a chunk step, K3 = the 183 noisy matmuls of
-a decode step.  Bounds use the H100 SXM's published 3.35 TB/s and
-67 TFLOP/s (FP32, no tensor cores).
+an analog decode step, K5 = the 78 bit-serial MLP matmuls of a mixed decode
+step.  "launches" counts K1-K3 in the analog run and K5 in the mixed run.
+Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s (FP32, no
+tensor cores).
 """
 from __future__ import annotations
 
@@ -126,8 +133,15 @@ class Smoke:
     def model(self):
         from repro_torch.models import lm
         from repro_torch.serve.spec import build_config
-        torch = self.torch
         self.cfg = build_config(ARCH, "analog", smoke=False, a_per_row=True)
+        self.mixed = build_config(ARCH, smoke=False, placement="mixed",
+                                  a_per_row=True)
+        # every projection of both paths is active (it has a rho_raw): one
+        # parameter tree serves both
+        shapes = [[(k, tuple(v.shape)) for k, v in _flat(lm.specs(c))]
+                  for c in (self.cfg, self.mixed)]
+        self.check(shapes[0] == shapes[1],
+                   "analog and mixed parameter trees differ")
         t0 = time.perf_counter()
         self.params = lm.init_model_params(self.cfg, SEED, device=self.dev)
         self.sync()
@@ -135,6 +149,10 @@ class Smoke:
         print(f"model: {ARCH} full width, {self.cfg.num_layers} layers, "
               f"{n:,} parameters (f32), init "
               f"{time.perf_counter() - t0:.2f} s")
+        plan = {}
+        for _, corner, mode in self.mixed.placement_plan():
+            plan[(corner, mode)] = plan.get((corner, mode), 0) + 1
+        print(f"  mixed placement: {plan} projections per (corner, mode)")
 
     def k3(self):
         """Technique-A matmul at every projection of one decode step."""
@@ -236,6 +254,127 @@ class Smoke:
               f"pre-noised weights {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
               f"({by}; {nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP), "
               f"roofline share {100 * b_ms / ms:.2f}%")
+
+    def k5(self):
+        """Technique-C bit-serial matmul at every MLP projection of one
+        step of the mixed path (RRAM, 7 planes at the 8-bit DAC)."""
+        from repro_torch.core import noise, quant, regularizer
+        from repro_torch.core.decompose import bit_plane
+        from repro_torch.core.emt_linear import _tag_plane
+        from repro_torch.kernels import emt_bitserial as k
+        torch = self.torch
+        layers = self.params["decoder"]
+        emt = self.mixed.emt_at("dec/layer_000/mlp/wg")
+        bits, dev = emt.quant.a_bits - 1, emt.device
+        self.check(emt.mode == "bitserial" and bits == 7,
+                   f"mixed MLP corner is {emt.mode}, {bits} planes")
+        prepared = []                   # (wq, rho, sig, base plane)
+        for name in sorted(layers):
+            for w in ("wg", "wu", "wd"):
+                tag = f"dec/{name}/mlp/{w}"
+                p = layers[name]["ffn"][w]
+                wq, _ = quant.quantize_weights(p["w"],
+                                               self.mixed.emt_at(tag).quant)
+                rho = regularizer.rho_from_raw(p["rho_raw"])
+                prepared.append((wq, rho, dev.sigma_rel(rho),
+                                 _tag_plane(tag)))
+        gen = torch.Generator(device=self.dev).manual_seed(4)
+
+        def levels(M, K):
+            """DAC levels as the path makes them (per-row 8-bit scale)."""
+            x = torch.randn((M, K), generator=gen, device=self.dev)
+            return quant.quant_levels(x, bits + 1, axis=-1)[0]
+
+        kw = dict(device=dev, bits=bits, seed=SEED)
+        worst = 0.0
+        seen = set()
+        for wq, rho, sig, plane in prepared[:3]:
+            K, N = wq.shape
+            for M in (BATCH, BATCH * CHUNK):
+                x = levels(M, K)
+                y = k.emt_bitserial(x, wq, sig, base_plane=plane, **kw)
+                yp = k.plain(x, wq, sig, base_plane=plane, **kw)
+                self.sync()
+                d, r = rel_err(y, yp)
+                worst = max(worst, d)
+                print(f"  K5 {M}x{K} @ {K}x{N}, {bits} planes: max|diff| "
+                      f"{d:.3e} rel {r:.3e}")
+                self.check(r <= 1e-5, f"K5 {M}x{K}x{N} rel {r:.3e} > 1e-5")
+            if (K, N) in seen:
+                continue
+            seen.add((K, N))
+            # levels 2^p on the identity return 2^p x plane p's noisy weight
+            eye = torch.eye(K, device=self.dev)
+            exact = []
+            for p in range(bits):
+                wn = k.emt_bitserial(eye * 2.0 ** p, wq, sig, base_plane=plane,
+                                     **kw)
+                ref = noise.fluctuate(wq, rho, dev, noise.NoiseConfig(),
+                                      seed=SEED, plane=plane + p)
+                exact.append(bool(torch.equal(wn, ref * 2.0 ** p)))
+                del wn, ref
+            print(f"  K5 noisy weight {K}x{N}, planes 0..{bits - 1} "
+                  f"bit-exact with fluctuate: {exact}")
+            self.check(all(exact), f"K5 noisy weight {K}x{N} planes {exact}")
+            del eye
+        # timing: one decode step's 78 calls (and a chunk step's), in model
+        # order
+        xs = [levels(BATCH, wq.shape[0]) for wq, *_ in prepared]
+        xc = [levels(BATCH * CHUNK, wq.shape[0]) for wq, *_ in prepared]
+
+        def run(fn, inputs):
+            for x, (wq, rho, sig, plane) in zip(inputs, prepared):
+                fn(x, wq, sig, base_plane=plane, **kw)
+
+        # yardstick: one torch.bmm per call of the (bits, M, K) signed
+        # planes (scaled by 2^p) with the (bits, K, N) pre-noised weights;
+        # layer 0's three stand in for every layer (each call reads 7 x
+        # 32 MB, far past the 50 MB L2)
+        lib = []
+        for x, (wq, rho, sig, plane) in zip(xs[:3], prepared[:3]):
+            planes = torch.stack([torch.sign(x) * bit_plane(x.abs(), p)
+                                  * 2.0 ** p for p in range(bits)])
+            wn = torch.stack([noise.fluctuate(wq, rho, dev,
+                                              noise.NoiseConfig(), seed=SEED,
+                                              plane=plane + p)
+                              for p in range(bits)])
+            lib.append((planes, wn))
+
+        def run_library():
+            for _ in range(len(layers)):
+                for planes, wn in lib:
+                    torch.bmm(planes, wn)
+
+        ms = cuda_time(lambda: run(k.emt_bitserial, xs), 3)
+        chunk_ms = cuda_time(lambda: run(k.emt_bitserial, xc), 2)
+        lib_ms = cuda_time(run_library, 3)
+        del lib
+        plain_ms = cuda_time(lambda: run(k.plain, xs), 1, warmup=1)
+
+        def step_bound(M):
+            nbytes = sum(4 * (M * K + K * N + M * N)
+                         for K, N in (wq.shape for wq, *_ in prepared))
+            flops = sum(2 * M * wq.numel() * bits for wq, *_ in prepared)
+            return bound(nbytes, flops), nbytes, flops
+
+        (b_ms, by), nbytes, flops = step_bound(BATCH)
+        (cb_ms, cby), _, cflops = step_bound(BATCH * CHUNK)
+        self.records["emt_bitserial"] = dict(
+            name="emt_bitserial", route="cuda",
+            source="src/repro_torch/kernels/csrc/emt_bitserial.cu",
+            replaces="src/repro/kernels/emt_bitserial.py:69",
+            max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=by, library_ms=lib_ms)
+        print(f"  K5 per decode step ({len(prepared)} calls, M={BATCH}, "
+              f"{bits} planes): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"torch.bmm on planes and pre-noised weights {lib_ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({by}; {nbytes / 1e9:.3f} GB, "
+              f"{flops / 1e9:.3f} GFLOP), roofline share "
+              f"{100 * b_ms / ms:.2f}%")
+        print(f"  K5 per chunk step ({len(prepared)} calls, "
+              f"M={BATCH * CHUNK}): kernel {chunk_ms:.3f} ms, bound "
+              f"{cb_ms:.3f} ms ({cby}; {cflops / 1e9:.3f} GFLOP), roofline "
+              f"share {100 * cb_ms / chunk_ms:.2f}%")
 
     def _pools(self, gen, n_layers):
         torch = self.torch
@@ -479,16 +618,27 @@ class Smoke:
                 print(f"    {e.self_device_time_total / 1e3:8.2f} ms "
                       f"{e.count:6d}x {e.key[:80]}")
 
-    def engine(self):
-        import numpy as np
+    def _counters(self):
+        from repro_torch.kernels import emt_bitserial as k5
         from repro_torch.kernels import emt_matmul as k3
         from repro_torch.kernels import paged_attention as k1
         from repro_torch.kernels import paged_prefill as k2
+        return {"paged_attention_decode": k1.paged_attention_decode,
+                "paged_prefill": k2.paged_prefill,
+                "emt_matmul": k3.emt_matmul,
+                "emt_bitserial": k5.emt_bitserial}
+
+    def _serve(self, cfg, label, per_kind):
+        """Serve the 6 requests on `cfg` (after one warm-up run) with every
+        launch count reset just before and read just after; profile
+        `per_kind` chunk and decode steps of a third run.  Returns (summary,
+        launches, metrics)."""
+        import numpy as np
         from repro_torch.serve.engine import ServingEngine
         torch = self.torch
 
         def make():
-            return ServingEngine(self.cfg, self.params, batch_size=BATCH,
+            return ServingEngine(cfg, self.params, batch_size=BATCH,
                                  max_len=MAX_LEN, seed=SEED,
                                  fresh_noise=False, paged=True,
                                  block_size=BLOCK, prefill_chunk=CHUNK,
@@ -497,46 +647,87 @@ class Smoke:
         make().serve(self._requests(), stagger=2)        # warm-up
         eng = make()
         reqs = self._requests()
+        counters = self._counters()
         self.sync()
         torch.cuda.reset_peak_memory_stats()
-        for w in (k1.paged_attention_decode, k2.paged_prefill,
-                  k3.emt_matmul):
+        for w in counters.values():
             w.launches = 0
         t0 = time.perf_counter()
         results = eng.serve(reqs, stagger=2)
         self.sync()
         wall = time.perf_counter() - t0
-        launches = {"paged_attention_decode": k1.paged_attention_decode
-                    .launches, "paged_prefill": k2.paged_prefill.launches,
-                    "emt_matmul": k3.emt_matmul.launches}
+        launches = {name: w.launches for name, w in counters.items()}
         peak = torch.cuda.max_memory_allocated()
         ntok = sum(len(r.tokens) for r in results)
         m = eng.metrics()
-        print(f"  engine: {len(results)} requests, prompts "
+        corners = {k: v * 1e-6 / ntok
+                   for k, v in m["corner_energy_pj"].items()}
+        print(f"  engine ({label}): {len(results)} requests, prompts "
               f"{[len(r.prompt) for r in reqs]}, {m['steps']} steps, "
               f"{ntok} generated tokens in {wall:.3f} s -> "
               f"{ntok / wall:.2f} tok/s; modeled EMT energy "
-              f"{m['total_energy_pj'] * 1e-6 / ntok:.3f} uJ/token; peak "
-              f"device memory {peak / 2**30:.2f} GiB")
-        print(f"  launches in the served run: {launches}")
+              f"{m['total_energy_pj'] * 1e-6 / ntok:.3f} uJ/token, per "
+              f"corner {json.dumps(corners)}; peak device memory "
+              f"{peak / 2**30:.2f} GiB")
+        print(f"  launches in the served run ({label}): {launches}")
         for r in results:
             print(f"    rid {r.rid}: {r.done_reason} tokens "
                   f"{r.tokens.tolist()} energy {r.energy_pj:.6g} pJ")
-        for name, n in launches.items():
-            self.check(n > 0, f"{name} was launched {n} times on the main path")
-            self.records[name]["launches"] = n
         self.check(len(results) == 6, f"{len(results)} results, want 6")
         for r in results:
             ok = (r.done_reason == "max_new" and len(r.tokens) == MAX_NEW
-                  and ((r.tokens >= 0) & (r.tokens < self.cfg.vocab_size))
+                  and ((r.tokens >= 0) & (r.tokens < cfg.vocab_size))
                   .all() and np.isfinite(r.energy_pj) and r.energy_pj > 0)
             self.check(bool(ok), f"request {r.rid} result malformed: {r}")
         self.check(eng.energy_conserved(results), "energy not conserved")
-        self._profile_steps(make(), self._requests())
-        self.engine_summary = dict(tok_s=ntok / wall, wall_s=wall,
-                                   tokens=ntok, steps=m["steps"],
-                                   uj_per_token=m["total_energy_pj"] * 1e-6
-                                   / ntok, peak_gib=peak / 2**30)
+        total = sum(m["corner_energy_pj"].values())
+        self.check(abs(total - m["total_energy_pj"])
+                   <= 1e-6 * m["total_energy_pj"],
+                   f"{label}: corners sum to {total}, total "
+                   f"{m['total_energy_pj']}")
+        self._profile_steps(make(), self._requests(), per_kind)
+        summary = dict(tok_s=ntok / wall, wall_s=wall, tokens=ntok,
+                       steps=m["steps"],
+                       uj_per_token=m["total_energy_pj"] * 1e-6 / ntok,
+                       uj_per_token_by_corner=corners, peak_gib=peak / 2**30)
+        return summary, launches, m
+
+    def _check_launches(self, label, launches, steps, per_step):
+        """Every kernel of the path launched; those with a fixed count per
+        step launched exactly that often."""
+        for name, want in per_step.items():
+            n = launches[name]
+            if want is None:
+                self.check(n > 0, f"{label}: {name} was launched {n} times")
+            else:
+                self.check(n == want * steps,
+                           f"{label}: {name} launched {n} times in {steps} "
+                           f"steps, want {want} per step")
+
+    def engine(self):
+        """The analog path: K1, K2 and K3 (183 per step), no K5."""
+        L = self.cfg.num_layers
+        summary, launches, m = self._serve(self.cfg, "analog", 2)
+        self._check_launches("analog", launches, m["steps"], {
+            "paged_attention_decode": None, "paged_prefill": None,
+            "emt_matmul": 7 * L + 1, "emt_bitserial": 0})
+        for name in ("paged_attention_decode", "paged_prefill",
+                     "emt_matmul"):
+            self.records[name]["launches"] = launches[name]
+        self.engine_summary = summary
+
+    def engine_mixed(self):
+        """The mixed placement: K1, K2, K3 on attention and the unembed
+        (105 per step), K5 on the MLPs (78 per step)."""
+        L = self.mixed.num_layers
+        summary, launches, m = self._serve(self.mixed, "mixed", 1)
+        self._check_launches("mixed", launches, m["steps"], {
+            "paged_attention_decode": None, "paged_prefill": None,
+            "emt_matmul": 4 * L + 1, "emt_bitserial": 3 * L})
+        self.check(set(m["corner_energy_pj"]) == {"pcm", "rram"},
+                   f"mixed corners {sorted(m['corner_energy_pj'])}")
+        self.records["emt_bitserial"]["launches"] = launches["emt_bitserial"]
+        self.mixed_summary = summary
 
     def _step_pair(self, cfg):
         """One chunk step (over K/V history) then one decode step on `cfg`,
@@ -584,30 +775,36 @@ class Smoke:
             self._tokens = logits.argmax(-1).cpu().numpy()
         return self._tokens
 
-    def calls_vs_plain(self):
-        """Every kernel call of an analog chunk step and decode step at full
-        width, checked against its plain version on the same inputs (the
-        real activations, pools and tables of the model)."""
+    def _calls_vs_plain(self, cfg, label, expect):
+        """Every kernel call of a chunk step and a decode step of `cfg` at
+        full width, checked against its plain version on the same inputs
+        (the real activations, pools and tables of the model).  `expect`
+        names the kernels the path must have called."""
         from repro_torch.kernels import ops
+        from repro_torch.kernels import emt_bitserial as k5
         from repro_torch.kernels import emt_matmul as k3
         from repro_torch.kernels import paged_attention as k1
         from repro_torch.kernels import paged_prefill as k2
-        worst = {"emt_matmul": 0.0, "paged_attention_decode": 0.0,
-                 "paged_prefill": 0.0}
+        worst = {"emt_matmul": 0.0, "emt_bitserial": 0.0,
+                 "paged_attention_decode": 0.0, "paged_prefill": 0.0}
         counts = dict.fromkeys(worst, 0)
         pools_ok = [True]
-        orig = (ops._emt_matmul, ops._paged_decode, ops._paged_prefill)
+        names = ("_emt_matmul", "_emt_bitserial", "_paged_decode",
+                 "_paged_prefill")
+        orig = {n: getattr(ops, n) for n in names}
 
-        def emt(x, w, sig, **kw):
-            y = orig[0](x, w, sig, **kw)
-            worst["emt_matmul"] = max(worst["emt_matmul"],
-                                      rel_err(y, k3.plain(x, w, sig, **kw))[1])
-            counts["emt_matmul"] += 1
-            return y
+        def checked(name, attr, plain):
+            def call(*args, **kw):
+                y = orig[attr](*args, **kw)
+                worst[name] = max(worst[name],
+                                  rel_err(y, plain(*args, **kw))[1])
+                counts[name] += 1
+                return y
+            return call
 
         def dec(q, kp, vp, *args, **kw):
             kp2, vp2 = kp.clone(), vp.clone()
-            y = orig[1](q, kp, vp, *args, **kw)
+            y = orig["_paged_decode"](q, kp, vp, *args, **kw)
             ref = k1.plain(q, kp2, vp2, *args, **kw)
             worst["paged_attention_decode"] = max(
                 worst["paged_attention_decode"], rel_err(y, ref)[1])
@@ -616,38 +813,47 @@ class Smoke:
             counts["paged_attention_decode"] += 1
             return y
 
-        def pre(*args, **kw):
-            y = orig[2](*args, **kw)
-            worst["paged_prefill"] = max(worst["paged_prefill"],
-                                         rel_err(y, k2.plain(*args, **kw))[1])
-            counts["paged_prefill"] += 1
-            return y
-
-        ops._emt_matmul, ops._paged_decode, ops._paged_prefill = \
-            emt, dec, pre
-        try:
-            self._step_pair(self.cfg)
-        finally:
-            ops._emt_matmul, ops._paged_decode, ops._paged_prefill = orig
+        with self._ops_through(
+                _emt_matmul=checked("emt_matmul", "_emt_matmul", k3.plain),
+                _emt_bitserial=checked("emt_bitserial", "_emt_bitserial",
+                                       k5.plain),
+                _paged_decode=dec,
+                _paged_prefill=checked("paged_prefill", "_paged_prefill",
+                                       k2.plain)):
+            self._step_pair(cfg)
         for name, r in worst.items():
-            print(f"  {name}: {counts[name]} calls on real activations, "
-                  f"worst rel diff vs plain {r:.3e}")
-            self.check(counts[name] > 0 and r <= 1e-5,
-                       f"{name} on the model's activations: rel {r:.3e}")
-        print(f"  K1 pools bit-identical to the plain write on every call: "
-              f"{pools_ok[0]}")
+            print(f"  {label}: {name}: {counts[name]} calls on real "
+                  f"activations, worst rel diff vs plain {r:.3e}")
+            want = name in expect
+            self.check((counts[name] > 0) == want and r <= 1e-5,
+                       f"{label}: {name} on the model's activations: "
+                       f"{counts[name]} calls, rel {r:.3e}")
+        print(f"  {label}: K1 pools bit-identical to the plain write on "
+              f"every call: {pools_ok[0]}")
         self.check(pools_ok[0], "K1 pools differ from the plain write")
 
+    def calls_vs_plain(self):
+        self._calls_vs_plain(self.cfg, "analog", (
+            "emt_matmul", "paged_attention_decode", "paged_prefill"))
+
+    def mixed_calls_vs_plain(self):
+        self._calls_vs_plain(self.mixed, "mixed", (
+            "emt_matmul", "emt_bitserial", "paged_attention_decode",
+            "paged_prefill"))
+
     @contextlib.contextmanager
-    def _projections_through(self, fn):
-        """Route every analog projection through `fn` in place of K3."""
+    def _ops_through(self, **fns):
+        """Route the kernel wrappers named (``ops._emt_matmul``, ...)
+        through the functions given, for the duration."""
         from repro_torch.kernels import ops
-        orig = ops._emt_matmul
-        ops._emt_matmul = fn
+        orig = {n: getattr(ops, n) for n in fns}
+        for n, fn in fns.items():
+            setattr(ops, n, fn)
         try:
             yield
         finally:
-            ops._emt_matmul = orig
+            for n, fn in orig.items():
+                setattr(ops, n, fn)
 
     @contextlib.contextmanager
     def _record_levels(self, out: list):
@@ -668,12 +874,13 @@ class Smoke:
 
     def _run_path(self, cfg, plain=None, levels=None):
         """One chunk + decode step pair on the kernel path, or, with
-        `plain` given, on the plain path: attention through scatter + gather
-        + _gqa_core (fused_paged_attn=False) and every projection through
-        `plain` in place of K3."""
+        `plain` given ({ops wrapper name: replacement}), on the plain path:
+        attention through scatter + gather + _gqa_core
+        (fused_paged_attn=False) and every projection through its plain
+        version in place of K3 / K5."""
         with contextlib.ExitStack() as stack:
             if plain is not None:
-                stack.enter_context(self._projections_through(plain))
+                stack.enter_context(self._ops_through(**plain))
                 cfg = cfg.replace(fused_paged_attn=False)
             if levels is not None:
                 stack.enter_context(self._record_levels(levels))
@@ -695,44 +902,80 @@ class Smoke:
                 self.check(d <= limit, f"{label} {what} logits differ by "
                                        f"{d:.3e} > {limit:g}")
 
-    def logits_vs_plain(self):
-        """End-to-end logits of the kernel path (K1, K2, K3) against the
-        plain path on the card, analog mode with noise on.
+    def _logits_vs_plain(self, cfg, label):
+        """End-to-end logits of the kernel path (K1, K2, K3 and, on the
+        mixed path, K5) against the plain path on the card, noise on.
 
-        Held to 1e-3 with a 24-bit activation DAC: its levels are finer
-        than float32's own rounding, so the model is continuous in its
-        inputs and the gap measures the kernels.  At the main path's 8-bit
-        DAC a float32 ulp of summation order can flip a level at a .5 tie,
-        and the flips propagate; there the script reports the gap beside
-        the gap between two plain paths that differ only in accumulation
-        precision (float32 vs float64 matmul), and counts the DAC levels
-        that differ between the kernel and plain paths."""
+        Held to 1e-3 with a 24-bit activation DAC (K5 then runs 23 planes):
+        its levels are finer than float32's own rounding, so an analog
+        projection is continuous in its input and the gap measures the
+        kernels.  A bit-serial projection is not: a level one step higher
+        can carry into a high bit, and every plane draws its own noise, so
+        the output jumps by ~2^p * sigma * w.  The gated run therefore sets
+        the bit-serial corners' read noise to zero (K5 still runs all 23
+        planes; its noise is held bit-exact in the K5 phase and per call on
+        real activations); the run with that noise on is reported beside
+        it.  At the main paths' 8-bit DAC a float32 ulp of summation order
+        can flip a level at a .5 tie, and the flips propagate; there the
+        script reports the gap beside the gap between two plain paths that
+        differ only in accumulation precision (float32 vs float64 matmul),
+        and counts the DAC levels that differ between the kernel and plain
+        paths."""
         import dataclasses
+        from repro_torch.core.placement import as_placement, map_corners
+        from repro_torch.kernels import emt_bitserial as k5
         from repro_torch.kernels import emt_matmul as k3
-        emt = self.cfg.emt
 
-        def plain_f64(x, w, sig, **kw):
-            return k3.plain(x.double(), w.double(), sig, **kw).float()
+        def f64(plain):
+            def call(x, w, sig, **kw):
+                return plain(x.double(), w.double(), sig, **kw).float()
+            return call
 
-        fine = self.cfg.replace(emt=emt.replace(
-            quant=dataclasses.replace(emt.quant, a_bits=24)))
+        def dac24(quiet_bitserial):
+            def corner(e):
+                e = e.replace(quant=dataclasses.replace(e.quant, a_bits=24))
+                if quiet_bitserial and e.mode == "bitserial":
+                    e = e.replace(device=dataclasses.replace(e.device,
+                                                             amplitude=0.0))
+                return e
+            return cfg.replace(emt=map_corners(cfg.emt, corner))
+
+        plain = dict(_emt_matmul=k3.plain, _emt_bitserial=k5.plain)
+        plain64 = dict(_emt_matmul=f64(k3.plain),
+                       _emt_bitserial=f64(k5.plain))
+        p = as_placement(cfg.emt)
+        bitserial = any(e.mode == "bitserial"
+                        for e in [r.emt for r in p.rules] + [p.default])
         self.__dict__.pop("_tokens", None)
-        self._compare("analog, 24-bit DAC: kernel vs plain path",
-                      self._run_path(fine),
-                      self._run_path(fine, plain=k3.plain), limit=1e-3)
+        quiet = ", bit-serial read noise off" if bitserial else ""
+        self._compare(f"{label}, 24-bit DAC{quiet}: kernel vs plain path",
+                      self._run_path(dac24(True)),
+                      self._run_path(dac24(True), plain=plain), limit=1e-3)
+        if bitserial:
+            self.__dict__.pop("_tokens", None)
+            self._compare(f"{label}, 24-bit DAC, bit-serial read noise on: "
+                          "kernel vs plain path", self._run_path(dac24(False)),
+                          self._run_path(dac24(False), plain=plain))
 
         self.__dict__.pop("_tokens", None)
         lk, lp, l64 = [], [], []
-        kern = self._run_path(self.cfg, levels=lk)
-        plain = self._run_path(self.cfg, plain=k3.plain, levels=lp)
-        f64 = self._run_path(self.cfg, plain=plain_f64, levels=l64)
-        self._compare("analog, 8-bit DAC: kernel vs plain path", kern, plain)
-        self._compare("analog, 8-bit DAC: plain f32 vs plain f64 "
-                      "accumulation", plain, f64)
-        self._level_flips("kernel vs plain path", lk, lp)
-        self._level_flips("plain f32 vs plain f64 accumulation", lp, l64)
+        kern = self._run_path(cfg, levels=lk)
+        ref = self._run_path(cfg, plain=plain, levels=lp)
+        ref64 = self._run_path(cfg, plain=plain64, levels=l64)
+        self._compare(f"{label}, 8-bit DAC: kernel vs plain path", kern, ref)
+        self._compare(f"{label}, 8-bit DAC: plain f32 vs plain f64 "
+                      "accumulation", ref, ref64)
+        self._level_flips(label, "kernel vs plain path", lk, lp)
+        self._level_flips(label, "plain f32 vs plain f64 accumulation", lp,
+                          l64)
 
-    def _level_flips(self, label, la, lb):
+    def logits_vs_plain(self):
+        self._logits_vs_plain(self.cfg, "analog")
+
+    def mixed_logits_vs_plain(self):
+        self._logits_vs_plain(self.mixed, "mixed")
+
+    def _level_flips(self, path, label, la, lb):
         """Count the DAC levels that differ between two runs of the step
         pair, per projection in call order: 7 per layer + the unembed per
         step; the pair runs a history chunk step, the chunk step, then the
@@ -745,7 +988,7 @@ class Smoke:
             flips = [int((la[c] != lb[c]).sum().item()) for c in calls]
             total = sum(la[c].numel() for c in calls)
             first = next((c for c, f in enumerate(flips) if f), None)
-            print(f"  analog, 8-bit DAC, {what}, {label}: DAC levels that "
+            print(f"  {path}, 8-bit DAC, {what}, {label}: DAC levels that "
                   f"differ: layer 0 (its 7 projections' inputs) {flips[:7]}; "
                   f"all projections {sum(flips)} of {total}; first at "
                   f"projection {first}")
@@ -772,9 +1015,13 @@ def main() -> int:
     phases = [("device", s.device_info), ("build", s.build),
               ("model", s.model), ("K3 emt_matmul", s.k3),
               ("K1 paged_attention_decode", s.k1),
-              ("K2 paged_prefill", s.k2), ("engine", s.engine),
-              ("kernel calls vs plain", s.calls_vs_plain),
-              ("logits vs plain", s.logits_vs_plain)]
+              ("K2 paged_prefill", s.k2), ("K5 emt_bitserial", s.k5),
+              ("engine, analog", s.engine),
+              ("engine, mixed placement", s.engine_mixed),
+              ("kernel calls vs plain, analog", s.calls_vs_plain),
+              ("kernel calls vs plain, mixed", s.mixed_calls_vs_plain),
+              ("logits vs plain, analog", s.logits_vs_plain),
+              ("logits vs plain, mixed", s.mixed_logits_vs_plain)]
     for name, fn in phases:
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
@@ -791,11 +1038,12 @@ def main() -> int:
     if s.failures:
         print(f"chip_smoke FAILED: {s.failures}", file=sys.stderr)
         return 1
-    print("engine: " + json.dumps(s.engine_summary))
+    print("engine, analog: " + json.dumps(s.engine_summary))
+    print("engine, mixed placement: " + json.dumps(s.mixed_summary))
     print(s.smi)
     print(json.dumps({"kernels": [s.records[n] for n in
                                   ("paged_attention_decode", "paged_prefill",
-                                   "emt_matmul")]}))
+                                   "emt_matmul", "emt_bitserial")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Config helpers: the EMT preset and smoke-scale reduction (port of
-:mod:`repro.configs.common`)."""
+"""Config helpers: the EMT preset, device placements and smoke-scale
+reduction (port of :mod:`repro.configs.common`)."""
 from __future__ import annotations
 
 import torch
@@ -7,6 +7,8 @@ import torch
 from repro_torch.core.device import DeviceModel, get_device
 from repro_torch.core.emt_linear import EMTConfig, IDEAL
 from repro_torch.core.noise import NoiseConfig
+from repro_torch.core.placement import (DevicePlacement, LayerRule,
+                                        emt_for_corner)
 from repro_torch.core.quant import QuantConfig
 from repro_torch.models.config import ModelConfig
 
@@ -29,6 +31,51 @@ def emt_preset(mode: str = "analog", rng: str = "hash",
         energy_accounting=energy_accounting,
         corner=device or "",
     )
+
+
+def mixed_placement(rng: str = "hash") -> DevicePlacement:
+    """The worked mixed-technology example (docs/device_models.md): analog
+    attention on PCM, bit-serial MLPs/experts on RRAM, routers on digital
+    SRAM, everything else (the unembed included) analog PCM.  On a dense
+    model the expert and router rules match nothing."""
+    noise = NoiseConfig(backend=rng, granularity="per_step")
+    pcm = emt_for_corner("pcm", "analog").replace(noise=noise)
+    rram_bs = emt_for_corner("rram", "bitserial").replace(noise=noise)
+    sram = emt_for_corner("sram_digital", "analog").replace(noise=noise)
+    return DevicePlacement(
+        rules=(
+            LayerRule("*/attn/*", pcm),
+            LayerRule("*/xattn/*", pcm),
+            LayerRule("*/mlp/*", rram_bs),
+            LayerRule("*/moe/experts", rram_bs),
+            LayerRule("*/moe/router", sram),
+        ),
+        default=pcm)
+
+
+def placement_preset(name: str, rng: str = "hash") -> DevicePlacement:
+    """Named placement presets (the values of ``--placement``)."""
+    noise = NoiseConfig(backend=rng, granularity="per_step")
+    if name == "mixed":
+        return mixed_placement(rng)
+    if name == "attn-pcm":
+        # attention analog on PCM, everything else digital
+        return DevicePlacement(
+            rules=(LayerRule("*/attn/*", emt_for_corner("pcm", "analog")
+                             .replace(noise=noise)),),
+            default=IDEAL)
+    if name == "digital-router":
+        # one global analog config, routers pinned to the digital corner
+        return DevicePlacement(
+            rules=(LayerRule("*/moe/router",
+                             emt_for_corner("sram_digital", "analog")
+                             .replace(noise=noise)),),
+            default=emt_preset("analog", rng=rng))
+    raise KeyError(f"unknown placement preset {name!r}; "
+                   f"known: {sorted(PLACEMENTS)}")
+
+
+PLACEMENTS = ("mixed", "attn-pcm", "digital-router")
 
 
 def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -1,12 +1,14 @@
-"""EMT dense layer: the paper's techniques A/B as a drop-in matmul.
+"""EMT dense layer: the paper's techniques A/B/C as a drop-in matmul.
 
-Port of :mod:`repro.core.emt_linear` for the ``ideal`` and ``analog`` modes.
-Every call returns ``(y, aux)``: aux carries the technique-B regularization
-term, the analytic energy estimate in pJ, and read/cell counts, summed up
-the model with :func:`add_aux`.  In analog mode the noisy product goes
-through the fused technique-A kernel (``kernels/emt_matmul.py``), which
-computes the same arithmetic as JAX's ``fluctuate`` + ``@`` without a
-weight-sized noise tensor.
+Port of :mod:`repro.core.emt_linear` for the ``ideal``, ``analog`` and
+``bitserial`` modes.  Every call returns ``(y, aux)``: aux carries the
+technique-B regularization term, the analytic energy estimate in pJ, and
+read/cell counts, summed up the model with :func:`add_aux`.  In analog mode
+the noisy product goes through the fused technique-A kernel
+(``kernels/emt_matmul.py``), which computes the same arithmetic as JAX's
+``fluctuate`` + ``@`` without a weight-sized noise tensor; in bitserial mode
+through the technique-C kernel (``kernels/emt_bitserial.py``), JAX's
+``decompose.bitserial_matmul_ref``.
 
 Scalar aux entries start as Python floats and become float32 tensors on the
 model's device as layers add into them, so accounting needs no host sync.
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import regularizer
+from repro_torch.core.decompose import popcount_levels
 from repro_torch.core.device import DEFAULT_DEVICE, DeviceModel
 from repro_torch.core.noise import NoiseConfig
 from repro_torch.core.quant import QuantConfig, quant_levels, quantize_weights
@@ -46,10 +49,6 @@ class EMTConfig:
     def __post_init__(self):
         if self.mode not in ("ideal", "analog", "bitserial"):
             raise ValueError(f"unknown EMT mode {self.mode!r}")
-        if self.mode == "bitserial":
-            raise NotImplementedError(
-                "bitserial mode (technique C) needs kernel K5 "
-                "(emt_bitserial_pallas), ported with " + _LATER)
         if self.store_int8:
             raise NotImplementedError("store_int8 weights are ported with "
                                       + _LATER)
@@ -137,18 +136,31 @@ def emt_dense(params: dict, x: torch.Tensor, cfg: EMTConfig, *, tag: str,
     wq, _ = quantize_weights(w, cfg.quant)
     a_axis = -1 if cfg.quant.a_per_row else None
     levels, a_scale = quant_levels(x, cfg.quant.a_bits, axis=a_axis)
-    xin = levels * a_scale
     n_tokens = math.prod(x.shape[:-1])
 
-    if not cfg.noise.enabled:
-        y = xin @ wq
-    elif cfg.noise.backend != "hash":
-        raise NotImplementedError(
-            f"noise backend {cfg.noise.backend!r} is ported with " + _LATER)
+    if cfg.mode == "analog":
+        xin = levels * a_scale
+        if not cfg.noise.enabled:
+            y = xin @ wq
+        elif cfg.noise.backend != "hash":
+            raise NotImplementedError(
+                f"noise backend {cfg.noise.backend!r} is ported with "
+                + _LATER)
+        else:
+            y = ops.emt_matmul(xin, wq, cfg.device.sigma_rel(rho),
+                               device=cfg.device, seed=seed, plane=plane)
+        # mean input level in LEVEL units, comparable with Eq. 19's popcount
+        x_level = torch.mean(torch.abs(levels)).detach()
     else:
-        y = ops.emt_matmul(xin, wq, cfg.device.sigma_rel(rho),
-                           device=cfg.device, seed=seed, plane=plane)
-    x_level = torch.mean(torch.abs(levels)).detach()
+        # bitserial: one crossbar read per activation bit-plane, each with
+        # its own hash noise (as JAX, whatever cfg.noise says); energy counts
+        # the bit reads actually made (Eq. 19)
+        bits = cfg.quant.a_bits - 1
+        y = ops.emt_bitserial_matmul(levels, wq, cfg.device.sigma_rel(rho),
+                                     device=cfg.device, bits=bits, seed=seed,
+                                     base_plane=plane) * a_scale
+        x_level = torch.mean(popcount_levels(torch.abs(levels), bits)
+                             ).detach()
     reads_per_cell = float(n_tokens)
 
     if "b" in params:

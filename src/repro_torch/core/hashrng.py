@@ -2,7 +2,7 @@
 
 Noise is a pure function of ``(seed, plane, global_row, global_col)``: two
 rounds of the murmur3/lowbias32 finalizer over a Weyl-sequence counter.  The
-CUDA kernel (``kernels/csrc/hashrng.cuh``) evaluates the same function per
+CUDA kernels (``kernels/csrc/common.cuh``) evaluate the same function per
 weight element inside its tile, so the kernel and this reference agree bit
 for bit.
 

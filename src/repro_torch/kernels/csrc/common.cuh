@@ -18,12 +18,25 @@ __device__ __forceinline__ uint32_t finalize(uint32_t x) {
   return x;
 }
 
+// hash_counters(seed, row, col, plane) split into its (row, col) part, its
+// (seed, plane) part and the mix of the two, so a kernel that hashes one
+// element on many planes computes the element's part once (XOR is
+// associative: the bits are the same).
+__device__ __forceinline__ uint32_t hash_rc(uint32_t row, uint32_t col) {
+  return (row * 0x9E3779B9u) ^ (col * 0x85EBCA6Bu);
+}
+
+__device__ __forceinline__ uint32_t hash_pk(uint32_t seed, uint32_t plane) {
+  return (plane * 0xC2B2AE35u) ^ seed;
+}
+
+__device__ __forceinline__ uint32_t hash_mix(uint32_t rc, uint32_t pk) {
+  return finalize(finalize(rc ^ pk) ^ 0x68E31DA4u);
+}
+
 __device__ __forceinline__ uint32_t hash_counters(uint32_t seed, uint32_t row,
                                                   uint32_t col, uint32_t plane) {
-  uint32_t h = (row * 0x9E3779B9u) ^ (col * 0x85EBCA6Bu);
-  h = h ^ (plane * 0xC2B2AE35u) ^ seed;
-  h = finalize(h);
-  return finalize(h ^ 0x68E31DA4u);
+  return hash_mix(hash_rc(row, col), hash_pk(seed, plane));
 }
 
 // RTN state table: thresholds are the cumulative state probabilities as

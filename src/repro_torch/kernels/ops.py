@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.device import DeviceModel
+from repro_torch.kernels.emt_bitserial import emt_bitserial as _emt_bitserial
 from repro_torch.kernels.emt_matmul import emt_matmul as _emt_matmul
 from repro_torch.kernels.paged_attention import \
     paged_attention_decode as _paged_decode
@@ -28,6 +29,18 @@ def emt_matmul(x, w, sig, *, device: DeviceModel, seed: int = 0,
     kdim, n = w.shape
     y = _emt_matmul(x.reshape(-1, kdim), w, sig, device=device, seed=seed,
                     plane=plane)
+    return y.reshape(*lead, n)
+
+
+def emt_bitserial_matmul(xq, w, sig, *, device: DeviceModel, bits: int = 7,
+                         seed: int = 0, base_plane: int = 0):
+    """Bit-serial noisy crossbar matmul (technique C): integer-valued levels
+    xq (..., K) against noisy(w (K, N)) one bit-plane at a time -> (..., N)
+    fp32."""
+    lead = xq.shape[:-1]
+    kdim, n = w.shape
+    y = _emt_bitserial(xq.reshape(-1, kdim), w, sig, device=device,
+                       bits=bits, seed=seed, base_plane=base_plane)
     return y.reshape(*lead, n)
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three Hopper kernels (port of
+"""Plain PyTorch versions of the Hopper kernels (port of
 :mod:`repro.kernels.ref`).
 
 Each function computes exactly what its kernel computes, with one-shot
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashrng
+from repro_torch.core.decompose import bitserial_fwd
 from repro_torch.core.device import DeviceModel
 from repro_torch.core.noise import noise_factor
 
@@ -31,6 +32,16 @@ def emt_matmul_ref(x, w, sig, *, device: DeviceModel, seed=0, plane=0):
                                       device=w.device)
     wn = (w.to(torch.float32) * noise_factor(offs, sig)).to(w.dtype)
     return torch.matmul(x, wn).to(torch.float32)
+
+
+def emt_bitserial_ref(xq, w, sig, *, device: DeviceModel, bits=7, seed=0,
+                      base_plane=0):
+    """Technique C: for each plane p < bits, 2^p (sign(xq) delta_p(|xq|)) @
+    (w * (1 + a_p * sig)) with fresh hash noise on plane base_plane + p,
+    summed per plane.  xq (M, K) integer-valued float levels.  Returns
+    (M, N) fp32."""
+    return bitserial_fwd(xq, w, sig, device, bits, seed=seed,
+                         base_plane=base_plane)
 
 
 def _bmm_masked_attend(q, kv, vv, mask_rows, *, softcap=0.0):

@@ -1,13 +1,15 @@
 """Model configuration (port of :mod:`repro.models.config`), reduced to the
-fields the port's dense decoder stack reads."""
+fields the port's dense decoder stack reads, with per-layer device
+placement."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.emt_linear import EMTConfig, IDEAL
+from repro_torch.core.placement import DevicePlacement, as_placement
 
 ATTN_KINDS = ("attn", "global", "local")
 
@@ -39,7 +41,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     act: str = "silu"
     dtype: Any = torch.bfloat16
-    emt: EMTConfig = IDEAL
+    emt: Union[EMTConfig, DevicePlacement] = IDEAL
     logit_dtype: Any = torch.float32
 
     def __post_init__(self):
@@ -59,10 +61,39 @@ class ModelConfig:
         reps = -(-self.num_layers // len(pat))
         return tuple((pat * reps)[: self.num_layers])
 
+    # --- heterogeneous device placement -----------------------------------
+    @property
+    def placement(self) -> DevicePlacement:
+        return as_placement(self.emt)
+
     def emt_at(self, path: str) -> EMTConfig:
-        """EMT config of the layer at canonical `path` (one corner for the
-        whole model in this slice; per-layer placement comes later)."""
-        return self.emt
+        """Resolved EMT config of the layer at canonical `path`."""
+        return self.placement.resolve(path)
+
+    def emt_rule_at(self, path: str) -> Optional[EMTConfig]:
+        """Explicit-rule-only resolution (None unless a rule matches)."""
+        return self.placement.match(path)
+
+    def layer_paths(self) -> Tuple[str, ...]:
+        """All canonical placement paths of this model, in build order (the
+        dense decoder stack: attention projections, then the GLU MLP)."""
+        paths = []
+        for i in range(self.num_layers):
+            base = f"dec/layer_{i:03d}"
+            paths.extend(f"{base}/attn/{w}" for w in ("wq", "wk", "wv", "wo"))
+            if self.d_ff > 0:
+                paths.extend(f"{base}/mlp/{w}" for w in ("wg", "wu", "wd"))
+        paths.append("unembed")
+        return tuple(paths)
+
+    def placement_plan(self) -> Tuple[Tuple[str, str, str], ...]:
+        """Resolved (path, corner, mode) triples: the static per-layer
+        plan."""
+        plan = []
+        for p in self.layer_paths():
+            emt = self.emt_at(p)
+            plan.append((p, emt.corner_label, emt.mode))
+        return tuple(plan)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -13,8 +13,10 @@ position (:func:`view_bucket`).
 
 Energy: a step's ``energy_pj`` is split e / batch_size per row; idle rows'
 share accrues to ``idle_energy_pj``, so per-request energy plus idle waste
-equals the engine total.  With ``fresh_noise=False`` the EMT fluctuation is
-frozen at the engine seed and generation is a pure function of the request.
+equals the engine total.  ``corner_energy_pj`` books the same energy per
+technology corner of the config's device placement (``pcm``, ``rram``,
+...).  With ``fresh_noise=False`` the EMT fluctuation is frozen at the
+engine seed and generation is a pure function of the request.
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, batch_size: int,
                  max_len: int, seed: int = 0, fresh_noise: bool = True,
                  paged: bool = True, block_size: int = 16,
-                 num_blocks: Optional[int] = None,
+                 num_blocks: Optional[int] = None, placement=None,
                  chunked_prefill: Optional[bool] = None,
                  prefill_chunk: int = 16, prefix_cache: bool = False,
                  n_shards: int = 1, max_pending: Optional[int] = None,
@@ -98,6 +100,11 @@ class ServingEngine:
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk {prefill_chunk} < 1")
         self.device = resolve_device(device)
+        if placement is not None:
+            # a device placement (EMTConfig or DevicePlacement) overrides the
+            # config's EMT surface for this engine; params must have been
+            # built for the same placement
+            cfg = cfg.replace(emt=placement)
         self.cfg = cfg
         self.params = params
         self.batch_size = batch_size

@@ -170,10 +170,13 @@ def test_k3_noise_independent_of_layout_and_batching():
 
 
 def test_emt_config_rejects_unported_modes():
-    with pytest.raises(NotImplementedError, match="K5"):
-        t_emt_preset("bitserial")
+    """bitserial (technique C, kernel K5) is ported; store_int8 is not."""
+    cfg = t_emt_preset("bitserial")
+    assert cfg.mode == "bitserial" and cfg.active
     with pytest.raises(NotImplementedError, match="later slice"):
         tel.EMTConfig(mode="analog", store_int8=True)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tel.EMTConfig(mode="bitserial", store_int8=True)
 
 
 def test_rho_from_raw_matches():

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small shapes.  Marked ``gpu``: the fixture skips them where torch sees no
+small shapes, and the shrunk engine on the card (analog and the mixed
+placement).  Marked ``gpu``: the fixture skips them where torch sees no
 CUDA device; on a machine with an H100 run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.core import noise
 from repro_torch.core.device import DeviceModel, four_state_device
+from repro_torch.kernels import emt_bitserial as k5
 from repro_torch.kernels import emt_matmul as k3
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as k1
@@ -56,6 +58,37 @@ def test_k3_matches_plain_and_noise_bit_exact(cuda, M, K, N, transposed, dev):
     ref = noise.fluctuate(w, rho, dev, noise.NoiseConfig(), seed=99,
                           plane=1234)
     assert torch.equal(wn, ref)
+
+
+@pytest.mark.parametrize("M,K,N,transposed", [(4, 96, 200, False),
+                                              (64, 1024, 130, False),
+                                              (3, 64, 300, True)])
+@pytest.mark.parametrize("dev", [DeviceModel(), four_state_device()],
+                         ids=["two", "four"])
+def test_k5_matches_plain_and_planes_bit_exact(cuda, M, K, N, transposed,
+                                               dev):
+    """K = 1024 with N = 130 runs the split-K path (partials + the ordered
+    sum).  With levels 2^p on the identity the kernel returns 2^p times
+    plane p's noisy weight, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    xq = torch.round(torch.randn((M, K), generator=g, device=cuda) * 40)
+    xq = xq.clamp(-127, 127)
+    w = torch.randn((N, K) if transposed else (K, N), generator=g,
+                    device=cuda)
+    w = w.T if transposed else w
+    rho = torch.tensor(3.5, device=cuda)
+    sig = dev.sigma_rel(rho)
+    kw = dict(device=dev, bits=7, seed=99, base_plane=1234)
+    before = k5.emt_bitserial.launches
+    y = k5.emt_bitserial(xq, w, sig, **kw)
+    assert k5.emt_bitserial.launches == before + 1
+    assert _rel(y, k5.plain(xq, w, sig, **kw)) <= 1e-5
+    eye = torch.eye(K, device=cuda)
+    for p in range(7):
+        wn = k5.emt_bitserial(eye * 2.0 ** p, w, sig, **kw)
+        ref = noise.fluctuate(w, rho, dev, noise.NoiseConfig(), seed=99,
+                              plane=1234 + p)
+        assert torch.equal(wn, ref * 2.0 ** p), p
 
 
 def test_k1_matches_plain_and_pools_bit_identical(cuda):
@@ -111,15 +144,26 @@ def test_k2_matches_plain(cuda, bs, G, C):
 
 
 def test_engine_on_card_launches_every_kernel(cuda):
+    _serve_on_card(None)
+
+
+def test_mixed_engine_on_card_launches_every_kernel(cuda):
+    """The mixed placement adds the bit-serial kernel (MLPs on RRAM)."""
+    _serve_on_card("mixed")
+
+
+def _serve_on_card(placement):
     from repro_torch.models import lm
     from repro_torch.serve.engine import GenRequest, ServingEngine
     from repro_torch.serve.spec import build_config
-    cfg = build_config(smoke=True, a_per_row=True,
+    cfg = build_config(smoke=True, a_per_row=True, placement=placement,
                        model_overrides={"num_layers": 2})
     params = lm.init_model_params(cfg, 0)
     eng = ServingEngine(cfg, params, batch_size=2, max_len=32, block_size=8,
                         prefill_chunk=8, fresh_noise=False)
     counters = (k1.paged_attention_decode, k2.paged_prefill, k3.emt_matmul)
+    if placement == "mixed":
+        counters += (k5.emt_bitserial,)
     before = [c.launches for c in counters]
     rng = np.random.default_rng(0)
     res = eng.serve([GenRequest(prompt=rng.integers(0, 512, n)
