@@ -6,14 +6,16 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi) and the torch/CUDA versions;
-2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   nvcc each, in parallel) and print ptxas' registers / shared memory /
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+   per source, in parallel) and print ptxas' registers / shared memory /
    spills;
 3. hold every kernel against its plain PyTorch version on the card at the
-   main paths' shapes (gemma3-1b, batch 4, block 16, chunk 16) and time it,
-   its plain version and one PyTorch library call computing the same
-   function (a yardstick the port never calls), beside its bound; the
-   bit-serial kernel also shows every plane's noisy weight bit-exact;
+   main paths' shapes (gemma3-1b, batch 4, block 16, chunk 16; the
+   read-only cross-attention kernel at seamless-m4t-medium's and gemma3's
+   head shapes) and time it, its plain version and one PyTorch library call
+   computing the same function (a yardstick the port never calls), beside
+   its bound; the bit-serial kernel also shows every plane's noisy weight
+   bit-exact;
 4. serve 6 staggered requests through the port's ServingEngine at full
    gemma3-1b width (random weights from a seed; all-global, per-row DAC
    scale, frozen noise, paged KV, chunked prefill) on two paths: analog
@@ -25,16 +27,27 @@ Phases (any failure exits non-zero and prints no result line):
    step and one decode step is held to its plain version on the model's
    activations, and those steps' logits to the plain path's (1e-3 with a
    24-bit activation DAC; the main paths' 8-bit DAC gap is reported with
-   the level flips that cause it).
+   the level flips that cause it);
+5. serve 6 staggered requests through full-width seamless-m4t-medium
+   (12 encoder + 12 decoder layers, random weights from a seed, analog,
+   per-row DAC scale, frozen noise, paged KV, the legacy bucketed prefill;
+   the engine's encoder input is all zeros, the speech front end being a
+   stub) with exact launch counts: K1 and K4 12 per decode step, K3 217 per
+   admission and 109 per decode step.  Then, with random encoder frame
+   embeddings so that the cross K/V are not zero, three batch-1 prefills,
+   their paged insert and one decode step at batch 4 (one idle row): every
+   kernel call held to its plain version, and the logits to the plain
+   path's as in phase 4.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Every "ms" is the kernel's time in one
-main-path step: K1 = the 26 decode-attention launches of a decode step,
-K2 = the 26 prefill launches of a chunk step, K3 = the 183 noisy matmuls of
-an analog decode step, K5 = the 78 bit-serial MLP matmuls of a mixed decode
-step.  "launches" counts K1-K3 in the analog run and K5 in the mixed run.
-Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s (FP32, no
-tensor cores).
+main-path step: K1 = the 26 decode-attention launches of a gemma3 decode
+step, K2 = the 26 prefill launches of a chunk step, K3 = the 183 noisy
+matmuls of an analog decode step, K4 = the 12 cross-attention launches of
+a seamless decode step, K5 = the 78 bit-serial MLP matmuls of a mixed
+decode step.  "launches" counts K1-K3 in the analog run, K4 in the seamless
+run and K5 in the mixed run.  Bounds use the H100 SXM's published 3.35 TB/s
+and 67 TFLOP/s (FP32, no tensor cores).
 """
 from __future__ import annotations
 
@@ -51,6 +64,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 ARCH = "gemma3-1b"
+SEAMLESS = "seamless-m4t-medium"
 BATCH, BLOCK, CHUNK, MAX_LEN, MAX_NEW = 4, 16, 16, 128, 8
 SEED = 0
 
@@ -74,6 +88,22 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, key: str) -> float:
+    """Device time (ms) of the kernels whose name contains `key` in one run
+    of fn, from torch.profiler: the kernels alone, without the host's
+    dispatch gaps that a CUDA-event time of short launches includes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if key in e.key) / 1e3
 
 
 def rel_err(a, b) -> tuple:
@@ -153,6 +183,24 @@ class Smoke:
         for _, corner, mode in self.mixed.placement_plan():
             plan[(corner, mode)] = plan.get((corner, mode), 0) + 1
         print(f"  mixed placement: {plan} projections per (corner, mode)")
+
+    def seamless_model(self):
+        from repro_torch.models import lm
+        from repro_torch.serve.spec import build_config
+        self.s2s = build_config(SEAMLESS, "analog", smoke=False,
+                                a_per_row=True)
+        t0 = time.perf_counter()
+        self.s2s_params = lm.init_model_params(self.s2s, SEED,
+                                               device=self.dev)
+        self.sync()
+        n = sum(p.numel() for _, p in _flat(self.s2s_params))
+        cfg = self.s2s
+        print(f"model: {SEAMLESS} full width, {cfg.encoder_layers} encoder + "
+              f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, "
+              f"{cfg.num_heads} heads of {cfg.head_dim} (kv "
+              f"{cfg.num_kv_heads}), d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}, untied lm_head: {n:,} parameters (f32), "
+              f"init {time.perf_counter() - t0:.2f} s")
 
     def k3(self):
         """Technique-A matmul at every projection of one decode step."""
@@ -458,6 +506,7 @@ class Smoke:
                 F.scaled_dot_product_attention(qh, kv, vv, attn_mask=am)
 
         ms = cuda_time(run_kernel, 20)
+        dev_ms = device_ms(run_kernel, "paged_decode_kernel<true>")
         plain_ms = cuda_time(run_plain, 10)
         lib_ms = cuda_time(run_library, 20)
         nl = cfg.num_layers
@@ -476,7 +525,8 @@ class Smoke:
             max_abs_err=d, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=by, library_ms=lib_ms)
         del views
-        print(f"  K1 per decode step ({nl} launches): kernel {ms:.4f} ms, "
+        print(f"  K1 per decode step ({nl} launches): kernel {ms:.4f} ms "
+              f"(device time {dev_ms:.4f} ms), "
               f"plain {plain_ms:.4f} ms, SDPA on the gathered view "
               f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({by}), roofline share "
               f"{100 * b_ms / ms:.2f}%")
@@ -564,15 +614,116 @@ class Smoke:
               f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({by}), roofline share "
               f"{100 * b_ms / ms:.2f}%")
 
+    def k4(self):
+        """Read-only paged attention (the cross attention's decode read) at
+        seamless-m4t-medium's decode shapes (timed: its 12 layers) and at
+        gemma3's head shapes; rows of encoder length 0, 1, a partial last
+        block and the whole view."""
+        import torch.nn.functional as F
+        from repro_torch.kernels import paged_attention as k
+        from repro_torch.kernels.ref import NEG_INF, paged_view
+        torch = self.torch
+        L = MAX_LEN
+        T = L // BLOCK
+        lens = [0, 1, 6 * BLOCK + 4, L]
+        gen = torch.Generator(device=self.dev).manual_seed(6)
+        timed = None
+        for cfg in (self.s2s, self.cfg):
+            KV, hd = cfg.num_kv_heads, cfg.head_dim
+            G = cfg.num_heads // KV
+            nb = BATCH * T
+            pools = []
+            for _ in range(cfg.num_layers if cfg is self.s2s else 1):
+                kp = torch.randn((nb + 1, BLOCK, KV, hd), generator=gen,
+                                 device=self.dev)
+                vp = torch.randn((nb + 1, BLOCK, KV, hd), generator=gen,
+                                 device=self.dev)
+                kp[nb] = 0.0
+                vp[nb] = 0.0
+                pools.append((kp, vp))
+            table = torch.randperm(nb, generator=gen, device=self.dev)
+            table = table.reshape(BATCH, T).to(torch.int32)
+            table[1, 1:] = nb                      # short row: zero blocks
+            table[2, -1] = nb
+            n = torch.tensor(lens, device=self.dev)
+            mask = torch.where(torch.arange(L, device=self.dev)[None, :]
+                               < n[:, None], 0.0, NEG_INF).to(torch.float32)
+            q = torch.randn((BATCH, KV, G, hd), generator=gen,
+                            device=self.dev)
+            kp, vp = pools[0]
+            kp0, vp0 = kp.clone(), vp.clone()
+            out = k.paged_attention(q, kp, vp, table, mask)
+            ref = k.plain_attend(q, kp, vp, table, mask)
+            self.sync()
+            d, r = rel_err(out, ref)
+            unchanged = torch.equal(kp, kp0) and torch.equal(vp, vp0)
+            zero_row = bool((out[0] == 0).all())
+            print(f"  K4 {cfg.name}: B={BATCH} KV={KV} G={G} hd={hd} "
+                  f"bs={BLOCK} T={T}, encoder lengths {lens}: max|diff| "
+                  f"{d:.3e} rel {r:.3e}; pools unchanged: {unchanged}; "
+                  f"length-0 row exact zeros: {zero_row}")
+            self.check(r <= 1e-5, f"K4 {cfg.name} rel {r:.3e} > 1e-5")
+            self.check(unchanged, f"K4 {cfg.name} wrote its read-only pools")
+            self.check(zero_row, f"K4 {cfg.name} length-0 row not zero")
+            if cfg is self.s2s:
+                timed = (KV, G, hd, pools, table, mask, q, d)
+        KV, G, hd, pools, table, mask, q, d = timed
+
+        def run_kernel():
+            for kp, vp in pools:
+                k.paged_attention(q, kp, vp, table, mask)
+
+        def run_plain():
+            for kp, vp in pools:
+                k.plain_attend(q, kp, vp, table, mask)
+
+        H = KV * G
+        views = [(paged_view(kp, table).permute(0, 2, 1, 3)
+                  .expand(BATCH, H, L, hd).contiguous(),
+                  paged_view(vp, table).permute(0, 2, 1, 3)
+                  .expand(BATCH, H, L, hd).contiguous()) for kp, vp in pools]
+        qh = q.reshape(BATCH, H, 1, hd)
+        am = mask[:, None, None, :]
+
+        def run_library():
+            for kv, vv in views:
+                F.scaled_dot_product_attention(qh, kv, vv, attn_mask=am)
+
+        ms = cuda_time(run_kernel, 20)
+        dev_ms = device_ms(run_kernel, "paged_decode_kernel<false>")
+        plain_ms = cuda_time(run_plain, 10)
+        lib_ms = cuda_time(run_library, 20)
+        nl = len(pools)
+        # bytes: q in, out, mask, table and the K/V of every visible
+        # position; FLOPs: q.k and p.v over the visible positions
+        vis = int((mask > NEG_INF / 2).sum().item())
+        nbytes = nl * 4 * (2 * q.numel() + mask.numel() + table.numel()
+                           + 2 * vis * KV * hd)
+        flops = nl * 4 * hd * KV * G * vis
+        b_ms, by = bound(nbytes, flops)
+        self.records["paged_attention"] = dict(
+            name="paged_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention.py:226",
+            max_abs_err=d, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=by, library_ms=lib_ms)
+        del views
+        print(f"  K4 per seamless decode step ({nl} launches): kernel "
+              f"{ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, SDPA on the gathered "
+              f"view {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({by}; "
+              f"{nbytes / 1e6:.3f} MB), roofline share "
+              f"{100 * b_ms / ms:.2f}%")
+
     # -- phase 4 -------------------------------------------------------------
-    def _requests(self):
+    def _requests(self, cfg):
         import numpy as np
         from repro_torch.serve.engine import GenRequest
         rng = np.random.default_rng(SEED + 11)
         reqs = []
         for i in range(6):
             plen = int(rng.integers(20, MAX_LEN - MAX_NEW + 1))
-            kw = dict(prompt=rng.integers(0, self.cfg.vocab_size, plen)
+            kw = dict(prompt=rng.integers(0, cfg.vocab_size, plen)
                       .astype(np.int32), max_new=MAX_NEW, seed=1000 + i)
             if i in (1, 4):
                 kw.update(temperature=0.8, top_k=40)
@@ -581,27 +732,31 @@ class Smoke:
 
     def _profile_steps(self, eng, reqs, per_kind: int = 2):
         """Serve `reqs` on `eng`, profiling single steps (from the third on)
-        until `per_kind` chunk steps and `per_kind` decode steps are
+        until `per_kind` steps with prefill work (chunk steps; admission
+        steps of the legacy prefill) and `per_kind` decode steps are
         captured; print each step's wall time, device busy time and top
         kernels.  Profiling single steps keeps the trace small."""
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         for r in reqs:
             eng.submit(r)
-        seen = {"chunk": 0, "decode": 0}
+        prefill = "chunk" if eng.chunked else "admission + decode"
+        seen = {prefill: 0, "decode": 0}
         n = 0
         while eng.scheduler.busy:
             n += 1
             if n < 3 or min(seen.values()) >= per_kind:
                 eng.step()
                 continue
-            before = eng.prefill_tokens_total
+            before = (eng.prefill_tokens_total, eng.scheduler.pending)
             t0 = time.perf_counter()
             with profile(activities=acts) as prof:
                 eng.step()
                 self.sync()
             wall = (time.perf_counter() - t0) * 1e3
-            kind = "chunk" if eng.prefill_tokens_total > before else "decode"
+            admitted = (eng.prefill_tokens_total > before[0]
+                        or eng.scheduler.pending < before[1])
+            kind = prefill if admitted else "decode"
             if seen[kind] >= per_kind:
                 continue
             seen[kind] += 1
@@ -624,29 +779,30 @@ class Smoke:
         from repro_torch.kernels import paged_attention as k1
         from repro_torch.kernels import paged_prefill as k2
         return {"paged_attention_decode": k1.paged_attention_decode,
+                "paged_attention": k1.paged_attention,
                 "paged_prefill": k2.paged_prefill,
                 "emt_matmul": k3.emt_matmul,
                 "emt_bitserial": k5.emt_bitserial}
 
-    def _serve(self, cfg, label, per_kind):
+    def _serve(self, cfg, params, label, per_kind):
         """Serve the 6 requests on `cfg` (after one warm-up run) with every
         launch count reset just before and read just after; profile
-        `per_kind` chunk and decode steps of a third run.  Returns (summary,
-        launches, metrics)."""
+        `per_kind` prefill and decode steps of a third run.  Returns
+        (summary, launches, metrics, results)."""
         import numpy as np
         from repro_torch.serve.engine import ServingEngine
         torch = self.torch
 
         def make():
-            return ServingEngine(cfg, self.params, batch_size=BATCH,
+            return ServingEngine(cfg, params, batch_size=BATCH,
                                  max_len=MAX_LEN, seed=SEED,
                                  fresh_noise=False, paged=True,
                                  block_size=BLOCK, prefill_chunk=CHUNK,
                                  device=self.dev)
 
-        make().serve(self._requests(), stagger=2)        # warm-up
+        make().serve(self._requests(cfg), stagger=2)     # warm-up
         eng = make()
-        reqs = self._requests()
+        reqs = self._requests(cfg)
         counters = self._counters()
         self.sync()
         torch.cuda.reset_peak_memory_stats()
@@ -685,12 +841,12 @@ class Smoke:
                    <= 1e-6 * m["total_energy_pj"],
                    f"{label}: corners sum to {total}, total "
                    f"{m['total_energy_pj']}")
-        self._profile_steps(make(), self._requests(), per_kind)
+        self._profile_steps(make(), self._requests(cfg), per_kind)
         summary = dict(tok_s=ntok / wall, wall_s=wall, tokens=ntok,
                        steps=m["steps"],
                        uj_per_token=m["total_energy_pj"] * 1e-6 / ntok,
                        uj_per_token_by_corner=corners, peak_gib=peak / 2**30)
-        return summary, launches, m
+        return summary, launches, m, results
 
     def _check_launches(self, label, launches, steps, per_step):
         """Every kernel of the path launched; those with a fixed count per
@@ -707,10 +863,12 @@ class Smoke:
     def engine(self):
         """The analog path: K1, K2 and K3 (183 per step), no K5."""
         L = self.cfg.num_layers
-        summary, launches, m = self._serve(self.cfg, "analog", 2)
+        summary, launches, m, _ = self._serve(self.cfg, self.params,
+                                              "analog", 2)
         self._check_launches("analog", launches, m["steps"], {
             "paged_attention_decode": None, "paged_prefill": None,
-            "emt_matmul": 7 * L + 1, "emt_bitserial": 0})
+            "emt_matmul": 7 * L + 1, "emt_bitserial": 0,
+            "paged_attention": 0})
         for name in ("paged_attention_decode", "paged_prefill",
                      "emt_matmul"):
             self.records[name]["launches"] = launches[name]
@@ -720,18 +878,46 @@ class Smoke:
         """The mixed placement: K1, K2, K3 on attention and the unembed
         (105 per step), K5 on the MLPs (78 per step)."""
         L = self.mixed.num_layers
-        summary, launches, m = self._serve(self.mixed, "mixed", 1)
+        summary, launches, m, _ = self._serve(self.mixed, self.params,
+                                              "mixed", 1)
         self._check_launches("mixed", launches, m["steps"], {
             "paged_attention_decode": None, "paged_prefill": None,
-            "emt_matmul": 4 * L + 1, "emt_bitserial": 3 * L})
+            "emt_matmul": 4 * L + 1, "emt_bitserial": 3 * L,
+            "paged_attention": 0})
         self.check(set(m["corner_energy_pj"]) == {"pcm", "rram"},
                    f"mixed corners {sorted(m['corner_energy_pj'])}")
         self.records["emt_bitserial"]["launches"] = launches["emt_bitserial"]
         self.mixed_summary = summary
 
+    def engine_seamless(self):
+        """The enc-dec path through the legacy bucketed prefill: per
+        admission 217 K3 calls (84 encoder, 132 decoder, the unembed); per
+        decode step 12 K1 (self attention), 12 K4 (cross attention) and 109
+        K3 (12 x 9 projections + the unembed); no K2, no K5."""
+        cfg = self.s2s
+        L, E = cfg.num_layers, cfg.encoder_layers
+        summary, launches, m, results = self._serve(cfg, self.s2s_params,
+                                                    "seamless", 1)
+        steps, admitted = m["steps"], len(results)
+        self._check_launches("seamless", launches, steps, {
+            "paged_attention_decode": L, "paged_attention": L,
+            "paged_prefill": 0, "emt_bitserial": 0})
+        k3 = launches["emt_matmul"]
+        per_admission = 7 * E + 11 * L + 1
+        self.check(k3 == per_admission * admitted + (9 * L + 1) * steps,
+                   f"seamless: emt_matmul launched {k3} times for "
+                   f"{admitted} admissions and {steps} decode steps, want "
+                   f"{per_admission} and {9 * L + 1} each")
+        self.check(m["prefill_tokens_total"] == 0,
+                   "seamless: the legacy prefill booked chunk tokens")
+        self.records["paged_attention"]["launches"] = \
+            launches["paged_attention"]
+        self.s2s_summary = summary
+
     def _step_pair(self, cfg):
         """One chunk step (over K/V history) then one decode step on `cfg`,
-        from a fresh cache.  Returns (chunk logits, decode logits)."""
+        from a fresh cache.  Returns [(step, logits or None, projections
+        it runs)] in call order; the history step's logits are not held."""
         import numpy as np
         from repro_torch.models import lm
         from repro_torch.models.context import Ctx
@@ -767,7 +953,60 @@ class Smoke:
         ld, cache, _ = lm.decode_step(self.params, cache, nxt, start + ntok,
                                       cfg, Ctx(seed=SEED), active=act,
                                       page_tables=pt, page_lens=lens)
-        return lc, ld
+        n = 7 * cfg.num_layers + 1
+        return [("history chunk step", None, n), ("chunk step", lc, n),
+                ("decode step", ld, n)]
+
+    def _s2s_steps(self, cfg):
+        """The enc-dec path's model steps on `cfg` with random encoder
+        frame embeddings (so that the cross K/V are not zero): three batch-1
+        legacy prefills (buckets 16 and 64, and 100 at its exact length),
+        their paged insert into slots 0-2, then one paged decode step at
+        batch 4 with slot 3 idle (encoder length 0).  Returns [(step,
+        logits, projections it runs)] in call order."""
+        import numpy as np
+        from repro_torch.models import lm
+        from repro_torch.models.context import Ctx
+        from repro_torch.serve.engine import paged_insert, view_bucket
+        from repro_torch.serve.kv_pool import PagedKV
+        torch = self.torch
+        params, E, L = self.s2s_params, cfg.encoder_layers, cfg.num_layers
+        nb = BATCH * (MAX_LEN // BLOCK)
+        kv = PagedKV(BATCH, MAX_LEN, BLOCK, nb)
+        cache = lm.init_paged_cache(cfg, BATCH, MAX_LEN, BLOCK, nb,
+                                    device=self.dev)
+        rng = np.random.default_rng(7)
+        pos = np.zeros(BATCH, np.int64)
+        out, first = [], []
+        for slot, (plen, S) in enumerate(((13, 16), (40, 64), (100, 100))):
+            toks = np.zeros((1, S), np.int64)
+            toks[0, S - plen:] = rng.integers(0, cfg.vocab_size, plen)
+            enc = rng.standard_normal((1, S, cfg.d_model), dtype=np.float32)
+            batch = {"tokens": torch.as_tensor(toks, device=self.dev),
+                     "enc_embeds": torch.as_tensor(enc, device=self.dev)}
+            small = lm.init_cache(cfg, 1, MAX_LEN, device=self.dev)
+            small, logits, _ = lm.prefill(params, batch, cfg, Ctx(seed=SEED),
+                                          small)
+            self.check(kv.admit(slot, S, MAX_NEW), "admission refused")
+            paged_insert(cache, small, kv.scatter_rows(slot))
+            kv.ensure(slot, S)
+            pos[slot] = S
+            first.append(logits)
+            out.append((f"prefill (encoder length {S})", logits,
+                        7 * E + 11 * L + 1))
+        view = view_bucket(int(pos.max()) + 1, BLOCK, MAX_LEN)
+        table = torch.as_tensor(kv.gather_table()[:, :view // BLOCK],
+                                device=self.dev).contiguous()
+        tok = np.zeros(BATCH, np.int64)
+        tok[:3] = self._first_tokens(torch.cat(first))
+        tok, pos = (torch.as_tensor(a, device=self.dev) for a in (tok, pos))
+        ld, _, _ = lm.decode_step(
+            params, cache, tok, pos, cfg, Ctx(seed=SEED), active=pos > 0,
+            page_tables={"global": table},
+            page_lens=lm.clamped_lens(lm.paged_lens(cfg, MAX_LEN), view),
+            enc_lens=pos)
+        out.append(("decode step (batch 4, one idle row)", ld, 9 * L + 1))
+        return out
 
     def _first_tokens(self, logits):
         """Decode inputs shared by both paths (the first path's argmax)."""
@@ -775,22 +1014,24 @@ class Smoke:
             self._tokens = logits.argmax(-1).cpu().numpy()
         return self._tokens
 
-    def _calls_vs_plain(self, cfg, label, expect):
-        """Every kernel call of a chunk step and a decode step of `cfg` at
-        full width, checked against its plain version on the same inputs
-        (the real activations, pools and tables of the model).  `expect`
-        names the kernels the path must have called."""
-        from repro_torch.kernels import ops
+    def _calls_vs_plain(self, cfg, label, expect, steps):
+        """Every kernel call of `steps` (a step function) on `cfg` at full
+        width, checked against its plain version on the same inputs (the
+        real activations, pools and tables of the model).  `expect` names
+        the kernels the path must have called."""
         from repro_torch.kernels import emt_bitserial as k5
         from repro_torch.kernels import emt_matmul as k3
+        from repro_torch.kernels import ops
         from repro_torch.kernels import paged_attention as k1
         from repro_torch.kernels import paged_prefill as k2
+        torch = self.torch
         worst = {"emt_matmul": 0.0, "emt_bitserial": 0.0,
-                 "paged_attention_decode": 0.0, "paged_prefill": 0.0}
+                 "paged_attention_decode": 0.0, "paged_attention": 0.0,
+                 "paged_prefill": 0.0}
         counts = dict.fromkeys(worst, 0)
-        pools_ok = [True]
+        pools_ok = {"paged_attention_decode": True, "paged_attention": True}
         names = ("_emt_matmul", "_emt_bitserial", "_paged_decode",
-                 "_paged_prefill")
+                 "_paged_attend", "_paged_prefill")
         orig = {n: getattr(ops, n) for n in names}
 
         def checked(name, attr, plain):
@@ -802,25 +1043,35 @@ class Smoke:
                 return y
             return call
 
-        def dec(q, kp, vp, *args, **kw):
-            kp2, vp2 = kp.clone(), vp.clone()
-            y = orig["_paged_decode"](q, kp, vp, *args, **kw)
-            ref = k1.plain(q, kp2, vp2, *args, **kw)
-            worst["paged_attention_decode"] = max(
-                worst["paged_attention_decode"], rel_err(y, ref)[1])
-            pools_ok[0] &= bool(self.torch.equal(kp, kp2)
-                                and self.torch.equal(vp, vp2))
-            counts["paged_attention_decode"] += 1
-            return y
+        def pooled(name, attr, plain, writes):
+            """K1 against its plain write on pool copies (bit-identical
+            pools after); K4 against its plain version on the same pools,
+            which neither may change."""
+            def call(q, kp, vp, *args, **kw):
+                kp2, vp2 = kp.clone(), vp.clone()
+                y = orig[attr](q, kp, vp, *args, **kw)
+                if writes:
+                    ref = plain(q, kp2, vp2, *args, **kw)
+                else:
+                    ref = plain(q, kp, vp, *args, **kw)
+                worst[name] = max(worst[name], rel_err(y, ref)[1])
+                pools_ok[name] &= bool(torch.equal(kp, kp2)
+                                       and torch.equal(vp, vp2))
+                counts[name] += 1
+                return y
+            return call
 
         with self._ops_through(
                 _emt_matmul=checked("emt_matmul", "_emt_matmul", k3.plain),
                 _emt_bitserial=checked("emt_bitserial", "_emt_bitserial",
                                        k5.plain),
-                _paged_decode=dec,
+                _paged_decode=pooled("paged_attention_decode",
+                                     "_paged_decode", k1.plain, True),
+                _paged_attend=pooled("paged_attention", "_paged_attend",
+                                     k1.plain_attend, False),
                 _paged_prefill=checked("paged_prefill", "_paged_prefill",
                                        k2.plain)):
-            self._step_pair(cfg)
+            steps(cfg)
         for name, r in worst.items():
             print(f"  {label}: {name}: {counts[name]} calls on real "
                   f"activations, worst rel diff vs plain {r:.3e}")
@@ -829,17 +1080,25 @@ class Smoke:
                        f"{label}: {name} on the model's activations: "
                        f"{counts[name]} calls, rel {r:.3e}")
         print(f"  {label}: K1 pools bit-identical to the plain write on "
-              f"every call: {pools_ok[0]}")
-        self.check(pools_ok[0], "K1 pools differ from the plain write")
+              f"every call: {pools_ok['paged_attention_decode']}; K4 pools "
+              f"unchanged on every call: {pools_ok['paged_attention']}")
+        self.check(all(pools_ok.values()), f"{label}: pools {pools_ok}")
 
     def calls_vs_plain(self):
         self._calls_vs_plain(self.cfg, "analog", (
-            "emt_matmul", "paged_attention_decode", "paged_prefill"))
+            "emt_matmul", "paged_attention_decode", "paged_prefill"),
+            self._step_pair)
 
     def mixed_calls_vs_plain(self):
         self._calls_vs_plain(self.mixed, "mixed", (
             "emt_matmul", "emt_bitserial", "paged_attention_decode",
-            "paged_prefill"))
+            "paged_prefill"), self._step_pair)
+
+    def s2s_calls_vs_plain(self):
+        self.__dict__.pop("_tokens", None)
+        self._calls_vs_plain(self.s2s, "seamless", (
+            "emt_matmul", "paged_attention_decode", "paged_attention"),
+            self._s2s_steps)
 
     @contextlib.contextmanager
     def _ops_through(self, **fns):
@@ -872,9 +1131,9 @@ class Smoke:
         finally:
             emt_linear.quant_levels = orig
 
-    def _run_path(self, cfg, plain=None, levels=None):
-        """One chunk + decode step pair on the kernel path, or, with
-        `plain` given ({ops wrapper name: replacement}), on the plain path:
+    def _run_path(self, cfg, steps, plain=None, levels=None):
+        """`steps` (a step function) on the kernel path, or, with `plain`
+        given ({ops wrapper name: replacement}), on the plain path:
         attention through scatter + gather + _gqa_core
         (fused_paged_attn=False) and every projection through its plain
         version in place of K3 / K5."""
@@ -884,12 +1143,13 @@ class Smoke:
                 cfg = cfg.replace(fused_paged_attn=False)
             if levels is not None:
                 stack.enter_context(self._record_levels(levels))
-            return self._step_pair(cfg)
+            return steps(cfg)
 
-    def _compare(self, label, a_pair, b_pair, limit=None):
+    def _compare(self, label, a_steps, b_steps, limit=None):
         torch = self.torch
-        for (a, b), what in zip(zip(a_pair, b_pair),
-                                ("chunk step", "decode step")):
+        for (what, a, _), (_, b, _) in zip(a_steps, b_steps):
+            if a is None:
+                continue
             d = (a - b).abs().max().item()
             agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
             finite = bool(torch.isfinite(a).all() and torch.isfinite(b).all())
@@ -902,9 +1162,10 @@ class Smoke:
                 self.check(d <= limit, f"{label} {what} logits differ by "
                                        f"{d:.3e} > {limit:g}")
 
-    def _logits_vs_plain(self, cfg, label):
-        """End-to-end logits of the kernel path (K1, K2, K3 and, on the
-        mixed path, K5) against the plain path on the card, noise on.
+    def _logits_vs_plain(self, cfg, label, steps):
+        """End-to-end logits of the kernel path (K1, K2, K3, K4 and, on the
+        mixed path, K5, as the path runs them) against the plain path on
+        the card, noise on, over the model steps of `steps`.
 
         Held to 1e-3 with a 24-bit activation DAC (K5 then runs 23 planes):
         its levels are finer than float32's own rounding, so an analog
@@ -949,49 +1210,58 @@ class Smoke:
         self.__dict__.pop("_tokens", None)
         quiet = ", bit-serial read noise off" if bitserial else ""
         self._compare(f"{label}, 24-bit DAC{quiet}: kernel vs plain path",
-                      self._run_path(dac24(True)),
-                      self._run_path(dac24(True), plain=plain), limit=1e-3)
+                      self._run_path(dac24(True), steps),
+                      self._run_path(dac24(True), steps, plain=plain),
+                      limit=1e-3)
         if bitserial:
             self.__dict__.pop("_tokens", None)
             self._compare(f"{label}, 24-bit DAC, bit-serial read noise on: "
-                          "kernel vs plain path", self._run_path(dac24(False)),
-                          self._run_path(dac24(False), plain=plain))
+                          "kernel vs plain path",
+                          self._run_path(dac24(False), steps),
+                          self._run_path(dac24(False), steps, plain=plain))
 
         self.__dict__.pop("_tokens", None)
         lk, lp, l64 = [], [], []
-        kern = self._run_path(cfg, levels=lk)
-        ref = self._run_path(cfg, plain=plain, levels=lp)
-        ref64 = self._run_path(cfg, plain=plain64, levels=l64)
+        kern = self._run_path(cfg, steps, levels=lk)
+        ref = self._run_path(cfg, steps, plain=plain, levels=lp)
+        ref64 = self._run_path(cfg, steps, plain=plain64, levels=l64)
         self._compare(f"{label}, 8-bit DAC: kernel vs plain path", kern, ref)
         self._compare(f"{label}, 8-bit DAC: plain f32 vs plain f64 "
                       "accumulation", ref, ref64)
-        self._level_flips(label, "kernel vs plain path", lk, lp)
+        self._level_flips(label, "kernel vs plain path", lk, lp, kern)
         self._level_flips(label, "plain f32 vs plain f64 accumulation", lp,
-                          l64)
+                          l64, kern)
 
     def logits_vs_plain(self):
-        self._logits_vs_plain(self.cfg, "analog")
+        self._logits_vs_plain(self.cfg, "analog", self._step_pair)
 
     def mixed_logits_vs_plain(self):
-        self._logits_vs_plain(self.mixed, "mixed")
+        self._logits_vs_plain(self.mixed, "mixed", self._step_pair)
 
-    def _level_flips(self, path, label, la, lb):
-        """Count the DAC levels that differ between two runs of the step
-        pair, per projection in call order: 7 per layer + the unembed per
-        step; the pair runs a history chunk step, the chunk step, then the
-        decode step."""
-        per_step = 7 * self.cfg.num_layers + 1
-        self.check(len(la) == len(lb) == 3 * per_step,
-                   f"{len(la)} / {len(lb)} projections, want {3 * per_step}")
-        for step, what in ((1, "chunk step"), (2, "decode step")):
-            calls = range(step * per_step, (step + 1) * per_step)
+    def s2s_logits_vs_plain(self):
+        self._logits_vs_plain(self.s2s, "seamless", self._s2s_steps)
+
+    def _level_flips(self, path, label, la, lb, steps):
+        """Count the DAC levels that differ between two runs of `steps`
+        (as a step function returned them: (step, logits, projections)),
+        per projection in call order, for every step whose logits are
+        held."""
+        total_calls = sum(n for _, _, n in steps)
+        self.check(len(la) == len(lb) == total_calls,
+                   f"{len(la)} / {len(lb)} projections, want {total_calls}")
+        c0 = 0
+        for what, logits, n in steps:
+            calls = range(c0, c0 + n)
+            c0 += n
+            if logits is None:
+                continue
             flips = [int((la[c] != lb[c]).sum().item()) for c in calls]
             total = sum(la[c].numel() for c in calls)
             first = next((c for c, f in enumerate(flips) if f), None)
             print(f"  {path}, 8-bit DAC, {what}, {label}: DAC levels that "
-                  f"differ: layer 0 (its 7 projections' inputs) {flips[:7]}; "
-                  f"all projections {sum(flips)} of {total}; first at "
-                  f"projection {first}")
+                  f"differ: first 7 projections' inputs {flips[:7]}; all "
+                  f"projections {sum(flips)} of {total}; "
+                  f"first at projection {first}")
 
 
 def _flat(tree, prefix=""):
@@ -1013,15 +1283,20 @@ def main() -> int:
     s = Smoke()
     t_start = time.perf_counter()
     phases = [("device", s.device_info), ("build", s.build),
-              ("model", s.model), ("K3 emt_matmul", s.k3),
+              ("model", s.model), ("model, seamless", s.seamless_model),
+              ("K3 emt_matmul", s.k3),
               ("K1 paged_attention_decode", s.k1),
-              ("K2 paged_prefill", s.k2), ("K5 emt_bitserial", s.k5),
+              ("K2 paged_prefill", s.k2), ("K4 paged_attention", s.k4),
+              ("K5 emt_bitserial", s.k5),
               ("engine, analog", s.engine),
               ("engine, mixed placement", s.engine_mixed),
+              ("engine, seamless", s.engine_seamless),
               ("kernel calls vs plain, analog", s.calls_vs_plain),
               ("kernel calls vs plain, mixed", s.mixed_calls_vs_plain),
+              ("kernel calls vs plain, seamless", s.s2s_calls_vs_plain),
               ("logits vs plain, analog", s.logits_vs_plain),
-              ("logits vs plain, mixed", s.mixed_logits_vs_plain)]
+              ("logits vs plain, mixed", s.mixed_logits_vs_plain),
+              ("logits vs plain, seamless", s.s2s_logits_vs_plain)]
     for name, fn in phases:
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
@@ -1031,7 +1306,7 @@ def main() -> int:
         except Exception:                                # phase boundary
             traceback.print_exc()
             s.fail(f"phase {name} raised")
-            if name in ("device", "build", "model"):
+            if name in ("device", "build", "model", "model, seamless"):
                 break
         print(f"   ({time.perf_counter() - t0:.2f} s)", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -1040,10 +1315,12 @@ def main() -> int:
         return 1
     print("engine, analog: " + json.dumps(s.engine_summary))
     print("engine, mixed placement: " + json.dumps(s.mixed_summary))
+    print("engine, seamless: " + json.dumps(s.s2s_summary))
     print(s.smi)
     print(json.dumps({"kernels": [s.records[n] for n in
                                   ("paged_attention_decode", "paged_prefill",
-                                   "emt_matmul", "emt_bitserial")]}))
+                                   "emt_matmul", "paged_attention",
+                                   "emt_bitserial")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""Architecture registry of the port (gemma3-1b in this slice).
+"""Architecture registry of the port (gemma3-1b, seamless-m4t-medium).
 
     from repro_torch.configs import get_config
     cfg = get_config("gemma3-1b", emt_mode="analog")
@@ -6,12 +6,13 @@
 """
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_1b
+from repro_torch.configs import gemma3_1b, seamless_m4t_medium
 from repro_torch.configs.common import (PLACEMENTS, emt_preset,
                                         mixed_placement, placement_preset,
                                         shrink)
 
-ARCHS = {"gemma3-1b": gemma3_1b}
+ARCHS = {"gemma3-1b": gemma3_1b,
+         "seamless-m4t-medium": seamless_m4t_medium}
 
 __all__ = ["ARCHS", "PLACEMENTS", "emt_preset", "get_config",
            "mixed_placement", "placement_preset", "shrink"]

@@ -90,6 +90,7 @@ def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
         num_layers=min(cfg.num_layers, max(2, len(cfg.layer_pattern))),
         d_model=64, num_heads=heads, num_kv_heads=kv, head_dim=16,
         d_ff=0 if cfg.d_ff == 0 else 128, vocab_size=512,
-        sliding_window=8 if cfg.sliding_window else 0, dtype=torch.float32)
+        sliding_window=8 if cfg.sliding_window else 0,
+        encoder_layers=2 if cfg.encoder_layers else 0, dtype=torch.float32)
     kw.update(overrides)
     return cfg.replace(name=cfg.name + "-smoke", **kw)

@@ -1,20 +1,27 @@
-// Fused paged-attention decode for Hopper (sm_90a): K/V write + attend in
-// one launch, plain FP32.
+// Paged-attention decode for Hopper (sm_90a), plain FP32, in two entries
+// built from one kernel template:
 //
-// Replaces the TPU kernel repro/kernels/paged_attention.py::
-// paged_attention_decode_pallas (_decode_kernel via _call).  Per batch row b
-// and kv head h: if wok[b], write the step's new K/V row into
-// pool[wblk[b], woff[b], h, :] in place; then one-token GQA attention of the
-// G query heads over the row's block table with an additive mask, softcap
-// before the mask, an online softmax in which NEG_INF lanes contribute exact
-// zeros, the m_safe guard (fully-masked rows give zeros, not NaN) and a
-// max(l, 1e-30) divide.
+// * paged_decode_f32 (K1): K/V write + attend in one launch.  Replaces the
+//   TPU kernel repro/kernels/paged_attention.py::
+//   paged_attention_decode_pallas (_decode_kernel via _call, has_write=True).
+// * paged_attend_f32 (K4): the same attend with the write compiled out, over
+//   read-only pools.  Replaces repro/kernels/paged_attention.py::
+//   paged_attention_pallas (_call with has_write=False): the enc-dec cross
+//   attention reads the cross K/V written once at admission.
 //
-// Ordering: the Pallas kernel wrote at grid step c == 0 of a sequential grid
-// axis.  Here one CTA owns (b, h): it writes, __syncthreads(), and only then
-// reads, so the row always sees its own write.  No other CTA can read that
-// block row while it is written: without a prefix cache no other row's table
-// names the block, and CTAs of other heads touch other head slices.
+// Per batch row b and kv head h: with kWrite and wok[b], write the step's
+// new K/V row into pool[wblk[b], woff[b], h, :] in place; then one-token GQA
+// attention of the G query heads over the row's block table with an
+// additive mask, softcap before the mask, an online softmax in which NEG_INF
+// lanes contribute exact zeros, the m_safe guard (fully-masked rows, such as
+// an idle slot's cross attention with encoder length 0, give zeros, not NaN)
+// and a max(l, 1e-30) divide.
+//
+// Ordering (K1): the Pallas kernel wrote at grid step c == 0 of a sequential
+// grid axis.  Here one CTA owns (b, h): it writes, __syncthreads(), and only
+// then reads, so the row always sees its own write.  No other CTA can read
+// that block row while it is written: without a prefix cache no other row's
+// table names the block, and CTAs of other heads touch other head slices.
 //
 // What bounds it on the H100: the K/V view bytes (2 * T * bs * hd * 4 per
 // row and head) against ~4 * G FLOPs per byte: memory and, at serving
@@ -22,8 +29,11 @@
 // table one block at a time with the block's (bs x hd) K and V tiles in
 // shared memory (32 KB at bs = 16, hd = 256 in f32); thread d owns output
 // column d of all G heads, warps compute the G x bs scores.  With B = 4 and
-// one kv head there are only 4 CTAs on 132 SMs: slow by design; split-KV
-// (flash-decoding, with the write in the owning CTA or a pre-pass) is later
+// one kv head there are only 4 CTAs on 132 SMs (K1 on gemma3-1b); the cross
+// attention of seamless-m4t-medium (16 kv heads, hd 64) gives 64 CTAs of
+// which only 64 threads each own an output column.  Slow by design: skipping
+// the blocks past a row's last visible position and split-KV
+// (flash-decoding, with the write in the owning CTA or a pre-pass) are later
 // work.  Tiles are chosen for Hopper, not from the TPU's VMEM budget.
 #include "common.cuh"
 
@@ -38,6 +48,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// kWrite false compiles the write out; the pools are then only read (the
+// read-only entry casts its const pools to the shared signature).
+template <bool kWrite>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const float* __restrict__ q, float* kpool, float* vpool,
                     const int* __restrict__ table,
@@ -59,7 +72,7 @@ paged_decode_kernel(const float* __restrict__ q, float* kpool, float* vpool,
   const long long row = (long long)KV * hd;      // one pool position
   const long long blk_stride = (long long)bs * row;
 
-  if (wok[b] != 0) {
+  if (kWrite && wok[b] != 0) {
     const long long dst = wblk[b] * blk_stride + woff[b] * row + h * hd;
     const long long src = ((long long)b * KV + h) * hd;
     for (int d = tid; d < hd; d += kThreads) {
@@ -128,6 +141,28 @@ paged_decode_kernel(const float* __restrict__ q, float* kpool, float* vpool,
   }
 }
 
+template <bool kWrite>
+int launch(const float* q, float* kpool, float* vpool, const int* table,
+           const float* mask, const float* knew, const float* vnew,
+           const int* wblk, const int* woff, const int* wok, float* out, int B,
+           int KV, int G, int hd, int bs, int T, float scale, float softcap,
+           void* stream) {
+  if (G > kMaxG || hd > kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * (2 * bs * hd + G * hd + G * bs);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_kernel<kWrite>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid(B, KV);
+  paged_decode_kernel<kWrite><<<grid, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      q, kpool, vpool, table, mask, knew, vnew, wblk, woff, wok, out, KV, G,
+      hd, bs, T, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int paged_decode_f32(const float* q, float* kpool, float* vpool,
@@ -137,18 +172,17 @@ extern "C" int paged_decode_f32(const float* q, float* kpool, float* vpool,
                                 const int* wok, float* out, int B, int KV,
                                 int G, int hd, int bs, int T, float scale,
                                 float softcap, void* stream) {
-  if (G > kMaxG || hd > kThreads) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (2 * bs * hd + G * hd + G * bs);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid(B, KV);
-  paged_decode_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      q, kpool, vpool, table, mask, knew, vnew, wblk, woff, wok, out, KV, G,
-      hd, bs, T, scale, softcap);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(q, kpool, vpool, table, mask, knew, vnew, wblk, woff,
+                      wok, out, B, KV, G, hd, bs, T, scale, softcap, stream);
+}
+
+extern "C" int paged_attend_f32(const float* q, const float* kpool,
+                                const float* vpool, const int* table,
+                                const float* mask, float* out, int B, int KV,
+                                int G, int hd, int bs, int T, float scale,
+                                float softcap, void* stream) {
+  return launch<false>(q, const_cast<float*>(kpool), const_cast<float*>(vpool),
+                       table, mask, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, out, B, KV, G, hd, bs, T, scale, softcap,
+                       stream);
 }

@@ -17,6 +17,8 @@ from repro_torch.core.device import DeviceModel
 from repro_torch.kernels.emt_bitserial import emt_bitserial as _emt_bitserial
 from repro_torch.kernels.emt_matmul import emt_matmul as _emt_matmul
 from repro_torch.kernels.paged_attention import \
+    paged_attention as _paged_attend
+from repro_torch.kernels.paged_attention import \
     paged_attention_decode as _paged_decode
 from repro_torch.kernels.paged_prefill import paged_prefill as _paged_prefill
 from repro_torch.kernels.ref import NEG_INF
@@ -54,6 +56,21 @@ def _view_mask(mask, T: int, bs: int):
     if L < T * bs:
         mask = F.pad(mask, (0, T * bs - L), value=NEG_INF)
     return mask.contiguous()
+
+
+def paged_attention(q, k_pool, v_pool, table, mask, *, softcap=0.0):
+    """One-token attention over read-only paged pools (the enc-dec cross
+    attention's decode read).
+
+    q (B, KV, G, hd); pools (NB + 1, bs, KV, hd); table (B, T) int32; mask
+    (B, L <= T * bs) additive f32, padded with NEG_INF to the block-rounded
+    view.  A row with no visible position gives exact zeros.  Returns
+    (B, KV, G, hd) fp32."""
+    bs = k_pool.shape[1]
+    T = table.shape[1]
+    return _paged_attend(q.contiguous(), k_pool, v_pool,
+                         table.to(torch.int32).contiguous(),
+                         _view_mask(mask, T, bs), softcap=softcap)
 
 
 def paged_attention_decode(q, k_pool, v_pool, table, mask, k_new, v_new,

@@ -1,13 +1,16 @@
-"""Grouped-query attention with RoPE, qk-norm and a paged KV cache, every
-projection an EMT crossbar matmul (port of :mod:`repro.models.attention`,
-global layers of the paged serving path).
+"""Grouped-query attention with RoPE, qk-norm, a paged KV cache and
+encoder-decoder cross attention, every projection an EMT crossbar matmul
+(port of :mod:`repro.models.attention`, global layers).
 
 Paged decode runs ONE fused kernel launch per layer (K/V write + attend,
 ``kernels.ops.paged_attention_decode``); chunked prefill writes the chunk's
 K/V and attends through the flash-style prefill kernel
-(``kernels.ops.paged_prefill``).  ``cfg.fused_paged_attn=False`` takes the
-plain path instead: scatter, gather the logical view, ``_gqa_core``.
-K/V pools are updated in place.
+(``kernels.ops.paged_prefill``); the cross attention's decode reads the
+paged cross K/V through the read-only kernel (``kernels.ops.
+paged_attention``).  ``cfg.fused_paged_attn=False`` takes the plain path
+instead: scatter, gather the logical view, ``_gqa_core``.  The encoder and
+the legacy bucketed prefill attend within the sequence (no paging); the
+prefill fills a contiguous batch-1 cache.  Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -20,7 +23,10 @@ from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.context import Ctx
 
+
 def attention_specs(cfg: ModelConfig, tag: str = "") -> dict:
+    """Self or cross attention (the same projections; `tag` names the
+    canonical path, ``.../attn`` or ``.../xattn``)."""
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs = {
         "wq": dense_specs(D, H * hd, cfg.emt_at(f"{tag}/wq"), dtype=cfg.dtype),
@@ -53,9 +59,10 @@ def _project_qkv(params, x, cfg: ModelConfig, ctx: Ctx, tag: str):
 
 
 def _gqa_core(q, k, v, mask, cfg: ModelConfig):
-    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd), mask (B, 1, Sq, Sk) additive.
-    Sequences longer than ``cfg.attn_chunk`` run the chunked online-softmax
-    path.  Returns (B, Sq, H * hd) in v's dtype."""
+    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd), mask (B, 1, Sq, Sk) additive
+    or None (attend everywhere).  Sequences longer than ``cfg.attn_chunk``
+    run the chunked online-softmax path.  Returns (B, Sq, H * hd) in v's
+    dtype."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -69,7 +76,8 @@ def _gqa_core(q, k, v, mask, cfg: ModelConfig):
 
     if Sq == 1 or not chunk or Sk <= chunk:
         s = common.softcap(scores_of(k), cfg.attn_softcap)
-        s = s + mask.reshape(B, 1, 1, Sq, -1)
+        if mask is not None:
+            s = s + mask.reshape(B, 1, 1, Sq, -1)
         probs = torch.softmax(s, dim=-1)
         out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
         return out.reshape(B, Sq, H * hd).to(v.dtype)
@@ -82,7 +90,8 @@ def _gqa_core(q, k, v, mask, cfg: ModelConfig):
     for c0 in range(0, Sk, chunk):
         kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
         s = common.softcap(scores_of(kc), cfg.attn_softcap)
-        s = s + mask[:, :, :, c0:c0 + chunk].reshape(B, 1, 1, Sq, -1)
+        if mask is not None:
+            s = s + mask[:, :, :, c0:c0 + chunk].reshape(B, 1, 1, Sq, -1)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         p = torch.where(s > common.NEG_INF / 2,
                         torch.exp(s - m_new[..., None]), torch.zeros_like(s))
@@ -167,25 +176,36 @@ def _chunk_attend(q, k, v, cache, mask, *, start, ntok, positions, active,
 
 
 def self_attention(params, x, cfg: ModelConfig, *, positions, mask,
-                   ctx: Ctx, tag: str, cache: dict, cache_index, active=None,
-                   page_table=None, page_len: int = 0, chunk_lens=None):
-    """Self-attention against the paged cache.
+                   ctx: Ctx, tag: str, cache=None, cache_index=None,
+                   active=None, page_table=None, page_len: int = 0,
+                   chunk_lens=None):
+    """Self-attention.
 
-    Decode (``chunk_lens`` None): x (B, 1, D), ``cache_index`` (B,) write
-    positions.  Chunk step: x (B, C, D) with ``chunk_lens`` (B,) real lanes
-    per row, ``cache_index`` the per-row start, ``positions`` (B, C).
-    Returns (y, aux, cache) with the cache's pools updated in place."""
-    if page_table is None:
+    No cache (the encoder): x (B, S, D) attends within itself under `mask`.
+    Prefill (``cache_index`` None): x (B, S, D) fills positions [0, S) of the
+    contiguous cache ``{"k", "v"}`` (B, max_len, KV, hd) and attends within
+    the prompt.  Paged decode (``chunk_lens`` None): x (B, 1, D),
+    ``cache_index`` (B,) write positions.  Paged chunk step: x (B, C, D)
+    with ``chunk_lens`` (B,) real lanes per row, ``cache_index`` the per-row
+    start, ``positions`` (B, C).  Returns (y, aux, cache) with the cache's
+    tensors updated in place (None without a cache)."""
+    if cache is not None and cache_index is not None and page_table is None:
         raise NotImplementedError(
-            "the contiguous KV cache is ported with a later slice (ROADMAP "
-            "Queue 1, main-path model)")
+            "decode against the contiguous KV cache is ported with a later "
+            "slice (ROADMAP Queue 1, serving core)")
     q, k, v, aux = _project_qkv(params, x, cfg, ctx, tag)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     KV, hd = cfg.num_kv_heads, cfg.head_dim
     B = x.shape[0]
     idx = cache_index
-    if chunk_lens is not None:
+    if cache is None or idx is None:
+        if cache is not None:
+            S = k.shape[1]
+            cache["k"][:, :S] = k.to(cache["k"].dtype)
+            cache["v"][:, :S] = v.to(cache["v"].dtype)
+        y = _gqa_core(q, k, v, mask, cfg)
+    elif chunk_lens is not None:
         y, cache, reads = _chunk_attend(
             q, k, v, cache, mask, start=idx, ntok=chunk_lens,
             positions=positions, active=active, page_table=page_table,
@@ -212,3 +232,57 @@ def self_attention(params, x, cfg: ModelConfig, *, positions, mask,
     o, a = emt_dense(params["wo"], y, cfg.emt_at(f"{tag}/wo"),
                      tag=f"{tag}/wo", seed=ctx.seed)
     return o, add_aux(aux, a), cache
+
+
+def cross_attention(params, x, cfg: ModelConfig, *, enc_out=None,
+                    enc_mask=None, ctx: Ctx, tag: str, cache=None,
+                    page_table=None, page_len: int = 0):
+    """Encoder-decoder cross attention.
+
+    Prefill (`enc_out` given): K/V projected from `enc_out` (B, S_enc, D);
+    returns the new ``{"ck", "cv"}`` of the encoder's length.  Paged decode
+    (`enc_out` None, `cache` holding the ``ck``/``cv`` pools): the cross K/V
+    written once at admission are read through the block table (read-only)
+    under `enc_mask` (B, 1, 1, page_len), the rows of each slot's real
+    encoder positions; ``kv_reads`` books the visible positions.  Returns
+    (y, aux, new cross K/V or None)."""
+    aux = new_aux()
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, a = emt_dense(params["wq"], x, cfg.emt_at(f"{tag}/wq"),
+                     tag=f"{tag}/wq", seed=ctx.seed)
+    aux = add_aux(aux, a)
+    q = q.reshape(*x.shape[:-1], H, hd)
+    new_cache = None
+    if enc_out is None:
+        if page_table is None:
+            raise NotImplementedError(
+                "cross attention against the contiguous cache is ported with "
+                "a later slice (ROADMAP Queue 1, serving core)")
+        B, L = x.shape[0], page_len
+        mask_rows = (enc_mask.reshape(B, L) if enc_mask is not None
+                     else torch.zeros((B, L), dtype=torch.float32,
+                                      device=x.device))
+        aux["kv_reads"] = aux["kv_reads"] + _visible_kv_elems(mask_rows, KV,
+                                                              hd)
+        if cfg.fused_paged_attn:
+            out = kops.paged_attention(
+                q[:, 0].reshape(B, KV, H // KV, hd), cache["ck"], cache["cv"],
+                page_table, mask_rows, softcap=float(cfg.attn_softcap or 0.0))
+            y = out.reshape(B, 1, H * hd).to(cache["ck"].dtype)
+        else:
+            y = _gqa_core(q, paged_gather(cache["ck"], page_table, L),
+                          paged_gather(cache["cv"], page_table, L), enc_mask,
+                          cfg)
+    else:
+        out = []
+        for name in ("wk", "wv"):
+            t, a = emt_dense(params[name], enc_out,
+                             cfg.emt_at(f"{tag}/{name}"), tag=f"{tag}/{name}",
+                             seed=ctx.seed)
+            aux = add_aux(aux, a)
+            out.append(t.reshape(*enc_out.shape[:-1], KV, hd))
+        new_cache = {"ck": out[0], "cv": out[1]}
+        y = _gqa_core(q, out[0], out[1], enc_mask, cfg)
+    o, a = emt_dense(params["wo"], y, cfg.emt_at(f"{tag}/wo"),
+                     tag=f"{tag}/wo", seed=ctx.seed)
+    return o, add_aux(aux, a), new_cache

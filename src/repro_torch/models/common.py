@@ -1,5 +1,5 @@
-"""Shared model components: norms, rotary embeddings, masks, embeddings
-(port of :mod:`repro.models.common`)."""
+"""Shared model components: norms, activations, rotary embeddings, masks,
+embeddings (port of :mod:`repro.models.common`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -24,8 +24,12 @@ def rmsnorm(params, x, eps=1e-6):
 
 
 def activation(name):
-    return {"silu": F.silu, "gelu": F.gelu, "relu": F.relu,
-            "gelu_tanh": lambda x: F.gelu(x, approximate="tanh")}[name]
+    """JAX's ``jax.nn.gelu`` defaults to the tanh form, so "gelu" is the
+    tanh approximation here too (the exact erf form differs by up to 5e-4)."""
+    def gelu(x):
+        return F.gelu(x, approximate="tanh")
+    return {"silu": F.silu, "gelu": gelu, "relu": F.relu,
+            "gelu_tanh": gelu}[name]
 
 
 def softcap(x, cap: float):
@@ -59,6 +63,14 @@ def causal_mask(q_pos, k_pos, window: int = 0):
     if window and window > 0:
         ok = ok & (q - k < window)
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def full_mask(q_valid, k_valid):
+    """Bidirectional (encoder / cross) mask from validity flags (B, Sq) and
+    (B, Sk) -> (B, 1, Sq, Sk) additive."""
+    ok = q_valid[:, None, :, None] & k_valid[:, None, None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=q_valid.device)
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 

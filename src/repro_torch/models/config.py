@@ -1,6 +1,6 @@
 """Model configuration (port of :mod:`repro.models.config`), reduced to the
-fields the port's dense decoder stack reads, with per-layer device
-placement."""
+fields the port's dense decoder and encoder-decoder stacks read, with
+per-layer device placement."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,6 +36,7 @@ class ModelConfig:
     # paged attention through the fused kernels (False: scatter + gather +
     # _gqa_core, the plain path)
     fused_paged_attn: bool = True
+    encoder_layers: int = 0          # > 0: encoder-decoder (seamless)
     tie_embeddings: bool = False
     embed_scale: bool = False
     norm_eps: float = 1e-6
@@ -54,6 +55,10 @@ class ModelConfig:
             raise NotImplementedError(
                 f"block kinds {bad} are ported with a later slice (ROADMAP "
                 f"Queue 1, remaining architectures)")
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
 
     def blocks(self) -> Tuple[str, ...]:
         """Resolve layer_pattern into a per-layer block-kind tuple."""
@@ -75,14 +80,26 @@ class ModelConfig:
         return self.placement.match(path)
 
     def layer_paths(self) -> Tuple[str, ...]:
-        """All canonical placement paths of this model, in build order (the
-        dense decoder stack: attention projections, then the GLU MLP)."""
+        """All canonical placement paths of this model, in build order: the
+        encoder stack (enc-dec only), then the decoder stack (attention
+        projections, cross attention in an enc-dec stack, the GLU MLP),
+        then the unembed."""
         paths = []
-        for i in range(self.num_layers):
-            base = f"dec/layer_{i:03d}"
-            paths.extend(f"{base}/attn/{w}" for w in ("wq", "wk", "wv", "wo"))
-            if self.d_ff > 0:
-                paths.extend(f"{base}/mlp/{w}" for w in ("wg", "wu", "wd"))
+
+        def stack_paths(prefix, layers, cross):
+            for i in range(layers):
+                base = f"{prefix}/layer_{i:03d}"
+                paths.extend(f"{base}/attn/{w}"
+                             for w in ("wq", "wk", "wv", "wo"))
+                if cross:
+                    paths.extend(f"{base}/xattn/{w}"
+                                 for w in ("wq", "wk", "wv", "wo"))
+                if self.d_ff > 0:
+                    paths.extend(f"{base}/mlp/{w}" for w in ("wg", "wu", "wd"))
+
+        if self.is_encdec:
+            stack_paths("enc", self.encoder_layers, False)
+        stack_paths("dec", self.num_layers, self.is_encdec)
         paths.append("unembed")
         return tuple(paths)
 

@@ -1,17 +1,20 @@
-"""Decoder-only language model over the paged KV cache (port of
-:mod:`repro.models.lm`: specs, the paged cache, ``chunk_step`` and
-``decode_step``) plus the port's seeded init and the JAX weight bridge.
+"""Decoder-only and encoder-decoder language models for serving (port of
+:mod:`repro.models.lm`: specs, the encoder, the legacy ``prefill`` into a
+contiguous cache, the paged cache, ``chunk_step`` and ``decode_step``) plus
+the port's seeded init and the JAX weight bridge.
 
-Caches are dicts of per-layer ``{"k", "v"}`` pools of shape
-``(num_blocks + 1, block_size, kv_heads, head_dim)`` (zero block last),
-updated in place by the steps.
+Paged caches are dicts of per-layer ``{"k", "v"}`` pools of shape
+``(num_blocks + 1, block_size, kv_heads, head_dim)`` (zero block last), with
+``{"ck", "cv"}`` cross K/V pools beside them in an enc-dec stack, updated in
+place by the steps.  The contiguous cache that ``prefill`` fills holds
+``(batch, max_len, kv_heads, head_dim)`` per layer.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import regularizer
-from repro_torch.core.emt_linear import add_aux
+from repro_torch.core.emt_linear import add_aux, new_aux
 from repro_torch.models import common
 from repro_torch.models import stack as stk
 from repro_torch.models.config import ModelConfig
@@ -25,7 +28,7 @@ def specs(cfg: ModelConfig) -> dict:
         "embed": common.embedding_specs(cfg.vocab_size, cfg.d_model,
                                         cfg.dtype),
         "decoder": stk.stack_specs(cfg, cfg.num_layers, cfg.blocks(),
-                                   tag="dec"),
+                                   cross=cfg.is_encdec, tag="dec"),
         "final_norm": common.rmsnorm_specs(cfg.d_model),
     }
     head_emt = cfg.emt_at("unembed")
@@ -37,6 +40,11 @@ def specs(cfg: ModelConfig) -> dict:
         s["lm_head"] = {"rho_raw": ParamSpec(
             (), torch.float32,
             constant_init(regularizer.rho_init_raw(head_emt.rho_init)))}
+    if cfg.is_encdec:
+        s["encoder"] = stk.stack_specs(cfg, cfg.encoder_layers,
+                                       ("attn",) * cfg.encoder_layers,
+                                       tag="enc")
+        s["enc_norm"] = common.rmsnorm_specs(cfg.d_model)
     return s
 
 
@@ -51,6 +59,25 @@ def load_jax_arrays(arrays: dict, cfg: ModelConfig, device="cuda"):
     ``repro/ckpt/checkpoint.py::_tree_to_arrays`` produces).  Missing or
     unexpected paths and shape mismatches raise."""
     return load_arrays(specs(cfg), arrays, device)
+
+
+def _encode(params, batch, cfg: ModelConfig, ctx: Ctx):
+    """Bidirectional encoder over ``batch["enc_embeds"]`` (B, S, D), the
+    speech front end's frame embeddings (a stub), or the embedded
+    ``batch["enc_tokens"]``.  Returns (enc_out, positions, aux)."""
+    enc_x = batch.get("enc_embeds")
+    if enc_x is None:
+        enc_x = common.embed(params["embed"], batch["enc_tokens"],
+                             cfg.embed_scale, cfg.d_model)
+    enc_x = enc_x.to(cfg.dtype)
+    B, S = enc_x.shape[:2]
+    pos = torch.arange(S, device=enc_x.device)[None].expand(B, S)
+    valid = torch.ones((B, S), dtype=torch.bool, device=enc_x.device)
+    y, aux, _ = stk.apply_stack(
+        params["encoder"], enc_x, cfg, ("attn",) * cfg.encoder_layers,
+        ctx=ctx, tag="enc", positions=pos,
+        mask=common.full_mask(valid, valid))
+    return common.rmsnorm(params["enc_norm"], y, cfg.norm_eps), pos, aux
 
 
 def _logits(params, h, cfg: ModelConfig, ctx: Ctx):
@@ -78,17 +105,66 @@ def clamped_lens(page_lens_full: dict, view_len: int) -> dict:
     return {"global": min(int(view_len), page_lens_full["global"])}
 
 
+def _zeros(shapes: dict, dtype, device):
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    return {k: torch.zeros(s, dtype=dtype, device=dev)
+            for k, s in shapes.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Zeroed contiguous cache (the one ``prefill`` fills): per layer
+    ``k``/``v`` (batch, max_len, KV, hd), plus ``ck``/``cv`` of max_len
+    positions in an enc-dec stack."""
+    paged_lens(cfg, max_len)            # refuses ring layouts, as paged does
+    return {f"layer_{i:03d}": _zeros(
+        stk.block_state_specs(cfg, batch, max_len,
+                              cross_len=max_len if cfg.is_encdec else 0),
+        cfg.dtype, device) for i in range(cfg.num_layers)}
+
+
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      block_size: int, num_blocks: int, device="cuda"):
-    """Zeroed block pools for every attention layer."""
-    from repro_torch import resolve_device
+    """Zeroed block pools for every attention layer; an enc-dec stack's
+    cross K/V (``ck``/``cv``) page through the same global table."""
     paged_lens(cfg, max_len)
-    dev = resolve_device(device)
     shape = (num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim)
-    return {f"layer_{i:03d}": {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
-        for i in range(cfg.num_layers)}
+    keys = ("k", "v", "ck", "cv") if cfg.is_encdec else ("k", "v")
+    return {f"layer_{i:03d}": _zeros(dict.fromkeys(keys, shape), cfg.dtype,
+                                     device)
+            for i in range(cfg.num_layers)}
+
+
+def prefill(params, batch, cfg: ModelConfig, ctx: Ctx, cache):
+    """Run ``batch["tokens"]`` (B, S) through the model (and, enc-dec, the
+    encoder over ``batch["enc_embeds"]``), filling positions [0, S) of the
+    contiguous `cache` in place.  Returns (cache, last-token logits
+    (B, vocab), aux); an enc-dec cache's ``ck``/``cv`` come back at the
+    encoder's length S, not max_len."""
+    x = common.embed(params["embed"], batch["tokens"], cfg.embed_scale,
+                     cfg.d_model).to(cfg.dtype)
+    B, S = x.shape[:2]
+    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    # prefill attends within the prompt (the unfilled cache tail would be
+    # masked anyway)
+    masks = {"global": common.causal_mask(pos, pos),
+             "local": common.causal_mask(pos, pos, cfg.sliding_window)}
+    enc_out = enc_mask = None
+    aux = new_aux()
+    if cfg.is_encdec:
+        enc_out, enc_pos, a = _encode(params, batch, cfg, ctx)
+        aux = add_aux(aux, a)
+        enc_mask = common.full_mask(
+            torch.ones((B, S), dtype=torch.bool, device=x.device),
+            torch.ones(enc_pos.shape, dtype=torch.bool, device=x.device))
+    h, a, cache = stk.apply_stack(
+        params["decoder"], x, cfg, cfg.blocks(), ctx=ctx, tag="dec",
+        positions=pos, mask=masks, caches=cache, enc_out=enc_out,
+        enc_mask=enc_mask)
+    aux = add_aux(aux, a)
+    h = common.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+    logits, a = _logits(params, h, cfg, ctx)
+    return cache, logits[:, 0], add_aux(aux, a)
 
 
 def _masks(cfg: ModelConfig, qpos, L: int):
@@ -124,18 +200,29 @@ def chunk_step(params, cache, tokens, start, ntok, cfg: ModelConfig,
 
 
 def decode_step(params, cache, tokens, index, cfg: ModelConfig, ctx: Ctx,
-                active=None, page_tables=None, page_lens=None):
+                active=None, page_tables=None, page_lens=None, enc_lens=None):
     """One decode step: `tokens` (B,) generated at positions `index` (B,);
-    inactive rows leave the cache untouched.  Returns (logits (B, vocab),
-    cache, aux)."""
+    inactive rows leave the cache untouched.  `enc_lens` (B,) masks an
+    enc-dec stack's cross attention to each row's real encoder positions
+    (the cross K/V pools hold zeros past them; a row of length 0 attends
+    nothing and gets zeros).  Returns (logits (B, vocab), cache, aux)."""
+    B = tokens.shape[0]
     x = common.embed(params["embed"], tokens[:, None], cfg.embed_scale,
                      cfg.d_model).to(cfg.dtype)
     pos = index[:, None]
-    masks = _masks(cfg, pos, page_lens["global"])
+    L = page_lens["global"]
+    masks = _masks(cfg, pos, L)
+    enc_mask = None
+    if enc_lens is not None and cfg.is_encdec:
+        valid_k = (torch.arange(L, device=x.device)[None, :]
+                   < enc_lens[:, None])
+        enc_mask = common.full_mask(
+            torch.ones((B, 1), dtype=torch.bool, device=x.device), valid_k)
     h, aux, cache = stk.apply_stack(
         params["decoder"], x, cfg, cfg.blocks(), ctx=ctx, tag="dec",
         positions=pos, mask=masks, caches=cache, cache_index=index,
-        active=active, page_tables=page_tables, page_lens=page_lens)
+        active=active, page_tables=page_tables, page_lens=page_lens,
+        enc_mask=enc_mask)
     h = common.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits, a = _logits(params, h, cfg, ctx)
     return logits[:, 0], cache, add_aux(aux, a)

@@ -1,15 +1,24 @@
 """Continuous-batching serving engine over the paged KV cache (port of
-:mod:`repro.serve.engine` for one device, paged KV and chunked prefill).
+:mod:`repro.serve.engine` for one device and paged KV).
 
 A fixed batch of ``batch_size`` slots shares per-layer block pools.  A FIFO
 scheduler admits the queue head into a free slot when the block budget
-allows; its prompt then streams in ``prefill_chunk`` tokens per step through
-the mixed chunk step (:func:`repro_torch.models.lm.chunk_step`) while other
-slots decode one token in the same step.  Once no slot is prefilling, the
-engine runs the pure decode step (:func:`repro_torch.models.lm.decode_step`),
-one fused K/V-write + attention kernel per layer.  Each step's view is
-clamped to the block-rounded power-of-two bucket of the furthest live
-position (:func:`view_bucket`).
+allows.  With chunked prefill (the default for decoder-only stacks) its
+prompt then streams in ``prefill_chunk`` tokens per step through the mixed
+chunk step (:func:`repro_torch.models.lm.chunk_step`) while other slots
+decode one token in the same step.  The legacy bucketed prefill (the only
+one for encoder-decoder stacks, and ``chunked_prefill=False``) runs the
+prompt alone at admission, left-padded into a power-of-two bucket
+(:func:`prefill_bucket`), through :func:`repro_torch.models.lm.prefill`
+into a contiguous batch-1 cache, scatters that into the slot's blocks
+(:func:`paged_insert`) and samples the first token from its logits; the
+encoder of an enc-dec stack sees all-zero frame embeddings of the bucket's
+length (the speech front end is a stub, as in the JAX engine).  Once no slot
+is prefilling, the engine runs the pure decode step
+(:func:`repro_torch.models.lm.decode_step`), one fused K/V-write + attention
+kernel per layer (and one read-only cross-attention kernel per layer in an
+enc-dec stack).  Each step's view is clamped to the block-rounded
+power-of-two bucket of the furthest live position (:func:`view_bucket`).
 
 Energy: a step's ``energy_pj`` is split e / batch_size per row; idle rows'
 share accrues to ``idle_energy_pj``, so per-request energy plus idle waste
@@ -25,6 +34,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import lm
@@ -35,7 +45,7 @@ from repro_torch.serve.kv_pool import PagedKV
 from repro_torch.serve.scheduler import RejectedError, Scheduler, Slot
 
 __all__ = ["ServingEngine", "GenRequest", "GenResult", "RejectedError",
-           "view_bucket"]
+           "paged_insert", "prefill_bucket", "view_bucket"]
 
 
 def view_bucket(need: int, block_size: int, max_len: int) -> int:
@@ -44,6 +54,34 @@ def view_bucket(need: int, block_size: int, max_len: int) -> int:
     while nb * block_size < need:
         nb *= 2
     return nb * block_size if nb * block_size < max_len else max_len
+
+
+def prefill_bucket(n: int, lo: int = 4) -> int:
+    """Smallest power of two >= n (at least `lo`): the legacy prefill's
+    prompt bucket.  A prompt of length L occupies ``prefill_bucket(L)``
+    cache positions (left-padded)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def paged_insert(cache, small, rows) -> None:
+    """Scatter a prefilled batch-1 contiguous cache into the pools, in
+    place: every entry of layer ``small[name]`` (1, L, KV, hd), zero-padded
+    to the row's blocks, lands in ``cache[name]`` at the block ids of
+    `rows` (width,); out-of-bounds ids (unallocated entries) are dropped.
+    The blocks' zero tails clear whatever their previous owner left."""
+    rows = torch.as_tensor(rows, dtype=torch.int64)
+    for name, blk in cache.items():
+        for key, pool in blk.items():
+            nb, bs = pool.shape[:2]
+            ok = rows < nb
+            x = small[name][key][0].to(pool.dtype)
+            width = rows.shape[0]
+            x = F.pad(x, (0, 0, 0, 0, 0, width * bs - x.shape[0]))
+            x = x.reshape(width, bs, *x.shape[1:])
+            pool[rows[ok].to(pool.device)] = x[ok.to(x.device)]
 
 
 @dataclasses.dataclass
@@ -91,8 +129,19 @@ class ServingEngine:
                  device="cuda"):
         if not paged:
             raise _later("the contiguous KV cache (paged=False)")
-        if chunked_prefill is False:
-            raise _later("the legacy bucketed prefill (chunked_prefill=False)")
+        if placement is not None:
+            # a device placement (EMTConfig or DevicePlacement) overrides the
+            # config's EMT surface for this engine; params must have been
+            # built for the same placement
+            cfg = cfg.replace(emt=placement)
+        # chunked prefill streams prompts at their exact positions; an
+        # enc-dec stack needs the encoder pass of the legacy bucketed path
+        can_chunk = not cfg.is_encdec
+        self.chunked = (can_chunk if chunked_prefill is None
+                        else bool(chunked_prefill))
+        if self.chunked and not can_chunk:
+            raise ValueError("chunked_prefill requires a decoder-only "
+                             "attention stack")
         if prefix_cache:
             raise _later("the prefix cache")
         if n_shards != 1:
@@ -100,11 +149,6 @@ class ServingEngine:
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk {prefill_chunk} < 1")
         self.device = resolve_device(device)
-        if placement is not None:
-            # a device placement (EMTConfig or DevicePlacement) overrides the
-            # config's EMT surface for this engine; params must have been
-            # built for the same placement
-            cfg = cfg.replace(emt=placement)
         self.cfg = cfg
         self.params = params
         self.batch_size = batch_size
@@ -132,11 +176,22 @@ class ServingEngine:
         self.view_len = 0
 
     # -- streaming API -------------------------------------------------------
+    def _bucket_len(self, prompt_len: int) -> int:
+        """Cache positions the prompt occupies: its exact length with chunked
+        prefill; the legacy path left-pads into a power-of-two bucket, or
+        prefills at the exact length when the bucket would leave no decode
+        room."""
+        if self.chunked:
+            return prompt_len
+        S = prefill_bucket(prompt_len)
+        return prompt_len if S >= self.max_len else S
+
     def validate(self, req: GenRequest) -> np.ndarray:
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         if not 1 <= len(prompt) <= self.max_len:
             raise ValueError(f"prompt length {len(prompt)} out of range "
                              f"[1, max_len={self.max_len}]")
+        S = self._bucket_len(len(prompt))
         if req.max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {req.max_new}")
         if not req.temperature >= 0:
@@ -146,7 +201,7 @@ class ServingEngine:
             raise ValueError(f"top_p must be >= 0, got {req.top_p}")
         if req.top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {req.top_k}")
-        if not self.kv.fits(len(prompt), req.max_new):
+        if not self.kv.fits(S, req.max_new):
             raise ValueError(f"request needs more KV blocks than the pool "
                              f"holds ({self.kv.pool.num_blocks} x "
                              f"{self.block_size})")
@@ -169,19 +224,64 @@ class ServingEngine:
         return finished
 
     def _admit_pending(self) -> List[GenResult]:
+        """FIFO admission into free slots, stopping at the first request the
+        block budget cannot take."""
+        finished = []
         while self.scheduler.pending:
             rid, req = self.scheduler.peek_pending()
-            if not self.scheduler.can_admit(len(req.prompt), req.max_new):
+            if not self.scheduler.can_admit(
+                    self._bucket_len(len(req.prompt)), req.max_new):
                 break
             self.scheduler.pop_pending()
             sid = self.scheduler.free_slot()
-            prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+            self._admit(sid, rid, req)
+            done = self._maybe_retire(sid)
+            if done is not None:
+                finished.append(done)
+        return finished
+
+    def _admit(self, sid: int, rid: int, req: GenRequest) -> None:
+        """Bind `req` to slot `sid`.  Chunked: allocate its blocks and place
+        it in the prefill phase.  Legacy: prefill it alone (batch 1, at the
+        engine seed), scatter the cache into its blocks, book the prefill
+        energy and sample the first token."""
+        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        if self.chunked:
             if not self.kv.admit(sid, len(prompt), req.max_new):
                 raise RuntimeError("admission raced the block budget")
             self._table_dev = None
             self.scheduler.place(sid, Slot(rid=rid, req=req, pos=0,
                                            last_token=0, prompt=prompt))
-        return []
+            return
+        cfg = self.cfg
+        S = self._bucket_len(len(prompt))
+        toks = np.zeros((1, S), np.int64)
+        toks[0, S - len(prompt):] = prompt               # left-padded
+        batch = {"tokens": self._dev(toks)}
+        if cfg.is_encdec:
+            batch["enc_embeds"] = torch.zeros((1, S, cfg.d_model),
+                                              dtype=torch.float32,
+                                              device=self.device)
+        small = lm.init_cache(cfg, 1, self.max_len, device=self.device)
+        small, logits, aux = lm.prefill(self.params, batch, cfg,
+                                        Ctx(seed=self.seed), small)
+        if not self.kv.admit(sid, S, req.max_new):
+            raise RuntimeError("admission raced the block budget")
+        self._table_dev = None
+        paged_insert(self.cache, small, self.kv.scatter_rows(sid))
+        prefill_e = float(aux["energy_pj"])
+        self._book_corners(aux["corners"])
+        self.total_energy_pj += prefill_e
+        tok0 = int(sampling.sample_tokens(
+            logits, np.asarray([req.temperature], np.float32),
+            np.asarray([req.top_k], np.int32),
+            np.asarray([req.top_p], np.float32),
+            np.asarray([req.seed], np.uint32),
+            np.zeros(1, np.int32))[0])
+        self.scheduler.place(sid, Slot(
+            rid=rid, req=req, pos=S, last_token=tok0, generated=[tok0],
+            prefill_energy_pj=prefill_e,
+            enc_len=S if cfg.is_encdec else 0))
 
     def _sampling_args(self, active):
         B = self.batch_size
@@ -209,10 +309,12 @@ class ServingEngine:
         tokens = np.zeros(B, np.int64)
         index = np.zeros(B, np.int64)
         act = np.zeros(B, bool)
+        enc = np.zeros(B, np.int64)
         for i, s in active:
             tokens[i] = s.last_token
             index[i] = s.pos
             act[i] = True
+            enc[i] = s.enc_len
         self.peak_concurrent = max(self.peak_concurrent, len(active))
         for i, s in active:
             if self.kv.ensure(i, s.pos):
@@ -221,7 +323,8 @@ class ServingEngine:
         logits, self.cache, aux = lm.decode_step(
             self.params, self.cache, self._dev(tokens), self._dev(index),
             self.cfg, Ctx(seed=self._step_seed()), active=self._dev(act),
-            page_tables={"global": table}, page_lens=lens)
+            page_tables={"global": table}, page_lens=lens,
+            enc_lens=self._dev(enc))
         next_tok = sampling.sample_tokens(
             logits, *self._sampling_args(active)).cpu().numpy()
         share = self._book_step(aux, active)
@@ -304,13 +407,16 @@ class ServingEngine:
         self._steps += 1
         e = float(aux["energy_pj"])
         self.kv_reads_total += float(aux["kv_reads"])
-        for name, c in aux["corners"].items():
-            self.corner_energy_pj[name] = (self.corner_energy_pj.get(name, 0.0)
-                                           + float(c["energy_pj"]))
+        self._book_corners(aux["corners"])
         self.total_energy_pj += e
         share = e / self.batch_size
         self.idle_energy_pj += share * (self.batch_size - len(active))
         return share
+
+    def _book_corners(self, corners) -> None:
+        for name, c in corners.items():
+            self.corner_energy_pj[name] = (self.corner_energy_pj.get(name, 0.0)
+                                           + float(c["energy_pj"]))
 
     def cancel(self, rid: int, reason: str = "cancelled") -> Optional[GenResult]:
         """Cancel `rid` wherever it is: still queued (empty result) or bound

@@ -144,3 +144,9 @@ class PagedKV:
         """(B, width) int32 table for reads: unallocated -> zero block."""
         return np.where(self.table >= 0, self.table,
                         self.zero_block).astype(np.int32)
+
+    def scatter_rows(self, slot: int) -> np.ndarray:
+        """(width,) int32 row for the prefill insert: unallocated -> out of
+        bounds (dropped), so the zero block is never written."""
+        return np.where(self.table[slot] >= 0, self.table[slot],
+                        self.zero_block + 1).astype(np.int32)

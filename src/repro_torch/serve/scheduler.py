@@ -24,7 +24,10 @@ class Slot:
     energy_pj: float = 0.0          # decode-energy share so far
     prefill_energy_pj: float = 0.0
     steps: int = 0
-    prompt: object = None           # np.ndarray prompt still streaming in
+    enc_len: int = 0                # real encoder positions cached (enc-dec)
+    # the prompt still streaming in (chunked prefill); None = legacy
+    # bucketed prefill (the slot is placed ready to decode)
+    prompt: object = None
 
     @property
     def prefilling(self) -> bool:

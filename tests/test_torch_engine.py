@@ -190,14 +190,24 @@ def test_validation_and_backpressure(small_port):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(paged=False), "contiguous"),
-    (dict(chunked_prefill=False), "bucketed"),
+    (dict(chunked_prefill=True, arch="seamless-m4t-medium"),
+     "chunked_prefill"),
     (dict(prefix_cache=True), "prefix cache"),
     (dict(n_shards=2), "sharded"),
 ])
 def test_unported_engine_modes_raise(small_port, kw, match):
+    """Modes not ported yet raise NotImplementedError; chunked prefill on
+    an encoder-decoder stack raises ValueError, as in JAX."""
+    kw = dict(kw)
+    arch = kw.pop("arch", None)
     cfg, params = small_port
+    exc = NotImplementedError
+    if arch is not None:
+        cfg = build_config(arch, smoke=True)
+        params = tlm.init_model_params(cfg, 0, device="cpu")
+        exc = ValueError
     args = dict(ENGINE, **kw)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         TEng(cfg, params, device="cpu", **args)
 
 

@@ -1,12 +1,14 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small shapes, and the shrunk engine on the card (analog and the mixed
-placement).  Marked ``gpu``: the fixture skips them where torch sees no
-CUDA device; on a machine with an H100 run them with
+small shapes, and the shrunk engines on the card (gemma3-1b analog and on
+the mixed placement; seamless-m4t-medium through the legacy prefill and
+the cross-attention kernel).  Marked ``gpu``: the fixture skips them
+where torch sees no CUDA device; on a machine with an H100 run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: 1e-5 relative (float32 sum order); pools after the fused write
-and the noisy weight itself (x = I) bit for bit.
+(and the read-only kernel's, unchanged) and the noisy weight itself (x = I)
+bit for bit.
 """
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from repro_torch.kernels import emt_bitserial as k5
 from repro_torch.kernels import emt_matmul as k3
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as k1
+from repro_torch.kernels import paged_attention as k4
 from repro_torch.kernels import paged_prefill as k2
 from repro_torch.kernels.ref import NEG_INF
 
@@ -121,6 +124,37 @@ def test_k1_matches_plain_and_pools_bit_identical(cuda):
     assert torch.equal(kp.cpu(), kpc) and torch.equal(vp.cpu(), vpc)
 
 
+@pytest.mark.parametrize("KV,G,hd", [(16, 1, 64), (1, 4, 256)])
+def test_k4_matches_plain_and_only_reads(cuda, KV, G, hd):
+    """Rows of encoder length 0 (exact zeros), 1, a partial last block and
+    the whole view; the mask is shorter than the view (the wrapper pads
+    it)."""
+    g = torch.Generator(device=cuda).manual_seed(KV + G)
+    B, bs, T = 4, 16, 3
+    nb = B * T + 1
+    L = T * bs - 5
+    q = torch.randn((B, KV, G, hd), generator=g, device=cuda)
+    kp = torch.randn((nb + 1, bs, KV, hd), generator=g, device=cuda)
+    vp = torch.randn((nb + 1, bs, KV, hd), generator=g, device=cuda)
+    kp[nb] = vp[nb] = 0.0
+    table = torch.randperm(nb, generator=g, device=cuda)[:B * T]
+    table = table.reshape(B, T).to(torch.int32)
+    table[1, 1:] = nb
+    lens = torch.tensor([0, 1, 21, L], device=cuda)
+    mask = torch.where(torch.arange(L, device=cuda)[None, :] < lens[:, None],
+                       0.0, NEG_INF)
+    kp0, vp0 = kp.clone(), vp.clone()
+    before = k4.paged_attention.launches
+    out = ops.paged_attention(q, kp, vp, table, mask)
+    assert k4.paged_attention.launches == before + 1
+    ref = ops.paged_attention(q.cpu(), kp.cpu(), vp.cpu(), table.cpu(),
+                              mask.cpu())
+    torch.cuda.synchronize()
+    assert _rel(out.cpu(), ref) <= 1e-5
+    assert (out[0] == 0).all()
+    assert torch.equal(kp, kp0) and torch.equal(vp, vp0)
+
+
 @pytest.mark.parametrize("bs,G,C", [(16, 4, 16), (4, 3, 5)])
 def test_k2_matches_plain(cuda, bs, G, C):
     g = torch.Generator(device=cuda).manual_seed(bs + G + C)
@@ -152,16 +186,26 @@ def test_mixed_engine_on_card_launches_every_kernel(cuda):
     _serve_on_card("mixed")
 
 
-def _serve_on_card(placement):
+def test_seamless_engine_on_card_launches_its_kernels(cuda):
+    """The enc-dec path: K1 (decoder self-attention), K4 (cross attention)
+    and K3; no chunked prefill, so no K2."""
+    k2_before = k2.paged_prefill.launches
+    _serve_on_card(None, "seamless-m4t-medium")
+    assert k2.paged_prefill.launches == k2_before
+
+
+def _serve_on_card(placement, arch="gemma3-1b"):
     from repro_torch.models import lm
     from repro_torch.serve.engine import GenRequest, ServingEngine
     from repro_torch.serve.spec import build_config
-    cfg = build_config(smoke=True, a_per_row=True, placement=placement,
+    cfg = build_config(arch, smoke=True, a_per_row=True, placement=placement,
                        model_overrides={"num_layers": 2})
     params = lm.init_model_params(cfg, 0)
     eng = ServingEngine(cfg, params, batch_size=2, max_len=32, block_size=8,
                         prefill_chunk=8, fresh_noise=False)
-    counters = (k1.paged_attention_decode, k2.paged_prefill, k3.emt_matmul)
+    counters = (k1.paged_attention_decode, k3.emt_matmul)
+    counters += ((k4.paged_attention,) if cfg.is_encdec
+                 else (k2.paged_prefill,))
     if placement == "mixed":
         counters += (k5.emt_bitserial,)
     before = [c.launches for c in counters]
