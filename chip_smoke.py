@@ -15,7 +15,10 @@ Phases (any failure exits non-zero and prints no result line):
    head shapes) and time it, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls), beside
    its bound; the bit-serial kernel also shows every plane's noisy weight
-   bit-exact;
+   bit-exact; the noisy matmul and the chunked prefill, which split work
+   across CTAs, give bit-identical results on two calls; the noisy matmul
+   is also timed at a chunk step (M = 64) and per distinct weight shape of
+   a decode step, with device times beside event times;
 4. serve 6 staggered requests through the port's ServingEngine at full
    gemma3-1b width (random weights from a seed; all-global, per-row DAC
    scale, frozen noise, paged KV, chunked prefill) on two paths: analog
@@ -45,9 +48,10 @@ main-path step: K1 = the 26 decode-attention launches of a gemma3 decode
 step, K2 = the 26 prefill launches of a chunk step, K3 = the 183 noisy
 matmuls of an analog decode step, K4 = the 12 cross-attention launches of
 a seamless decode step, K5 = the 78 bit-serial MLP matmuls of a mixed
-decode step.  "launches" counts K1-K3 in the analog run, K4 in the seamless
-run and K5 in the mixed run.  Bounds use the H100 SXM's published 3.35 TB/s
-and 67 TFLOP/s (FP32, no tensor cores).
+decode step; K3's record also carries ``chunk_ms`` and ``chunk_bound_ms``,
+the same 183 matmuls at M = 64.  "launches" counts K1-K3 in the analog run,
+K4 in the seamless run and K5 in the mixed run.  Bounds use the H100 SXM's
+published 3.35 TB/s and 67 TFLOP/s (FP32, no tensor cores).
 """
 from __future__ import annotations
 
@@ -90,10 +94,11 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, key: str) -> float:
-    """Device time (ms) of the kernels whose name contains `key` in one run
-    of fn, from torch.profiler: the kernels alone, without the host's
-    dispatch gaps that a CUDA-event time of short launches includes."""
+def device_ms(fn, key) -> float:
+    """Device time (ms) of the kernels whose name contains `key` (a string
+    or a tuple of them) in one run of fn, from torch.profiler: the kernels
+    alone, without the host's dispatch gaps that a CUDA-event time of short
+    launches includes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -102,8 +107,9 @@ def device_ms(fn, key: str) -> float:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    keys = (key,) if isinstance(key, str) else key
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if key in e.key) / 1e3
+               if any(k in e.key for k in keys)) / 1e3
 
 
 def rel_err(a, b) -> tuple:
@@ -145,6 +151,8 @@ class Smoke:
               f"python {sys.version.split()[0]}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"{self.sms} SMs")
 
     # -- phase 2 -------------------------------------------------------------
     def build(self):
@@ -203,8 +211,8 @@ class Smoke:
               f"init {time.perf_counter() - t0:.2f} s")
 
     def k3(self):
-        """Technique-A matmul at every projection of one decode step."""
-        import math
+        """Technique-A matmul at every projection of one decode step (and of
+        one chunk step, M = 64)."""
         from repro_torch.core import noise, quant, regularizer
         from repro_torch.core.emt_linear import _tag_plane
         from repro_torch.kernels import emt_matmul as k
@@ -230,7 +238,9 @@ class Smoke:
             rho = regularizer.rho_from_raw(rho_raw)
             sig = emt.device.sigma_rel(rho)
             prepared.append((wq, rho, sig, plane))
-        # correctness at every distinct (K, N), decode and chunk row counts
+        # correctness at every distinct (K, N), decode and chunk row counts;
+        # a second call on the same inputs must give the same bits (the
+        # split-K sum runs in slab order)
         seen = set()
         worst = 0.0
         for wq, rho, sig, plane in prepared:
@@ -243,15 +253,22 @@ class Smoke:
                 x = torch.randn((M, K), generator=gen, device=self.dev)
                 y = k.emt_matmul(x, wq, sig, device=emt.device, seed=SEED,
                                  plane=plane)
+                y2 = k.emt_matmul(x, wq, sig, device=emt.device, seed=SEED,
+                                  plane=plane)
                 yp = k.plain(x, wq, sig, device=emt.device, seed=SEED,
                              plane=plane)
                 self.sync()
                 d, r = rel_err(y, yp)
+                same = torch.equal(y, y2)
                 worst = max(worst, d)
+                p = k.plan(M, N, K, self.sms, wq.stride(1) == 1)
                 print(f"  K3 {M}x{K} @ {K}x{N}"
                       f"{' (tied unembed, transposed)' if wq.stride(0) == 1 else ''}"
-                      f": max|diff| {d:.3e} rel {r:.3e}")
+                      f": max|diff| {d:.3e} rel {r:.3e}; {p.splits} K "
+                      f"slab(s) of {p.k_slab}, {p.ctas} CTAs; two calls "
+                      f"bit-identical: {same}")
                 self.check(r <= 1e-5, f"K3 {M}x{K}x{N} rel {r:.3e} > 1e-5")
+                self.check(same, f"K3 {M}x{K}x{N}: two calls differ")
             # x = I returns the noisy weight itself: bit-exact with fluctuate
             eye = torch.eye(K, device=self.dev)
             wn = k.emt_matmul(eye, wq, sig, device=emt.device, seed=SEED,
@@ -262,18 +279,16 @@ class Smoke:
             print(f"  K3 noisy weight {K}x{N} bit-exact with fluctuate: {same}")
             self.check(same, f"K3 noisy weight {K}x{N} differs from fluctuate")
             del eye, wn, ref
-        # timing: one decode step's 183 calls, in model order
+        # timing: one decode step's 183 calls (and a chunk step's), in model
+        # order
         xs = [torch.randn((BATCH, wq.shape[0]), generator=gen, device=self.dev)
               for wq, *_ in prepared]
+        xc = [torch.randn((BATCH * CHUNK, wq.shape[0]), generator=gen,
+                          device=self.dev) for wq, *_ in prepared]
 
-        def run_kernel():
-            for x, (wq, rho, sig, plane) in zip(xs, prepared):
-                k.emt_matmul(x, wq, sig, device=emt.device, seed=SEED,
-                             plane=plane)
-
-        def run_plain():
-            for x, (wq, rho, sig, plane) in zip(xs, prepared):
-                k.plain(x, wq, sig, device=emt.device, seed=SEED, plane=plane)
+        def run(fn, inputs, calls=prepared):
+            for x, (wq, rho, sig, plane) in zip(inputs, calls):
+                fn(x, wq, sig, device=emt.device, seed=SEED, plane=plane)
 
         noisy = [noise.fluctuate(wq, rho, emt.device, emt.noise, seed=SEED,
                                  plane=plane)
@@ -283,25 +298,57 @@ class Smoke:
             for x, wn in zip(xs, noisy):
                 torch.matmul(x, wn)
 
-        ms = cuda_time(run_kernel, 5)
+        def step_bound(M, calls=prepared):
+            nbytes = sum(4 * (M * K + K * N + M * N)
+                         for K, N in (wq.shape for wq, *_ in calls))
+            flops = sum(2 * M * wq.numel() for wq, *_ in calls)
+            return bound(nbytes, flops), nbytes, flops
+
+        # event times first, the kernel beside its yardstick, then the
+        # profiler's device times
+        keys = ("emt_matmul", "split_sum")
+        ms = cuda_time(lambda: run(k.emt_matmul, xs), 5)
         lib_ms = cuda_time(run_library, 5)
+        chunk_ms = cuda_time(lambda: run(k.emt_matmul, xc), 3)
+        dev_ms = device_ms(lambda: run(k.emt_matmul, xs), keys)
+        chunk_dev_ms = device_ms(lambda: run(k.emt_matmul, xc), keys)
         del noisy
-        plain_ms = cuda_time(run_plain, 2, warmup=1)
-        nbytes = sum(4 * (BATCH * K + K * N + BATCH * N)
-                     for (K, N) in (tuple(wq.shape) for wq, *_ in prepared))
-        flops = sum(2 * BATCH * math.prod(wq.shape) for wq, *_ in prepared)
-        b_ms, by = bound(nbytes, flops)
+        plain_ms = cuda_time(lambda: run(k.plain, xs), 2, warmup=1)
+        (b_ms, by), nbytes, flops = step_bound(BATCH)
+        (cb_ms, cby), _, cflops = step_bound(BATCH * CHUNK)
         self.records["emt_matmul"] = dict(
             name="emt_matmul", route="cuda",
             source="src/repro_torch/kernels/csrc/emt_matmul.cu",
             replaces="src/repro/kernels/emt_matmul.py:57",
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=by, library_ms=lib_ms)
+            bound_by=by, library_ms=lib_ms, chunk_ms=chunk_ms,
+            chunk_bound_ms=cb_ms)
         print(f"  K3 per decode step ({len(prepared)} calls, M={BATCH}): "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul on "
-              f"pre-noised weights {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
-              f"({by}; {nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP), "
-              f"roofline share {100 * b_ms / ms:.2f}%")
+              f"kernel {ms:.3f} ms (device time {dev_ms:.3f} ms), plain "
+              f"{plain_ms:.3f} ms, torch.matmul on pre-noised weights "
+              f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({by}; "
+              f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP), roofline "
+              f"share {100 * b_ms / ms:.2f}%")
+        print(f"  K3 per chunk step ({len(prepared)} calls, "
+              f"M={BATCH * CHUNK}): kernel {chunk_ms:.3f} ms (device time "
+              f"{chunk_dev_ms:.3f} ms), bound "
+              f"{cb_ms:.3f} ms ({cby}; {cflops / 1e9:.3f} GFLOP), roofline "
+              f"share {100 * cb_ms / chunk_ms:.2f}%")
+        # per distinct (K, N, layout) at M = 4: which calls lead the step
+        groups = {}
+        for i, (wq, *_) in enumerate(prepared):
+            groups.setdefault((*wq.shape, wq.stride(1) == 1), []).append(i)
+        for (K, N, n_major), idx in groups.items():
+            calls = [prepared[i] for i in idx]
+            inputs = [xs[i] for i in idx]
+            g_ms = cuda_time(lambda: run(k.emt_matmul, inputs, calls), 5)
+            g_dev = device_ms(lambda: run(k.emt_matmul, inputs, calls), keys)
+            (g_b, g_by), g_bytes, _ = step_bound(BATCH, calls)
+            print(f"  K3 {K}x{N}{'' if n_major else ' (transposed)'} at "
+                  f"M={BATCH}: {len(idx)} calls a step, {g_ms:.4f} ms "
+                  f"(device time {g_dev:.4f} ms), bound {g_b:.4f} ms "
+                  f"({g_by}; {g_bytes / 1e9:.3f} GB), share of the device "
+                  f"time {100 * g_b / g_dev:.2f}%")
 
     def k5(self):
         """Technique-C bit-serial matmul at every MLP projection of one
@@ -558,12 +605,17 @@ class Smoke:
         q = torch.randn((BATCH, KV, R, hd), generator=gen, device=self.dev)
         kp, vp = pools[0]
         out = k.paged_prefill(q, kp, vp, table, qpe, qlast)
+        out2 = k.paged_prefill(q, kp, vp, table, qpe, qlast)
         ref = k.plain(q, kp, vp, table, qpe, qlast)
         self.sync()
         d, r = rel_err(out, ref)
+        same = torch.equal(out, out2)
+        splits = k.kv_splits(BATCH, KV, R, T, BLOCK, hd, self.sms)
         print(f"  K2 B={BATCH} KV={KV} R={R} hd={hd} bs={BLOCK} T={T}: "
-              f"max|diff| {d:.3e} rel {r:.3e}")
+              f"max|diff| {d:.3e} rel {r:.3e}; {splits} CTAs per row tile "
+              f"along K/V; two calls bit-identical: {same}")
         self.check(r <= 1e-5, f"K2 rel {r:.3e} > 1e-5")
+        self.check(same, "K2: two calls differ")
 
         def run_kernel():
             for kp, vp in pools:
@@ -589,6 +641,7 @@ class Smoke:
                                                attn_mask=am.float())
 
         ms = cuda_time(run_kernel, 20)
+        dev_ms = device_ms(run_kernel, "paged_prefill_kernel")
         plain_ms = cuda_time(run_plain, 10)
         lib_ms = cuda_time(run_library, 20)
         nl = cfg.num_layers
@@ -609,8 +662,8 @@ class Smoke:
             max_abs_err=d, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=by, library_ms=lib_ms)
         del views
-        print(f"  K2 per chunk step ({nl} launches): kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, SDPA on the gathered view "
+        print(f"  K2 per chunk step ({nl} launches): kernel {ms:.4f} ms "
+              f"(device time {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA on the gathered view "
               f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({by}), roofline share "
               f"{100 * b_ms / ms:.2f}%")
 
@@ -734,8 +787,10 @@ class Smoke:
         """Serve `reqs` on `eng`, profiling single steps (from the third on)
         until `per_kind` steps with prefill work (chunk steps; admission
         steps of the legacy prefill) and `per_kind` decode steps are
-        captured; print each step's wall time, device busy time and top
-        kernels.  Profiling single steps keeps the trace small."""
+        captured; print each step's wall time, device busy time (the sum of
+        its device events) and top kernels.  Profiling single steps keeps
+        the trace small."""
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         for r in reqs:
@@ -760,8 +815,11 @@ class Smoke:
             if seen[kind] >= per_kind:
                 continue
             seen[kind] += 1
+            # device events only: an aten op's entry carries the device
+            # time of the kernels it launched, which are entries too
             ev = [e for e in prof.key_averages()
-                  if getattr(e, "self_device_time_total", 0) > 0]
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
             ev.sort(key=lambda e: e.self_device_time_total, reverse=True)
             busy = sum(e.self_device_time_total for e in ev) / 1e3
             ops = sum(e.count for e in prof.key_averages()

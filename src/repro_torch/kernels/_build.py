@@ -19,6 +19,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("emt_bitserial", "emt_matmul", "paged_attention",
@@ -96,6 +98,15 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def stream(index: int) -> int:
+    """PyTorch's current CUDA stream on device `index`, as the raw handle a
+    launcher takes (the call PyTorch's own generated launchers make;
+    ``torch.cuda.current_stream().cuda_stream`` builds a Stream object
+    first, which costs the wrappers more host time than the rest of their
+    argument handling)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, what: str) -> None:

@@ -1,6 +1,7 @@
 // Shared device helpers for the port's Hopper kernels: the counter-hash RNG
-// (bit-exact with repro_torch/core/hashrng.py and repro/core/hashrng.py) and
-// the RTN state lookup.
+// (bit-exact with repro_torch/core/hashrng.py and repro/core/hashrng.py),
+// the RTN state lookup, and the split-K slab sum shared by the noisy matmul
+// kernels (planned in repro_torch/kernels/splitk.py).
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,6 +59,42 @@ __device__ __forceinline__ float state_offset(uint32_t bits,
   for (int i = 0; i < kMaxStates - 1; ++i)
     if (i < p.n_states - 1 && u >= p.thr[i]) state = i + 1;
   return p.off[state];
+}
+
+// -- split-K ---------------------------------------------------------------
+// A kernel split along K writes slab z's partial (M, N) sums to
+// part[z * M * N ...]; split_sum adds the slabs in slab order into y, so the
+// result is the same bits on every run (no atomics).
+
+// True iff `splits` slabs of `k_slab` rows (a whole number of `bk`-row
+// tiles) cover K with no slab empty: the planner's contract.
+inline bool split_plan_ok(int K, int splits, int k_slab, int bk) {
+  if (K <= 0) return splits == 1;
+  if (splits < 1 || k_slab < bk || k_slab % bk != 0) return false;
+  const long long cover = (long long)splits * k_slab;
+  return cover >= K && cover - k_slab < K;
+}
+
+template <int kUnused = 0>
+__global__ void split_sum_kernel(const float* __restrict__ part,
+                                 float* __restrict__ y, long long mn,
+                                 int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float s = part[i];
+  for (int z = 1; z < splits; ++z) s += part[z * mn + i];
+  y[i] = s;
+}
+
+// y (mn floats) = sum of the `splits` slabs of `part`; returns the launch's
+// cudaGetLastError().  (Templates, so a source that never sums slabs
+// compiles no sum kernel.)
+template <int kUnused = 0>
+cudaError_t split_sum(const float* part, float* y, long long mn,
+                             int splits, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((mn + 255) / 256);
+  split_sum_kernel<kUnused><<<blocks, 256, 0, s>>>(part, y, mn, splits);
+  return cudaGetLastError();
 }
 
 }  // namespace repro

@@ -23,8 +23,9 @@
 // Then, for every plane, the tile's noisy weights and the signed plane of
 // the levels (0 or +-2^p) go to shared memory and are multiplied into ONE
 // f32 accumulator: each product +-2^p * w' is exact, so the result differs
-// from the per-plane reference only in summation order.  Split-K partials
-// are summed in a fixed order by a second kernel (deterministic).
+// from the per-plane reference only in summation order.  The split count
+// comes from the shared planner (repro_torch/kernels/splitk.py); split-K
+// partials are summed in slab order by repro::split_sum (deterministic).
 // Rounding of the noise follows the reference: factor = fl(1 + fl(a * sigma)),
 // w' = fl(w * factor) (no FMA contraction).
 // Not yet done (later work): skipping zero plane entries, tensor cores,
@@ -139,51 +140,37 @@ emt_bitserial_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// y = sum over the split-K slabs, in slab order.
-__global__ void split_sum_kernel(const float* __restrict__ part,
-                                 float* __restrict__ y, long long mn,
-                                 int splits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = part[i];
-  for (int z = 1; z < splits; ++z) s += part[z * mn + i];
-  y[i] = s;
-}
-
 }  // namespace
 
-// `splits` > 1 splits K over that many CTAs per output tile (at most; the
-// K range is rounded to whole 32-deep tiles); their partials go to `part`
-// (splits * M * N floats) and are summed into y.
+// `splits` CTAs per output tile along K, each over `k_slab` rows (whole
+// 32-deep tiles; planned by repro_torch/kernels/splitk.py); with splits > 1
+// their partials go to `part` (splits * M * N floats) and are summed into y
+// in slab order (repro::split_sum).
 extern "C" int emt_bitserial_f32(const float* x, const float* w, float* y,
                                  float* part, const float* sig, int M, int N,
-                                 int K, int splits, long long sxm,
+                                 int K, int splits, int k_slab, long long sxm,
                                  long long sxk, long long swk, long long swn,
                                  int bits, unsigned int seed,
                                  unsigned int base_plane, repro::NoiseParams np,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (splits < 1 || K < 1) splits = 1;
-  int k_split = (K + splits - 1) / splits;
-  k_split = (k_split + kBK - 1) / kBK * kBK;
-  const int nz = K > 0 ? (K + k_split - 1) / k_split : 1;
-  float* out = nz > 1 ? part : y;
+  if (!repro::split_plan_ok(K, splits, k_slab, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* out = splits > 1 ? part : y;
   const unsigned gx = (N + kBN - 1) / kBN;
   if (M <= 16) {
-    dim3 grid(gx, (M + 15) / 16, nz);
+    dim3 grid(gx, (M + 15) / 16, splits);
     emt_bitserial_kernel<16><<<grid, kThreads, 0, s>>>(
-        x, w, out, sig, M, N, K, k_split, sxm, sxk, swk, swn, bits, seed,
+        x, w, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, bits, seed,
         base_plane, np);
   } else {
-    dim3 grid(gx, (M + 63) / 64, nz);
+    dim3 grid(gx, (M + 63) / 64, splits);
     emt_bitserial_kernel<64><<<grid, kThreads, 0, s>>>(
-        x, w, out, sig, M, N, K, k_split, sxm, sxk, swk, swn, bits, seed,
+        x, w, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, bits, seed,
         base_plane, np);
   }
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nz == 1) return static_cast<int>(err);
-  const long long mn = (long long)M * N;
-  const unsigned blocks = (unsigned)((mn + 255) / 256);
-  split_sum_kernel<<<blocks, 256, 0, s>>>(part, y, mn, nz);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(
+      repro::split_sum(part, y, (long long)M * N, splits, s));
 }

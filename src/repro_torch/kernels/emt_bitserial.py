@@ -22,11 +22,11 @@ import functools
 import torch
 
 from repro_torch.core.device import DeviceModel
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, splitk
 from repro_torch.kernels.emt_matmul import NoiseParams, noise_params
 from repro_torch.kernels.ref import emt_bitserial_ref as plain
 
-BN = 64                 # output columns per CTA (csrc/emt_bitserial.cu kBN)
+BN, BK = 64, 32         # output columns per CTA, K-tile (csrc kBN, kBK)
 MAX_BITS = 24           # levels up to 2^24 are exact float32 integers
 
 
@@ -35,23 +35,19 @@ def _fn():
     if fn.argtypes is None:
         P, I, LL, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
             ctypes.c_uint
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, LL, LL, LL, LL, I, U, U,
-                       NoiseParams, P]
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, LL, LL, LL, LL, I, U,
+                       U, NoiseParams, P]
         fn.restype = ctypes.c_int
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def k_splits(M: int, N: int, K: int, sms: int) -> int:
-    """CTAs per output tile along K: enough that every SM holds two CTAs
-    (what its registers allow at ~122 per thread) when the output tiles
-    alone do not, with at least 256 of K per split."""
-    tiles = -(-N // BN) * -(-M // (16 if M <= 16 else 64))
-    return max(1, min(2 * sms // tiles, K // 256))
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, N: int, K: int, sms: int) -> splitk.Plan:
+    """Split K until every SM holds two CTAs (what ~122 registers per
+    thread allow) when the output tiles alone do not, with at least 256 of
+    K per slab."""
+    return splitk.plan(M, N, K, bm=16 if M <= 16 else 64, bn=BN, bk=BK,
+                       sms=sms, min_slab=256)
 
 
 def emt_bitserial(xq: torch.Tensor, w: torch.Tensor, sig: torch.Tensor, *,
@@ -81,15 +77,14 @@ def emt_bitserial(xq: torch.Tensor, w: torch.Tensor, sig: torch.Tensor, *,
     if sig.numel() != 1:
         raise ValueError("emt_bitserial: sig must be a scalar tensor")
     sig = sig.reshape(1).contiguous()
-    y = torch.empty((M, N), dtype=torch.float32, device=xq.device)
-    splits = k_splits(M, N, K, _sm_count(xq.device.index))
-    part = (torch.empty((splits, M, N), dtype=torch.float32,
-                        device=xq.device) if splits > 1 else y)
-    err = _fn()(xq.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
-                sig.data_ptr(), M, N, K, splits, xq.stride(0), xq.stride(1),
-                w.stride(0), w.stride(1), int(bits), int(seed) & 0xFFFFFFFF,
+    p = plan(M, N, K, splitk.sm_count(xq.device.index))
+    y, part = splitk.outputs(p, xq)
+    err = _fn()(xq.data_ptr(), w.data_ptr(), y.data_ptr(), part,
+                sig.data_ptr(), M, N, K, p.splits, p.k_slab, xq.stride(0),
+                xq.stride(1), w.stride(0), w.stride(1), int(bits),
+                int(seed) & 0xFFFFFFFF,
                 int(base_plane) & 0xFFFFFFFF, noise_params(device),
-                torch.cuda.current_stream().cuda_stream)
+                _build.stream(xq.get_device()))
     _build.check(err, "emt_bitserial")
     emt_bitserial.launches += 1
     return y

@@ -92,7 +92,7 @@ def paged_attention_decode(q, k_pool, v_pool, table, mask, k_new, v_new,
         mask.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), wblk.data_ptr(),
         woff.data_ptr(), wok.data_ptr(), out.data_ptr(), B, KV, G, hd, bs, T,
         float(1.0 / np.sqrt(hd)), float(softcap or 0.0),
-        torch.cuda.current_stream().cuda_stream)
+        _build.stream(q.get_device()))
     _build.check(err, "paged_attention_decode")
     paged_attention_decode.launches += 1
     return out
@@ -116,7 +116,7 @@ def paged_attention(q, k_pool, v_pool, table, mask, *, softcap=0.0):
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         mask.data_ptr(), out.data_ptr(), B, KV, G, hd, bs, T,
         float(1.0 / np.sqrt(hd)), float(softcap or 0.0),
-        torch.cuda.current_stream().cuda_stream)
+        _build.stream(q.get_device()))
     _build.check(err, "paged_attention")
     paged_attention.launches += 1
     return out

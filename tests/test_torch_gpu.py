@@ -7,8 +7,9 @@ where torch sees no CUDA device; on a machine with an H100 run them with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: 1e-5 relative (float32 sum order); pools after the fused write
-(and the read-only kernel's, unchanged) and the noisy weight itself (x = I)
-bit for bit.
+(and the read-only kernel's, unchanged), the noisy weight itself (x = I)
+and two calls of the split kernels (K2, K3, K5) on the same inputs bit for
+bit.
 """
 import numpy as np
 import pytest
@@ -38,12 +39,24 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
-@pytest.mark.parametrize("M,K,N,transposed", [(4, 96, 200, False),
-                                              (64, 256, 130, False),
-                                              (3, 64, 300, True)])
+# (M, K, N, transposed): every GEMV row template (1-4, 8, 16) and the tiled
+# kernel (M > 16); K a multiple of neither the K chunk nor the split; both
+# weight layouts; ragged N (row strides that allow 16-, 8- and 4-byte loads);
+# most cases split K (the plan's split count is printed on failure).
+K3_CASES = [(4, 96, 200, False), (64, 256, 130, False), (3, 64, 300, True),
+            (1, 1000, 260, False), (2, 555, 1001, False),
+            (4, 1000, 262, True), (6, 4100, 64, True),
+            (16, 777, 514, False), (16, 300, 200, True),
+            (17, 1000, 130, False), (64, 1000, 300, True)]
+
+
+@pytest.mark.parametrize("M,K,N,transposed", K3_CASES)
 @pytest.mark.parametrize("dev", [DeviceModel(), four_state_device()],
                          ids=["two", "four"])
 def test_k3_matches_plain_and_noise_bit_exact(cuda, M, K, N, transposed, dev):
+    """Within 1e-5 of the plain version; two calls bit-identical (the split
+    sum is ordered); rows of I give the noisy weight's rows bit for bit on
+    the path M selects, and I itself (the tiled path) the whole of it."""
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = torch.randn((M, K), generator=g, device=cuda)
     w = torch.randn((N, K) if transposed else (K, N), generator=g,
@@ -51,16 +64,20 @@ def test_k3_matches_plain_and_noise_bit_exact(cuda, M, K, N, transposed, dev):
     w = w.T if transposed else w
     rho = torch.tensor(3.5, device=cuda)
     sig = dev.sigma_rel(rho)
+    p = k3.plan(M, N, K, torch.cuda.get_device_properties(cuda)
+                .multi_processor_count, not transposed)
+    kw = dict(device=dev, seed=99, plane=1234)
     before = k3.emt_matmul.launches
-    y = k3.emt_matmul(x, w, sig, device=dev, seed=99, plane=1234)
+    y = k3.emt_matmul(x, w, sig, **kw)
     assert k3.emt_matmul.launches == before + 1
-    assert _rel(y, k3.plain(x, w, sig, device=dev, seed=99,
-                            plane=1234)) <= 1e-5
-    wn = k3.emt_matmul(torch.eye(K, device=cuda), w, sig, device=dev,
-                       seed=99, plane=1234)
+    assert _rel(y, k3.plain(x, w, sig, **kw)) <= 1e-5, p
+    assert torch.equal(y, k3.emt_matmul(x, w, sig, **kw)), p
     ref = noise.fluctuate(w, rho, dev, noise.NoiseConfig(), seed=99,
                           plane=1234)
-    assert torch.equal(wn, ref)
+    rows = torch.randperm(K, generator=g, device=cuda)[:M]
+    eye = torch.eye(K, device=cuda)
+    assert torch.equal(k3.emt_matmul(eye[rows], w, sig, **kw), ref[rows]), p
+    assert torch.equal(k3.emt_matmul(eye, w, sig, **kw), ref)
 
 
 @pytest.mark.parametrize("M,K,N,transposed", [(4, 96, 200, False),
@@ -155,26 +172,64 @@ def test_k4_matches_plain_and_only_reads(cuda, KV, G, hd):
     assert torch.equal(kp, kp0) and torch.equal(vp, vp0)
 
 
-@pytest.mark.parametrize("bs,G,C", [(16, 4, 16), (4, 3, 5)])
-def test_k2_matches_plain(cuda, bs, G, C):
-    g = torch.Generator(device=cuda).manual_seed(bs + G + C)
-    B, KV, hd, T = 3, 1, 256, 6
+@pytest.mark.parametrize("bs,G,C,hd,softcap,alias",
+                         [(16, 4, 16, 256, 0.0, False),
+                          (4, 3, 5, 256, 0.0, False),
+                          (16, 4, 16, 64, 30.0, False),
+                          (8, 2, 7, 64, 0.0, False),
+                          (5, 1, 9, 98, 20.0, False),
+                          (16, 2, 3, 256, 0.0, False),
+                          (32, 1, 2, 256, 0.0, False),
+                          (16, 4, 16, 256, 0.0, True),
+                          (4, 3, 5, 64, 0.0, True)])
+def test_k2_matches_plain(cuda, bs, G, C, hd, softcap, alias):
+    """Rows from position 0, one token at a block's last position, a chunk
+    ending at the view's end, and a padded row (qpos -1: exact zeros).  The
+    blocks past each row's qlast that no row sees hold NaN: the kernel must
+    neither load nor compute them (the plain version gets zeros there;
+    masked, they add exact zeros).  With `alias` the table draws blocks
+    with repeats, so rows (and a row's own positions) share physical
+    blocks.  The cases split each row tile's walk over 1, 2, 4 and 8 CTAs;
+    two calls are bit-identical (the merge runs in rank order)."""
+    g = torch.Generator(device=cuda).manual_seed(bs + G + C + hd + alias)
+    B, KV, T = 4, 2, 6
     nb = B * T + 1
     q = torch.randn((B, C, KV * G, hd), generator=g, device=cuda)
     kp = torch.randn((nb + 1, bs, KV, hd), generator=g, device=cuda)
     vp = torch.randn((nb + 1, bs, KV, hd), generator=g, device=cuda)
-    table = torch.randint(0, nb, (B, T), generator=g, device=cuda,
-                          dtype=torch.int32)
-    start = torch.tensor([0, bs - 1, T * bs - C], device=cuda)
-    ntok = torch.tensor([C, 1, C], device=cuda)
+    if alias:
+        table = torch.randint(0, nb, (B, T), generator=g, device=cuda)
+    else:
+        table = torch.randperm(nb, generator=g, device=cuda)[:B * T]
+    table = table.reshape(B, T).to(torch.int32)
+    start = torch.tensor([0, bs - 1, T * bs - C, 0], device=cuda)
+    ntok = torch.tensor([C, 1, C, C], device=cuda)
     j = torch.arange(C, device=cuda)[None, :]
     qpos = start[:, None] + torch.minimum(j, ntok[:, None] - 1)
+    qpos[3] = -1
+    qlast = qpos.amax(1)
+    seen = {int(table[b, t]) for b in range(B) for t in range(T)
+            if t * bs <= qlast[b]}
+    kpz, vpz = kp.clone(), vp.clone()
+    for b in range(B):
+        for t in range(T):
+            blk = int(table[b, t])
+            if t * bs > qlast[b] and blk not in seen:
+                kp[blk] = vp[blk] = float("nan")
+                kpz[blk] = vpz[blk] = 0.0
     before = k2.paged_prefill.launches
-    y = ops.paged_prefill(q, kp, vp, table, qpos)
+    y = ops.paged_prefill(q, kp, vp, table, qpos, softcap=softcap)
     assert k2.paged_prefill.launches == before + 1
-    ref = ops.paged_prefill(q.cpu(), kp.cpu(), vp.cpu(), table.cpu(),
-                            qpos.cpu())
-    assert _rel(y.cpu(), ref) <= 1e-5
+    # the plain version in float64: in float32 on the CPU of the machine
+    # that holds the H100, two calls of it differ in some processes by more
+    # than the 1e-5 checked here (PERF.md, open questions)
+    ref = ops.paged_prefill(q.cpu().double(), kpz.cpu().double(),
+                            vpz.cpu().double(), table.cpu(), qpos.cpu(),
+                            softcap=softcap)
+    assert _rel(y.cpu().double(), ref) <= 1e-5
+    assert (y[3] == 0).all()
+    assert torch.equal(y, ops.paged_prefill(q, kp, vp, table, qpos,
+                                            softcap=softcap))
 
 
 def test_engine_on_card_launches_every_kernel(cuda):
