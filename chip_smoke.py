@@ -15,10 +15,15 @@ Phases (any failure exits non-zero and prints no result line):
    head shapes) and time it, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls), beside
    its bound; the bit-serial kernel also shows every plane's noisy weight
-   bit-exact; the noisy matmul and the chunked prefill, which split work
-   across CTAs, give bit-identical results on two calls; the noisy matmul
-   is also timed at a chunk step (M = 64) and per distinct weight shape of
-   a decode step, with device times beside event times;
+   bit-exact on both of its kernels; every kernel splits work across CTAs
+   (split-K slabs or a thread-block cluster's ranks, summed in a fixed
+   order) and gives bit-identical results on two calls; the decode
+   attention kernels (fused and read-only) are held to float64 plain
+   versions;
+   the noisy matmuls are also timed at a chunk step (M = 64) and per
+   distinct weight shape of a decode step, with device times
+   (torch.profiler) beside event times, and the bit-serial phase reports
+   the share of (k, plane) pairs whose plane is zero in every row;
 4. serve 6 staggered requests through the port's ServingEngine at full
    gemma3-1b width (random weights from a seed; all-global, per-row DAC
    scale, frozen noise, paged KV, chunked prefill) on two paths: analog
@@ -48,10 +53,19 @@ main-path step: K1 = the 26 decode-attention launches of a gemma3 decode
 step, K2 = the 26 prefill launches of a chunk step, K3 = the 183 noisy
 matmuls of an analog decode step, K4 = the 12 cross-attention launches of
 a seamless decode step, K5 = the 78 bit-serial MLP matmuls of a mixed
-decode step; K3's record also carries ``chunk_ms`` and ``chunk_bound_ms``,
-the same 183 matmuls at M = 64.  "launches" counts K1-K3 in the analog run,
-K4 in the seamless run and K5 in the mixed run.  Bounds use the H100 SXM's
-published 3.35 TB/s and 67 TFLOP/s (FP32, no tensor cores).
+decode step; K3's and K5's records also carry ``chunk_ms`` and
+``chunk_bound_ms``, the same matmuls at M = 64, and K1's, K4's and K5's
+``device_ms`` (K5's also ``chunk_device_ms``), the kernels' device time in
+that step from torch.profiler, null where no trace recorded them (not
+measured).  "launches" counts
+K1-K3 in the analog run, K4 in the seamless run and K5 in the mixed run.
+Bounds are the largest of the bytes over the H100 SXM's published 3.35
+TB/s, the FP32 pipe's operations (FLOPs, and for the noisy matmuls the
+hash's integer multiplies and the noise factor's FMULs as two each) over
+its 67 TFLOP/s (no tensor cores) and, for the noisy matmuls, the integer
+ALU pipe's operations of the noise hash and the state select over 64 lanes
+per SM x 132 SMs x 1.98 GHz (16.7 TOP/s).  Those counts are the kernels'
+own (HASH_OPS), matched against their SASS by scripts/sass_ops.py.
 """
 from __future__ import annotations
 
@@ -67,15 +81,74 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+# 32-bit integer operations on the ALU pipe (bit logic, shifts, compares,
+# selects): 64 INT32 lanes per SM x 132 SMs x 1.98 GHz (the H100 SXM's
+# boost clock).  Integer multiplies (IMAD) issue to the FP32 (FMA) pipe.
+INT32_OPS = 64 * 132 * 1.98e9
+# The noisy matmuls' operations per weight element on one plane (alu,
+# imad, fmul) and once per element whatever the planes (*_el), as the
+# kernels compute them on a two-state corner (common.cuh, emt_matmul.cu,
+# emt_bitserial.cu).  K3: hash_rc (1 XOR, 2 IMAD), hash_mix (6 shifts,
+# 8 XOR, 4 IMAD), compare + select, w * factor.  K5's GEMV (M <= 16): per
+# plane hash_mix_pre (5 shifts, 7 XOR, 4 IMAD) and compare + select of
+# the element's two noisy values; per element hash_rc and its pre-shift
+# (2 XOR, 1 shift, 2 IMAD) and those two values (2 FMUL).  K5's tiled
+# kernel (M > 16): per plane hash_mix, compare + select and w * factor;
+# per element hash_rc.  scripts/sass_ops.py counts the GEMV loops' SASS
+# on sm_90a: K5's plane loop issues 7 LOP3, 5 SHF, 1 ISETP, 1 FSEL, 4 IMAD
+# and M FFMA per element-plane (plus ~0.75 of loop control), K3's K walk
+# 17.4 ALU-pipe operations per element, ~25 instructions in all: below
+# the ALU pipe's 64 lanes, 128 an SM a clock issue.
+HASH_OPS = {
+    "K3": dict(alu=17, imad=6, fmul=1),
+    "K5 GEMV": dict(alu=14, imad=4, fmul=0, alu_el=3, imad_el=2, fmul_el=2),
+    "K5 tiled": dict(alu=16, imad=4, fmul=1, alu_el=1, imad_el=2, fmul_el=0),
+}
 ARCH = "gemma3-1b"
 SEAMLESS = "seamless-m4t-medium"
 BATCH, BLOCK, CHUNK, MAX_LEN, MAX_NEW = 4, 16, 16, 128, 8
 SEED = 0
 
 
-def bound(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+def bound(nbytes: float, flops: float, alu: float = 0.0, fma: float = 0.0):
+    """(ms, "bytes" or "operations", the term that bounds): the largest of
+    the bytes over the memory rate, the FP32 pipe's operations (the FLOPs
+    and `fma` other operations there, IMAD and FMUL, two FLOPs' worth
+    each) and the integer ALU pipe's `alu` operations over their peak
+    rates."""
+    terms = [(nbytes / HBM_BPS * 1e3, "bytes", "bytes"),
+             ((flops + 2 * fma) / FP32_FLOPS * 1e3, "operations",
+              "FP32 pipe" if fma else "FP32 FLOPs"),
+             (alu / INT32_OPS * 1e3, "operations", "INT32 ALU pipe")]
+    return max(terms, key=lambda t: t[0])
+
+
+def hash_ops(kind: str, elements: int, planes: int = 1):
+    """(ALU-pipe ops, other FP32-pipe ops) of the noise hash and select of
+    `elements` weight elements on `planes` planes (HASH_OPS[kind])."""
+    c = HASH_OPS[kind]
+    alu = elements * (c["alu"] * planes + c.get("alu_el", 0))
+    fma = elements * ((c["imad"] + c["fmul"]) * planes + c.get("imad_el", 0)
+                      + c.get("fmul_el", 0))
+    return alu, fma
+
+
+def share(bound_ms: float, ms) -> str:
+    """bound_ms as a share of a measured time (None: not measured)."""
+    return "not measured" if ms is None else f"{100 * bound_ms / ms:.2f}%"
+
+
+def fmt(ms, digits: int = 3) -> str:
+    """A time in ms, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
+
+
+def plane_pairs(xq, bits: int) -> int:
+    """The (k, plane) pairs of levels xq (M, K) whose plane is not zero in
+    every row (the others add exact zeros; the bit-serial kernel computes
+    them all the same: skipping them measured slower)."""
+    a = xq.abs().long()
+    return sum(int(((a >> p) & 1).any(0).sum().item()) for p in range(bits))
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -94,22 +167,30 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, key) -> float:
+def device_ms(fn, key, tries: int = 3):
     """Device time (ms) of the kernels whose name contains `key` (a string
     or a tuple of them) in one run of fn, from torch.profiler: the kernels
     alone, without the host's dispatch gaps that a CUDA-event time of short
-    launches includes."""
+    launches includes.  A trace that holds none of them (the profiler on
+    the card has dropped a run's device events) is taken again, up to
+    `tries` times; None (not measured, null in the record) if none does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    keys = (key,) if isinstance(key, str) else key
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    keys = (key,) if isinstance(key, str) else key
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if any(k in e.key for k in keys)) / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if any(k in e.key for k in keys)) / 1e3
+        if ms > 0:
+            return ms
+    print(f"  (torch.profiler recorded no device time for {keys} in "
+          f"{tries} traces: not measured)")
+    return None
 
 
 def rel_err(a, b) -> tuple:
@@ -299,10 +380,14 @@ class Smoke:
                 torch.matmul(x, wn)
 
         def step_bound(M, calls=prepared):
+            """Bytes (each input read once, y written once), FP32 FLOPs and
+            the hash's and select's operations, once per weight element
+            (HASH_OPS["K3"])."""
             nbytes = sum(4 * (M * K + K * N + M * N)
                          for K, N in (wq.shape for wq, *_ in calls))
             flops = sum(2 * M * wq.numel() for wq, *_ in calls)
-            return bound(nbytes, flops), nbytes, flops
+            alu, fma = hash_ops("K3", sum(wq.numel() for wq, *_ in calls))
+            return bound(nbytes, flops, alu, fma), nbytes, flops
 
         # event times first, the kernel beside its yardstick, then the
         # profiler's device times
@@ -314,8 +399,8 @@ class Smoke:
         chunk_dev_ms = device_ms(lambda: run(k.emt_matmul, xc), keys)
         del noisy
         plain_ms = cuda_time(lambda: run(k.plain, xs), 2, warmup=1)
-        (b_ms, by), nbytes, flops = step_bound(BATCH)
-        (cb_ms, cby), _, cflops = step_bound(BATCH * CHUNK)
+        (b_ms, by, bterm), nbytes, flops = step_bound(BATCH)
+        (cb_ms, cby, cterm), _, cflops = step_bound(BATCH * CHUNK)
         self.records["emt_matmul"] = dict(
             name="emt_matmul", route="cuda",
             source="src/repro_torch/kernels/csrc/emt_matmul.cu",
@@ -324,15 +409,15 @@ class Smoke:
             bound_by=by, library_ms=lib_ms, chunk_ms=chunk_ms,
             chunk_bound_ms=cb_ms)
         print(f"  K3 per decode step ({len(prepared)} calls, M={BATCH}): "
-              f"kernel {ms:.3f} ms (device time {dev_ms:.3f} ms), plain "
+              f"kernel {ms:.3f} ms (device time {fmt(dev_ms)}), plain "
               f"{plain_ms:.3f} ms, torch.matmul on pre-noised weights "
-              f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({by}; "
+              f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({bterm}; "
               f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP), roofline "
               f"share {100 * b_ms / ms:.2f}%")
         print(f"  K3 per chunk step ({len(prepared)} calls, "
               f"M={BATCH * CHUNK}): kernel {chunk_ms:.3f} ms (device time "
-              f"{chunk_dev_ms:.3f} ms), bound "
-              f"{cb_ms:.3f} ms ({cby}; {cflops / 1e9:.3f} GFLOP), roofline "
+              f"{fmt(chunk_dev_ms)}), bound "
+              f"{cb_ms:.3f} ms ({cterm}; {cflops / 1e9:.3f} GFLOP), roofline "
               f"share {100 * cb_ms / chunk_ms:.2f}%")
         # per distinct (K, N, layout) at M = 4: which calls lead the step
         groups = {}
@@ -343,12 +428,12 @@ class Smoke:
             inputs = [xs[i] for i in idx]
             g_ms = cuda_time(lambda: run(k.emt_matmul, inputs, calls), 5)
             g_dev = device_ms(lambda: run(k.emt_matmul, inputs, calls), keys)
-            (g_b, g_by), g_bytes, _ = step_bound(BATCH, calls)
+            (g_b, _, g_term), g_bytes, _ = step_bound(BATCH, calls)
             print(f"  K3 {K}x{N}{'' if n_major else ' (transposed)'} at "
                   f"M={BATCH}: {len(idx)} calls a step, {g_ms:.4f} ms "
-                  f"(device time {g_dev:.4f} ms), bound {g_b:.4f} ms "
-                  f"({g_by}; {g_bytes / 1e9:.3f} GB), share of the device "
-                  f"time {100 * g_b / g_dev:.2f}%")
+                  f"(device time {fmt(g_dev, 4)}), bound {g_b:.4f} ms "
+                  f"({g_term}; {g_bytes / 1e9:.3f} GB), share of the device "
+                  f"time {share(g_b, g_dev)}")
 
     def k5(self):
         """Technique-C bit-serial matmul at every MLP projection of one
@@ -388,26 +473,35 @@ class Smoke:
             for M in (BATCH, BATCH * CHUNK):
                 x = levels(M, K)
                 y = k.emt_bitserial(x, wq, sig, base_plane=plane, **kw)
+                y2 = k.emt_bitserial(x, wq, sig, base_plane=plane, **kw)
                 yp = k.plain(x, wq, sig, base_plane=plane, **kw)
                 self.sync()
                 d, r = rel_err(y, yp)
+                same = torch.equal(y, y2)
                 worst = max(worst, d)
                 print(f"  K5 {M}x{K} @ {K}x{N}, {bits} planes: max|diff| "
-                      f"{d:.3e} rel {r:.3e}")
+                      f"{d:.3e} rel {r:.3e}; two calls bit-identical: "
+                      f"{same}")
                 self.check(r <= 1e-5, f"K5 {M}x{K}x{N} rel {r:.3e} > 1e-5")
+                self.check(same, f"K5 {M}x{K}x{N}: two calls differ")
             if (K, N) in seen:
                 continue
             seen.add((K, N))
-            # levels 2^p on the identity return 2^p x plane p's noisy weight
+            # levels 2^p on the identity (the tiled kernel) and on BATCH of
+            # its rows (the GEMV kernel) return 2^p x plane p's noisy weight
             eye = torch.eye(K, device=self.dev)
+            rows = torch.randperm(K, generator=gen, device=self.dev)[:BATCH]
             exact = []
             for p in range(bits):
                 wn = k.emt_bitserial(eye * 2.0 ** p, wq, sig, base_plane=plane,
                                      **kw)
+                wr = k.emt_bitserial(eye[rows] * 2.0 ** p, wq, sig,
+                                     base_plane=plane, **kw)
                 ref = noise.fluctuate(wq, rho, dev, noise.NoiseConfig(),
-                                      seed=SEED, plane=plane + p)
-                exact.append(bool(torch.equal(wn, ref * 2.0 ** p)))
-                del wn, ref
+                                      seed=SEED, plane=plane + p) * 2.0 ** p
+                exact.append(bool(torch.equal(wn, ref)
+                                  and torch.equal(wr, ref[rows])))
+                del wn, wr, ref
             print(f"  K5 noisy weight {K}x{N}, planes 0..{bits - 1} "
                   f"bit-exact with fluctuate: {exact}")
             self.check(all(exact), f"K5 noisy weight {K}x{N} planes {exact}")
@@ -440,36 +534,78 @@ class Smoke:
                 for planes, wn in lib:
                     torch.bmm(planes, wn)
 
+        keys = ("bitserial", "split_sum")
         ms = cuda_time(lambda: run(k.emt_bitserial, xs), 3)
         chunk_ms = cuda_time(lambda: run(k.emt_bitserial, xc), 2)
         lib_ms = cuda_time(run_library, 3)
+        dev_ms = device_ms(lambda: run(k.emt_bitserial, xs), keys)
+        chunk_dev_ms = device_ms(lambda: run(k.emt_bitserial, xc), keys)
         del lib
         plain_ms = cuda_time(lambda: run(k.plain, xs), 1, warmup=1)
 
-        def step_bound(M):
-            nbytes = sum(4 * (M * K + K * N + M * N)
-                         for K, N in (wq.shape for wq, *_ in prepared))
-            flops = sum(2 * M * wq.numel() * bits for wq, *_ in prepared)
-            return bound(nbytes, flops), nbytes, flops
+        def step_bound(inputs, idx=range(len(prepared))):
+            """Bytes (each input read once, y written once), FP32 FLOPs and
+            the hash's and select's operations (every weight element on
+            every plane, as the kernel that serves M computes them:
+            HASH_OPS), and the share of (k, plane) pairs whose plane is not
+            zero in every row."""
+            nbytes = flops = alu = fma = pairs = total = 0
+            for i in idx:
+                x, (wq, *_) = inputs[i], prepared[i]
+                M, (K, N) = x.shape[0], wq.shape
+                nbytes += 4 * (M * K + K * N + M * N)
+                flops += 2 * M * N * K * bits
+                a, f = hash_ops("K5 GEMV" if M <= k.GEMV_MAX_M
+                                else "K5 tiled", N * K, bits)
+                alu, fma = alu + a, fma + f
+                pairs += plane_pairs(x, bits)
+                total += K * bits
+            return bound(nbytes, flops, alu, fma), nbytes, alu, pairs / total
 
-        (b_ms, by), nbytes, flops = step_bound(BATCH)
-        (cb_ms, cby), _, cflops = step_bound(BATCH * CHUNK)
+        (b_ms, by, bterm), nbytes, alu, need = step_bound(xs)
+        (cb_ms, cby, cterm), _, calu, _ = step_bound(xc)
         self.records["emt_bitserial"] = dict(
             name="emt_bitserial", route="cuda",
             source="src/repro_torch/kernels/csrc/emt_bitserial.cu",
             replaces="src/repro/kernels/emt_bitserial.py:69",
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=by, library_ms=lib_ms)
+            bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
+            chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
+            chunk_bound_ms=cb_ms)
         print(f"  K5 per decode step ({len(prepared)} calls, M={BATCH}, "
-              f"{bits} planes): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"torch.bmm on planes and pre-noised weights {lib_ms:.3f} ms, "
-              f"bound {b_ms:.3f} ms ({by}; {nbytes / 1e9:.3f} GB, "
-              f"{flops / 1e9:.3f} GFLOP), roofline share "
-              f"{100 * b_ms / ms:.2f}%")
+              f"{bits} planes): kernel {ms:.3f} ms (device time "
+              f"{fmt(dev_ms)}), plain {plain_ms:.3f} ms, torch.bmm on "
+              f"planes and pre-noised weights {lib_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({bterm}; {nbytes / 1e9:.3f} GB, "
+              f"{alu / 1e9:.3f} G ALU-pipe ops), roofline share "
+              f"{100 * b_ms / ms:.2f}% (of the device time "
+              f"{share(b_ms, dev_ms)}); (k, plane) pairs whose plane "
+              f"is zero in every row: {100 * (1 - need):.2f}%")
         print(f"  K5 per chunk step ({len(prepared)} calls, "
-              f"M={BATCH * CHUNK}): kernel {chunk_ms:.3f} ms, bound "
-              f"{cb_ms:.3f} ms ({cby}; {cflops / 1e9:.3f} GFLOP), roofline "
-              f"share {100 * cb_ms / chunk_ms:.2f}%")
+              f"M={BATCH * CHUNK}): kernel {chunk_ms:.3f} ms (device time "
+              f"{fmt(chunk_dev_ms)}), bound {cb_ms:.3f} ms ({cterm}; "
+              f"{calu / 1e9:.3f} G ALU-pipe ops), roofline share "
+              f"{100 * cb_ms / chunk_ms:.2f}%")
+        # per distinct (K, N) at M = 4: which calls lead the step
+        groups = {}
+        for i, (wq, *_) in enumerate(prepared):
+            groups.setdefault(tuple(wq.shape), []).append(i)
+        for (K, N), idx in groups.items():
+            calls = [(xs[i], prepared[i]) for i in idx]
+
+            def run_group():
+                for x, (wq, rho, sig, plane) in calls:
+                    k.emt_bitserial(x, wq, sig, base_plane=plane, **kw)
+
+            g_dev = device_ms(run_group, keys)
+            (g_b, _, g_term), _, _, g_need = step_bound(xs, idx)
+            p = k.plan(BATCH, N, K, self.sms, True, bits)
+            print(f"  K5 {K}x{N} at M={BATCH}: {len(idx)} calls a step, "
+                  f"device time {fmt(g_dev, 4)}, bound {g_b:.4f} ms "
+                  f"({g_term}), share of the device time "
+                  f"{share(g_b, g_dev)}; {p.splits} K slab(s) of "
+                  f"{p.k_slab}, {p.ctas} CTAs; pairs zero in every row "
+                  f"{100 * (1 - g_need):.2f}%")
 
     def _pools(self, gen, n_layers):
         torch = self.torch
@@ -515,17 +651,29 @@ class Smoke:
         kn = torch.randn((BATCH, KV, hd), generator=gen, device=self.dev)
         vn = torch.randn((BATCH, KV, hd), generator=gen, device=self.dev)
         kp, vp = pools[0]
-        kp2, vp2 = kp.clone(), vp.clone()
+        # the plain version in float64, its pools written in float64 (the
+        # same values)
+        kp2, vp2 = kp.double(), vp.double()
         out = k.paged_attention_decode(q, kp, vp, table, mask, kn, vn, wblk,
                                        woff, wok)
-        ref = k.plain(q, kp2, vp2, table, mask, kn, vn, wblk, woff, wok)
+        out2 = k.paged_attention_decode(q, kp, vp, table, mask, kn, vn, wblk,
+                                        woff, wok)
+        ref = k.plain(q.double(), kp2, vp2, table, mask.double(), kn.double(),
+                      vn.double(), wblk, woff, wok)
         self.sync()
-        d, r = rel_err(out, ref)
-        pools_same = torch.equal(kp, kp2) and torch.equal(vp, vp2)
+        d, r = rel_err(out.double(), ref)
+        pools_same = (torch.equal(kp.double(), kp2)
+                      and torch.equal(vp.double(), vp2))
         zero_row = bool((out[3] == 0).all())
+        same = torch.equal(out, out2)
+        splits = k.kv_splits(BATCH, KV, G, hd, T, self.sms)
         print(f"  K1 B={BATCH} KV={KV} G={G} hd={hd} bs={BLOCK} T={T}: "
-              f"max|diff| {d:.3e} rel {r:.3e}; pools bit-identical after the "
-              f"write: {pools_same}; fully-masked row zeros: {zero_row}")
+              f"max|diff| vs the float64 plain version {d:.3e} rel "
+              f"{r:.3e}; pools bit-identical after the write: {pools_same}; "
+              f"fully-masked row zeros: {zero_row}; {splits} CTAs of "
+              f"{k.threads(G, hd)} threads per (row, kv head); two calls "
+              f"bit-identical: {same}")
+        self.check(same, "K1: two calls differ")
         self.check(r <= 1e-5, f"K1 rel {r:.3e} > 1e-5")
         self.check(pools_same, "K1 pools differ from the plain write")
         self.check(zero_row, "K1 fully-masked row not zero")
@@ -556,7 +704,7 @@ class Smoke:
         dev_ms = device_ms(run_kernel, "paged_decode_kernel<true>")
         plain_ms = cuda_time(run_plain, 10)
         lib_ms = cuda_time(run_library, 20)
-        nl = cfg.num_layers
+        nl = len(pools)
         # bytes: q in, out, mask, table, the new K/V rows read and written,
         # and the K/V of every visible position; FLOPs: q.k and p.v over
         # the visible positions of every query head
@@ -564,16 +712,16 @@ class Smoke:
         nbytes = nl * 4 * (2 * q.numel() + mask.numel() + table.numel()
                            + 4 * kn.numel() + 2 * vis * KV * hd)
         flops = nl * 4 * hd * KV * G * vis
-        b_ms, by = bound(nbytes, flops)
+        b_ms, by, _ = bound(nbytes, flops)
         self.records["paged_attention_decode"] = dict(
             name="paged_attention_decode", route="cuda",
             source="src/repro_torch/kernels/csrc/paged_attention.cu",
             replaces="src/repro/kernels/paged_attention.py:212",
             max_abs_err=d, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=by, library_ms=lib_ms)
+            bound_by=by, library_ms=lib_ms, device_ms=dev_ms)
         del views
-        print(f"  K1 per decode step ({nl} launches): kernel {ms:.4f} ms "
-              f"(device time {dev_ms:.4f} ms), "
+        print(f"  K1 per decode step ({nl} launches a step): kernel {ms:.4f} ms "
+              f"(device time {fmt(dev_ms, 4)}), "
               f"plain {plain_ms:.4f} ms, SDPA on the gathered view "
               f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({by}), roofline share "
               f"{100 * b_ms / ms:.2f}%")
@@ -654,7 +802,7 @@ class Smoke:
         nbytes = nl * 4 * (2 * q.numel() + 2 * kv_pos * KV * hd
                            + qpe.numel() + table.numel())
         flops = nl * 4 * KV * hd * vis
-        b_ms, by = bound(nbytes, flops)
+        b_ms, by, _ = bound(nbytes, flops)
         self.records["paged_prefill"] = dict(
             name="paged_prefill", route="cuda",
             source="src/repro_torch/kernels/csrc/paged_prefill.cu",
@@ -663,7 +811,7 @@ class Smoke:
             bound_by=by, library_ms=lib_ms)
         del views
         print(f"  K2 per chunk step ({nl} launches): kernel {ms:.4f} ms "
-              f"(device time {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA on the gathered view "
+              f"(device time {fmt(dev_ms, 4)}), plain {plain_ms:.4f} ms, SDPA on the gathered view "
               f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({by}), roofline share "
               f"{100 * b_ms / ms:.2f}%")
 
@@ -706,15 +854,22 @@ class Smoke:
             kp, vp = pools[0]
             kp0, vp0 = kp.clone(), vp.clone()
             out = k.paged_attention(q, kp, vp, table, mask)
-            ref = k.plain_attend(q, kp, vp, table, mask)
+            out2 = k.paged_attention(q, kp, vp, table, mask)
+            ref = k.plain_attend(q.double(), kp.double(), vp.double(), table,
+                                 mask.double())
             self.sync()
-            d, r = rel_err(out, ref)
+            d, r = rel_err(out.double(), ref)
             unchanged = torch.equal(kp, kp0) and torch.equal(vp, vp0)
             zero_row = bool((out[0] == 0).all())
+            same = torch.equal(out, out2)
             print(f"  K4 {cfg.name}: B={BATCH} KV={KV} G={G} hd={hd} "
-                  f"bs={BLOCK} T={T}, encoder lengths {lens}: max|diff| "
+                  f"bs={BLOCK} T={T}, encoder lengths {lens}: max|diff| vs "
+                  f"the float64 plain version "
                   f"{d:.3e} rel {r:.3e}; pools unchanged: {unchanged}; "
-                  f"length-0 row exact zeros: {zero_row}")
+                  f"length-0 row exact zeros: {zero_row}; "
+                  f"{k.kv_splits(BATCH, KV, G, hd, T, self.sms)} CTAs per "
+                  f"(row, kv head); two calls bit-identical: {same}")
+            self.check(same, f"K4 {cfg.name}: two calls differ")
             self.check(r <= 1e-5, f"K4 {cfg.name} rel {r:.3e} > 1e-5")
             self.check(unchanged, f"K4 {cfg.name} wrote its read-only pools")
             self.check(zero_row, f"K4 {cfg.name} length-0 row not zero")
@@ -753,16 +908,18 @@ class Smoke:
         nbytes = nl * 4 * (2 * q.numel() + mask.numel() + table.numel()
                            + 2 * vis * KV * hd)
         flops = nl * 4 * hd * KV * G * vis
-        b_ms, by = bound(nbytes, flops)
+        b_ms, by, _ = bound(nbytes, flops)
         self.records["paged_attention"] = dict(
             name="paged_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/paged_attention.cu",
             replaces="src/repro/kernels/paged_attention.py:226",
             max_abs_err=d, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=by, library_ms=lib_ms)
+            bound_by=by, library_ms=lib_ms, device_ms=dev_ms)
         del views
-        print(f"  K4 per seamless decode step ({nl} launches): kernel "
-              f"{ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+        print(f"  K4 per seamless decode step ({nl} launches a step, "
+              f"{k.kv_splits(BATCH, KV, G, hd, T, self.sms)} CTAs of "
+              f"{k.threads(G, hd)} threads per (row, kv head)): kernel "
+              f"{ms:.4f} ms (device time {fmt(dev_ms, 4)}), plain "
               f"{plain_ms:.4f} ms, SDPA on the gathered "
               f"view {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({by}; "
               f"{nbytes / 1e6:.3f} MB), roofline share "
@@ -1119,10 +1276,18 @@ class Smoke:
                 return y
             return call
 
+        pairs = [0, 0]                  # K5 GEMV (k, plane) pairs: needed, all
+        k5_checked = checked("emt_bitserial", "_emt_bitserial", k5.plain)
+
+        def k5_call(xq, *args, **kw):
+            if xq.shape[0] <= k5.GEMV_MAX_M:
+                pairs[0] += plane_pairs(xq, kw["bits"])
+                pairs[1] += xq.shape[1] * kw["bits"]
+            return k5_checked(xq, *args, **kw)
+
         with self._ops_through(
                 _emt_matmul=checked("emt_matmul", "_emt_matmul", k3.plain),
-                _emt_bitserial=checked("emt_bitserial", "_emt_bitserial",
-                                       k5.plain),
+                _emt_bitserial=k5_call,
                 _paged_decode=pooled("paged_attention_decode",
                                      "_paged_decode", k1.plain, True),
                 _paged_attend=pooled("paged_attention", "_paged_attend",
@@ -1137,6 +1302,11 @@ class Smoke:
             self.check((counts[name] > 0) == want and r <= 1e-5,
                        f"{label}: {name} on the model's activations: "
                        f"{counts[name]} calls, rel {r:.3e}")
+        if pairs[1]:
+            print(f"  {label}: emt_bitserial (k, plane) pairs whose plane "
+                  f"is zero in every row, on the real activations of its "
+                  f"decode calls (M <= 16): "
+                  f"{100 * (1 - pairs[0] / pairs[1]):.2f}% of {pairs[1]}")
         print(f"  {label}: K1 pools bit-identical to the plain write on "
               f"every call: {pools_ok['paged_attention_decode']}; K4 pools "
               f"unchanged on every call: {pools_ok['paged_attention']}")

@@ -44,7 +44,6 @@
 // split sum inside a thread-block cluster, as the chunked prefill merges
 // its splits, would save the second launch and the workspace.  TMA
 // pipelining; the eager weight fake-quantization around the call.
-#include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
@@ -61,84 +60,14 @@ constexpr int kGemvBKk = 128;             // k-major slab granularity (rows)
 constexpr int kGemvXBytes = 24 * 1024;    // x rows of one slab, at most
 constexpr int kBM = 64, kBN = 64, kBK = 32;   // tiled kernel
 
-// The noise factor of every RTN state and the state thresholds (unused
-// ones +inf, so the lookup needs no state count).
-struct Factors {
-  float thr[repro::kMaxStates - 1];
-  float f[repro::kMaxStates];
-};
-
-__device__ __forceinline__ void make_factors(const repro::NoiseParams& np,
-                                             float sig, Factors& F) {
-#pragma unroll
-  for (int i = 0; i < repro::kMaxStates; ++i)
-    F.f[i] = __fadd_rn(1.0f, __fmul_rn(np.off[i], sig));
-#pragma unroll
-  for (int i = 0; i < repro::kMaxStates - 1; ++i)
-    F.thr[i] = i < np.n_states - 1 ? np.thr[i] : INFINITY;
-}
-
-// w' = fl(w * factor(state(hash(seed, k, n, plane)))); NS = 2 for the
-// two-state corners (every corner of the served paths), 0 for any table up
-// to kMaxStates.  Same state as repro::state_offset: the last threshold
-// that u reaches.  The generic lookup's seven compare-selects cost ~0.8 ms
-// of K3's device time a gemma3-1b step at M = 4 (2.96 -> 3.75 ms) and at
-// M = 64 (7.53 -> 8.33 ms) on an H100 80GB HBM3 at 700 W
-// (scripts/smoke_phase.py; PERF.md).
-template <int NS>
-__device__ __forceinline__ float noisy(float w, uint32_t k, uint32_t n,
-                                       uint32_t pk, const Factors& F) {
-  const uint32_t bits = repro::hash_mix(repro::hash_rc(k, n), pk);
-  const float u = __fmul_rn(__uint2float_rn(bits), 0x1p-32f);
-  float f;
-  if constexpr (NS == 2) {
-    f = u >= F.thr[0] ? F.f[1] : F.f[0];
-  } else {
-    f = F.f[0];
-#pragma unroll
-    for (int i = 0; i < repro::kMaxStates - 1; ++i)
-      if (u >= F.thr[i]) f = F.f[i + 1];
-  }
-  return __fmul_rn(w, f);
-}
-
-// w[row_off + n .. n + 3] of an n-major weight (0 past N).  vw: the widest
-// load the row alignment allows (4, 2 or 1 floats).
-__device__ __forceinline__ float4 load_n4(const float* __restrict__ w,
-                                          long long row_off, int n, int N,
-                                          int vw) {
-  const float* p = w + row_off + n;
-  if (n + 3 < N) {
-    if (vw == 4) return __ldg(reinterpret_cast<const float4*>(p));
-    if (vw == 2) {
-      const float2 a = __ldg(reinterpret_cast<const float2*>(p));
-      const float2 b = __ldg(reinterpret_cast<const float2*>(p + 2));
-      return make_float4(a.x, a.y, b.x, b.y);
-    }
-    return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
-  }
-  return make_float4(n < N ? __ldg(p) : 0.f, n + 1 < N ? __ldg(p + 1) : 0.f,
-                     n + 2 < N ? __ldg(p + 2) : 0.f, 0.f);
-}
-
-// w[k .. k + 3, n] of a weight with any strides (0 past ke or N); vw == 4:
-// swk == 1 and the column is 16-byte aligned at k.
-__device__ __forceinline__ float4 load_k4(const float* __restrict__ w, int k,
-                                          int ke, int n, int N, long long swk,
-                                          long long swn, int vw) {
-  if (n >= N) return make_float4(0.f, 0.f, 0.f, 0.f);
-  const float* p = w + n * swn;
-  if (vw == 4 && k + 3 < ke)
-    return __ldg(reinterpret_cast<const float4*>(p + k));
-  float v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = k + j < ke ? __ldg(p + (k + j) * swk) : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ float f4(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
+// The noisy weight and the weight loads are shared with the bit-serial
+// kernel (common.cuh).
+using repro::f4;
+using repro::Factors;
+using repro::load_k4;
+using repro::load_n4;
+using repro::make_factors;
+using repro::noisy;
 
 // ---------------------------------------------------------------------------
 // GEMV (M <= 16).  The CTA's x rows for its whole K slab are staged once in

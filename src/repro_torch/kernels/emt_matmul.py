@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core import hashrng
@@ -40,7 +41,31 @@ class NoiseParams(ctypes.Structure):
     """Mirror of ``repro::NoiseParams`` in csrc/common.cuh."""
     _fields_ = [("n_states", ctypes.c_int),
                 ("thr", ctypes.c_float * (MAX_STATES - 1)),
-                ("off", ctypes.c_float * MAX_STATES)]
+                ("off", ctypes.c_float * MAX_STATES),
+                ("t2", ctypes.c_uint32)]
+
+
+def _uniform(bits: int) -> float:
+    """The uniform a hash draw `bits` gives: fl32(bits) * 2^-32, as the
+    kernels and hashrng round it (one rounding of the exact integer)."""
+    return float(np.float32(bits)) * 2.0 ** -32
+
+
+def int_threshold(thr: float) -> int:
+    """The least uint32 `bits` with _uniform(bits) >= thr (that is
+    monotonic in bits, so u >= thr iff bits >= this).  The kernels' two-state
+    lookup compares the hash bits with it: one integer compare, no
+    conversion."""
+    lo, hi = 0, 2 ** 32
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if _uniform(mid) >= thr:
+            hi = mid
+        else:
+            lo = mid + 1
+    if lo == 2 ** 32:
+        raise ValueError(f"state threshold {thr} above every uniform")
+    return lo
 
 
 def noise_params(device: DeviceModel) -> NoiseParams:
@@ -60,6 +85,8 @@ def _noise_params(offsets: tuple, probs: tuple) -> NoiseParams:
         p.thr[i] = t
     for i, o in enumerate(hashrng.state_offset_table(offsets)):
         p.off[i] = o
+    if n == 2:
+        p.t2 = int_threshold(p.thr[0])
     return p
 
 

@@ -48,6 +48,10 @@ def _bmm_masked_attend(q, kv, vv, mask_rows, *, softcap=0.0):
     """One-shot masked softmax attend.  q (B, KV, R, hd); kv/vv
     (B, L, KV, hd); mask_rows (B, R|1, L) additive fp32.  Masked lanes give
     exact zeros and a row with no visible lane gives zeros (m_safe guard).
+    K/V at masked lanes are assumed finite: p = 0 still multiplies a masked
+    lane's V row, so a NaN or Inf there gives NaN, as in the TPU kernel,
+    while the CUDA decode kernels skip fully masked blocks and return NaN
+    only when such a lane shares a block with a visible one.
     Returns (B, KV, R, hd) fp32."""
     B, KV, R, hd = q.shape
     L = kv.shape[1]

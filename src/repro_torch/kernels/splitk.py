@@ -17,8 +17,9 @@ import functools
 
 import torch
 
-# The grid a split aims at: two CTAs per SM, what K3's and K5's register
-# counts (up to 128 a thread, 256 threads a CTA) let an SM hold at once.
+# The grid a split aims at by default: two CTAs per SM, what K3's and K5's
+# register counts (up to 128 a thread, 256 threads a CTA) let an SM hold at
+# once.
 CTAS_PER_SM = 2
 
 
@@ -49,13 +50,13 @@ class Plan:
 
 
 def plan(M: int, N: int, K: int, *, bm: int, bn: int, bk: int, sms: int,
-         min_slab: int, max_slab: int = 0) -> Plan:
-    """Split K until the grid holds ``CTAS_PER_SM`` CTAs per SM, with slabs
-    of at least ``min_slab`` rows (and, if ``max_slab`` is set, a multiple
-    of ``bk``, at most that many), rounded up to whole ``bk`` tiles (so the
+         min_slab: int, max_slab: int = 0, per_sm: int = CTAS_PER_SM) -> Plan:
+    """Split K until the grid holds ``per_sm`` CTAs per SM, with slabs of
+    at least ``min_slab`` rows (and, if ``max_slab`` is set, a multiple of
+    ``bk``, at most that many), rounded up to whole ``bk`` tiles (so the
     last slab may be shorter and no slab is empty)."""
     tiles = cdiv(N, bn) * cdiv(M, bm)
-    want = max(1, min(CTAS_PER_SM * sms // tiles, K // min_slab))
+    want = max(1, min(per_sm * sms // tiles, K // min_slab))
     if max_slab:
         want = max(want, cdiv(K, max_slab))
     k_slab = max(bk, cdiv(cdiv(max(K, 1), want), bk) * bk)
