@@ -33,7 +33,8 @@ Phases (any failure exits non-zero and prints no result line):
    count just before and reads it just after; the mixed run books its
    energy per corner.  Then, for each path, every kernel call of one chunk
    step and one decode step is held to its plain version on the model's
-   activations, and those steps' logits to the plain path's (1e-3 with a
+   activations (K1's in float64), with exact call counts, and those
+   steps' logits to the plain path's (1e-3 with a
    24-bit activation DAC; the main paths' 8-bit DAC gap is reported with
    the level flips that cause it);
 5. serve 6 staggered requests through full-width seamless-m4t-medium
@@ -45,7 +46,19 @@ Phases (any failure exits non-zero and prints no result line):
    embeddings so that the cross K/V are not zero, three batch-1 prefills,
    their paged insert and one decode step at batch 4 (one idle row): every
    kernel call held to its plain version, and the logits to the plain
-   path's as in phase 4.
+   path's as in phase 4;
+6. serve 6 staggered requests with prompts of 520-600 tokens (max_len
+   640) through gemma3-1b as published: 22 sliding-window layers (window
+   512, every ring wraps) and 4 global, analog, per-row DAC scale, frozen
+   noise, chunked prefill; on the paged layout (per-slot rings of blocks
+   for the local layers) with exact launch counts, K1 26 per decode step,
+   K2 4 per chunk step (the global layers), K3 183 per step, and on the
+   contiguous layout (JAX's default engine; K3 183 per step, no K1 or
+   K2).  Then, on a history chunk step that wraps the rings, a chunk step
+   and a decode step: every paged kernel call held to its plain version
+   (K1 on the ring tables to its float64 plain version), and the logits
+   of the paged and contiguous paths against each other and each against
+   its plain path, 1e-3 at the 24-bit DAC, the 8-bit gaps reported.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Every "ms" is the kernel's time in one
@@ -53,12 +66,15 @@ main-path step: K1 = the 26 decode-attention launches of a gemma3 decode
 step, K2 = the 26 prefill launches of a chunk step, K3 = the 183 noisy
 matmuls of an analog decode step, K4 = the 12 cross-attention launches of
 a seamless decode step, K5 = the 78 bit-serial MLP matmuls of a mixed
-decode step; K3's and K5's records also carry ``chunk_ms`` and
-``chunk_bound_ms``, the same matmuls at M = 64, and K1's, K4's and K5's
+decode step; K3's and K5's records also carry ``chunk_ms``,
+``chunk_bound_ms`` and ``chunk_library_ms``, the same matmuls and their
+yardstick at M = 64, and K1's, K4's and K5's
 ``device_ms`` (K5's also ``chunk_device_ms``), the kernels' device time in
 that step from torch.profiler, null where no trace recorded them (not
 measured).  "launches" counts
-K1-K3 in the analog run, K4 in the seamless run and K5 in the mixed run.
+K1-K3 in the analog run, K4 in the seamless run and K5 in the mixed run;
+K1-K3 also carry ``ring_paged_launches`` and ``ring_contiguous_launches``,
+their counts in the two ring runs.
 Bounds are the largest of the bytes over the H100 SXM's published 3.35
 TB/s, the FP32 pipe's operations (FLOPs, and for the noisy matmuls the
 hash's integer multiplies and the noise factor's FMULs as two each) over
@@ -108,6 +124,9 @@ ARCH = "gemma3-1b"
 SEAMLESS = "seamless-m4t-medium"
 BATCH, BLOCK, CHUNK, MAX_LEN, MAX_NEW = 4, 16, 16, 128, 8
 SEED = 0
+# the ring paths: prompts past gemma3-1b's 512-position window, so that
+# every ring wraps
+RING_MAX_LEN, RING_PROMPTS = 640, (520, 600)
 
 
 def bound(nbytes: float, flops: float, alu: float = 0.0, fma: float = 0.0):
@@ -207,6 +226,7 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.failures = []
         self.records = {}
+        self.ring_summaries = {}
 
     def sync(self):
         self.torch.cuda.synchronize()
@@ -252,15 +272,22 @@ class Smoke:
     def model(self):
         from repro_torch.models import lm
         from repro_torch.serve.spec import build_config
-        self.cfg = build_config(ARCH, "analog", smoke=False, a_per_row=True)
+        self.cfg = build_config(ARCH, "analog", smoke=False, all_global=True,
+                                a_per_row=True)
         self.mixed = build_config(ARCH, smoke=False, placement="mixed",
-                                  a_per_row=True)
-        # every projection of both paths is active (it has a rho_raw): one
-        # parameter tree serves both
+                                  all_global=True, a_per_row=True)
+        # the published stack: 5 sliding-window (ring) layers to 1 global
+        self.ring = build_config(ARCH, "analog", smoke=False, a_per_row=True)
+        self.check(self.ring.blocks().count("global") == 4
+                   and self.ring.sliding_window == 512,
+                   f"ring stack {self.ring.blocks()}")
+        # every projection of the three paths is active (it has a rho_raw)
+        # and a local layer has a global one's weights: one parameter tree
+        # serves all three
         shapes = [[(k, tuple(v.shape)) for k, v in _flat(lm.specs(c))]
-                  for c in (self.cfg, self.mixed)]
-        self.check(shapes[0] == shapes[1],
-                   "analog and mixed parameter trees differ")
+                  for c in (self.cfg, self.mixed, self.ring)]
+        self.check(shapes[0] == shapes[1] == shapes[2],
+                   "analog, mixed and ring parameter trees differ")
         t0 = time.perf_counter()
         self.params = lm.init_model_params(self.cfg, SEED, device=self.dev)
         self.sync()
@@ -277,7 +304,7 @@ class Smoke:
         from repro_torch.models import lm
         from repro_torch.serve.spec import build_config
         self.s2s = build_config(SEAMLESS, "analog", smoke=False,
-                                a_per_row=True)
+                                all_global=True, a_per_row=True)
         t0 = time.perf_counter()
         self.s2s_params = lm.init_model_params(self.s2s, SEED,
                                                device=self.dev)
@@ -375,8 +402,8 @@ class Smoke:
                                  plane=plane)
                  for wq, rho, sig, plane in prepared]
 
-        def run_library():
-            for x, wn in zip(xs, noisy):
+        def run_library(inputs=xs):
+            for x, wn in zip(inputs, noisy):
                 torch.matmul(x, wn)
 
         def step_bound(M, calls=prepared):
@@ -395,6 +422,7 @@ class Smoke:
         ms = cuda_time(lambda: run(k.emt_matmul, xs), 5)
         lib_ms = cuda_time(run_library, 5)
         chunk_ms = cuda_time(lambda: run(k.emt_matmul, xc), 3)
+        chunk_lib_ms = cuda_time(lambda: run_library(xc), 3)
         dev_ms = device_ms(lambda: run(k.emt_matmul, xs), keys)
         chunk_dev_ms = device_ms(lambda: run(k.emt_matmul, xc), keys)
         del noisy
@@ -407,7 +435,7 @@ class Smoke:
             replaces="src/repro/kernels/emt_matmul.py:57",
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=by, library_ms=lib_ms, chunk_ms=chunk_ms,
-            chunk_bound_ms=cb_ms)
+            chunk_bound_ms=cb_ms, chunk_library_ms=chunk_lib_ms)
         print(f"  K3 per decode step ({len(prepared)} calls, M={BATCH}): "
               f"kernel {ms:.3f} ms (device time {fmt(dev_ms)}), plain "
               f"{plain_ms:.3f} ms, torch.matmul on pre-noised weights "
@@ -416,7 +444,9 @@ class Smoke:
               f"share {100 * b_ms / ms:.2f}%")
         print(f"  K3 per chunk step ({len(prepared)} calls, "
               f"M={BATCH * CHUNK}): kernel {chunk_ms:.3f} ms (device time "
-              f"{fmt(chunk_dev_ms)}), bound "
+              f"{fmt(chunk_dev_ms)}), torch.matmul on pre-noised weights "
+              f"{chunk_lib_ms:.3f} ms (loses by "
+              f"{chunk_ms / chunk_lib_ms:.3f}x), bound "
               f"{cb_ms:.3f} ms ({cterm}; {cflops / 1e9:.3f} GFLOP), roofline "
               f"share {100 * cb_ms / chunk_ms:.2f}%")
         # per distinct (K, N, layout) at M = 4: which calls lead the step
@@ -519,25 +549,29 @@ class Smoke:
         # planes (scaled by 2^p) with the (bits, K, N) pre-noised weights;
         # layer 0's three stand in for every layer (each call reads 7 x
         # 32 MB, far past the 50 MB L2)
+        def signed_planes(x):
+            return torch.stack([torch.sign(x) * bit_plane(x.abs(), p)
+                                * 2.0 ** p for p in range(bits)])
+
         lib = []
-        for x, (wq, rho, sig, plane) in zip(xs[:3], prepared[:3]):
-            planes = torch.stack([torch.sign(x) * bit_plane(x.abs(), p)
-                                  * 2.0 ** p for p in range(bits)])
+        for x, c, (wq, rho, sig, plane) in zip(xs[:3], xc[:3],
+                                               prepared[:3]):
             wn = torch.stack([noise.fluctuate(wq, rho, dev,
                                               noise.NoiseConfig(), seed=SEED,
                                               plane=plane + p)
                               for p in range(bits)])
-            lib.append((planes, wn))
+            lib.append((signed_planes(x), signed_planes(c), wn))
 
-        def run_library():
+        def run_library(chunk=False):
             for _ in range(len(layers)):
-                for planes, wn in lib:
-                    torch.bmm(planes, wn)
+                for planes, planes_c, wn in lib:
+                    torch.bmm(planes_c if chunk else planes, wn)
 
         keys = ("bitserial", "split_sum")
         ms = cuda_time(lambda: run(k.emt_bitserial, xs), 3)
         chunk_ms = cuda_time(lambda: run(k.emt_bitserial, xc), 2)
         lib_ms = cuda_time(run_library, 3)
+        chunk_lib_ms = cuda_time(lambda: run_library(True), 2)
         dev_ms = device_ms(lambda: run(k.emt_bitserial, xs), keys)
         chunk_dev_ms = device_ms(lambda: run(k.emt_bitserial, xc), keys)
         del lib
@@ -571,7 +605,7 @@ class Smoke:
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
             chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
-            chunk_bound_ms=cb_ms)
+            chunk_bound_ms=cb_ms, chunk_library_ms=chunk_lib_ms)
         print(f"  K5 per decode step ({len(prepared)} calls, M={BATCH}, "
               f"{bits} planes): kernel {ms:.3f} ms (device time "
               f"{fmt(dev_ms)}), plain {plain_ms:.3f} ms, torch.bmm on "
@@ -583,7 +617,10 @@ class Smoke:
               f"is zero in every row: {100 * (1 - need):.2f}%")
         print(f"  K5 per chunk step ({len(prepared)} calls, "
               f"M={BATCH * CHUNK}): kernel {chunk_ms:.3f} ms (device time "
-              f"{fmt(chunk_dev_ms)}), bound {cb_ms:.3f} ms ({cterm}; "
+              f"{fmt(chunk_dev_ms)}), torch.bmm on planes and pre-noised "
+              f"weights {chunk_lib_ms:.3f} ms (loses by "
+              f"{chunk_ms / chunk_lib_ms:.3f}x), bound {cb_ms:.3f} ms "
+              f"({cterm}; "
               f"{calu / 1e9:.3f} G ALU-pipe ops), roofline share "
               f"{100 * cb_ms / chunk_ms:.2f}%")
         # per distinct (K, N) at M = 4: which calls lead the step
@@ -926,13 +963,16 @@ class Smoke:
               f"{100 * b_ms / ms:.2f}%")
 
     # -- phase 4 -------------------------------------------------------------
-    def _requests(self, cfg):
+    def _requests(self, cfg, ring=False):
+        """6 requests, 2 of them sampled; prompts of 20 to 120 tokens, or,
+        for the ring paths, 520 to 600 (every window-512 ring wraps)."""
         import numpy as np
         from repro_torch.serve.engine import GenRequest
-        rng = np.random.default_rng(SEED + 11)
+        rng = np.random.default_rng(SEED + (13 if ring else 11))
+        lo, hi = RING_PROMPTS if ring else (20, MAX_LEN - MAX_NEW)
         reqs = []
         for i in range(6):
-            plen = int(rng.integers(20, MAX_LEN - MAX_NEW + 1))
+            plen = int(rng.integers(lo, hi + 1))
             kw = dict(prompt=rng.integers(0, cfg.vocab_size, plen)
                       .astype(np.int32), max_new=MAX_NEW, seed=1000 + i)
             if i in (1, 4):
@@ -999,33 +1039,56 @@ class Smoke:
                 "emt_matmul": k3.emt_matmul,
                 "emt_bitserial": k5.emt_bitserial}
 
-    def _serve(self, cfg, params, label, per_kind):
+    @contextlib.contextmanager
+    def _counting_steps(self, steps: dict):
+        """Count the model's chunk and decode steps in `steps`."""
+        from repro_torch.models import lm
+        orig = {n: getattr(lm, n) for n in steps}
+
+        def counted(name):
+            def call(*args, **kw):
+                steps[name] += 1
+                return orig[name](*args, **kw)
+            return call
+
+        for n in steps:
+            setattr(lm, n, counted(n))
+        try:
+            yield
+        finally:
+            for n, fn in orig.items():
+                setattr(lm, n, fn)
+
+    def _serve(self, cfg, params, label, per_kind, paged=True, ring=False):
         """Serve the 6 requests on `cfg` (after one warm-up run) with every
         launch count reset just before and read just after; profile
-        `per_kind` prefill and decode steps of a third run.  Returns
-        (summary, launches, metrics, results)."""
+        `per_kind` prefill and decode steps of a third run.  `paged`
+        chooses the KV layout; `ring` the long prompts and max_len of the
+        ring paths.  Returns (summary, launches, metrics, results)."""
         import numpy as np
         from repro_torch.serve.engine import ServingEngine
         torch = self.torch
 
         def make():
             return ServingEngine(cfg, params, batch_size=BATCH,
-                                 max_len=MAX_LEN, seed=SEED,
-                                 fresh_noise=False, paged=True,
+                                 max_len=RING_MAX_LEN if ring else MAX_LEN,
+                                 seed=SEED, fresh_noise=False, paged=paged,
                                  block_size=BLOCK, prefill_chunk=CHUNK,
                                  device=self.dev)
 
-        make().serve(self._requests(cfg), stagger=2)     # warm-up
+        make().serve(self._requests(cfg, ring), stagger=2)     # warm-up
         eng = make()
-        reqs = self._requests(cfg)
+        reqs = self._requests(cfg, ring)
         counters = self._counters()
+        steps = {"chunk_step": 0, "decode_step": 0}
         self.sync()
         torch.cuda.reset_peak_memory_stats()
         for w in counters.values():
             w.launches = 0
         t0 = time.perf_counter()
-        results = eng.serve(reqs, stagger=2)
-        self.sync()
+        with self._counting_steps(steps):
+            results = eng.serve(reqs, stagger=2)
+            self.sync()
         wall = time.perf_counter() - t0
         launches = {name: w.launches for name, w in counters.items()}
         peak = torch.cuda.max_memory_allocated()
@@ -1040,7 +1103,8 @@ class Smoke:
               f"{m['total_energy_pj'] * 1e-6 / ntok:.3f} uJ/token, per "
               f"corner {json.dumps(corners)}; peak device memory "
               f"{peak / 2**30:.2f} GiB")
-        print(f"  launches in the served run ({label}): {launches}")
+        print(f"  launches in the served run ({label}): {launches}; "
+              f"model steps {steps}")
         for r in results:
             print(f"    rid {r.rid}: {r.done_reason} tokens "
                   f"{r.tokens.tolist()} energy {r.energy_pj:.6g} pJ")
@@ -1056,9 +1120,10 @@ class Smoke:
                    <= 1e-6 * m["total_energy_pj"],
                    f"{label}: corners sum to {total}, total "
                    f"{m['total_energy_pj']}")
-        self._profile_steps(make(), self._requests(cfg), per_kind)
+        self._profile_steps(make(), self._requests(cfg, ring), per_kind)
         summary = dict(tok_s=ntok / wall, wall_s=wall, tokens=ntok,
-                       steps=m["steps"],
+                       steps=m["steps"], chunk_steps=steps["chunk_step"],
+                       decode_steps=steps["decode_step"],
                        uj_per_token=m["total_energy_pj"] * 1e-6 / ntok,
                        uj_per_token_by_corner=corners, peak_gib=peak / 2**30)
         return summary, launches, m, results
@@ -1129,6 +1194,106 @@ class Smoke:
             launches["paged_attention"]
         self.s2s_summary = summary
 
+    def _engine_ring(self, paged):
+        """gemma3-1b as published (22 ring layers of window 512, 4 global)
+        on 6 requests of 520-600 tokens.  Paged: per decode step 26 K1
+        (22 on ring tables, 4 on the global one), per chunk step 4 K2 (the
+        global layers; a ring layer's chunk attends in plain PyTorch, as
+        in JAX), 183 K3 per step.  Contiguous: 183 K3 per step, nothing
+        else (its attention is plain, as in JAX)."""
+        cfg = self.ring
+        L, G = cfg.num_layers, cfg.blocks().count("global")
+        label = "ring paged" if paged else "ring contiguous"
+        summary, launches, m, _ = self._serve(cfg, self.params, label, 1,
+                                              paged=paged, ring=True)
+        chunk, decode = summary["chunk_steps"], summary["decode_steps"]
+        self.check(chunk + decode == m["steps"] and chunk > 0 and decode > 0,
+                   f"{label}: {chunk} chunk + {decode} decode steps, "
+                   f"{m['steps']} engine steps")
+        want = {"paged_attention_decode": L * decode if paged else 0,
+                "paged_prefill": G * chunk if paged else 0,
+                "emt_matmul": (7 * L + 1) * m["steps"],
+                "paged_attention": 0, "emt_bitserial": 0}
+        for name, n in want.items():
+            self.check(launches[name] == n,
+                       f"{label}: {name} launched {launches[name]} times, "
+                       f"want {n} ({chunk} chunk and {decode} decode steps)")
+        key = "ring_paged_launches" if paged else "ring_contiguous_launches"
+        for name in ("paged_attention_decode", "paged_prefill",
+                     "emt_matmul"):
+            self.records[name][key] = launches[name]
+        self.ring_summaries[label] = summary
+
+    def engine_ring_paged(self):
+        self._engine_ring(True)
+
+    def engine_ring_contiguous(self):
+        self._engine_ring(False)
+
+    def _ring_steps(self, cfg, paged):
+        """Three model steps on the published stack at full width, from a
+        fresh cache (paged, or contiguous): one history chunk step that
+        writes positions [0, 530 / 589 / 505 / 300) (three rings wrap;
+        K3 at M = 4 x 589), then a chunk step (two rows wrapped, one
+        crossing the wrap, one decode lane), then a decode step at
+        positions 546 / 605 / 521 / 301 (writes mid-block, three of the
+        rings wrapped).  Returns [(step, logits or None, projections it
+        runs)]; the history step's logits are not held."""
+        import numpy as np
+        from repro_torch.models import lm
+        from repro_torch.models.context import Ctx
+        from repro_torch.serve.engine import view_bucket
+        from repro_torch.serve.kv_pool import PagedKV
+        torch = self.torch
+        hist = np.asarray([530, 589, 505, 300])
+        ntok = np.asarray([CHUNK, CHUNK, CHUNK, 1])
+        pos = hist + ntok
+        win = cfg.sliding_window
+        kw = {}
+        if paged:
+            lens = lm.paged_lens(cfg, RING_MAX_LEN)
+            nb = BATCH * (RING_MAX_LEN // BLOCK)
+            nrb = BATCH * -(-win // BLOCK)
+            kv = PagedKV(BATCH, RING_MAX_LEN, BLOCK, nb, win, nrb)
+            for s in range(BATCH):
+                self.check(kv.admit(s, int(pos[s]), MAX_NEW),
+                           "admission refused")
+                kv.ensure(s, int(pos[s]))
+            view = view_bucket(int(pos.max()) + 1, BLOCK, RING_MAX_LEN)
+            tg, tl = kv.gather_tables()
+            kw = dict(page_tables={
+                "global": torch.as_tensor(tg[:, :view // BLOCK],
+                                          device=self.dev).contiguous(),
+                "local": torch.as_tensor(tl, device=self.dev)},
+                page_lens=lm.clamped_lens(lens, view))
+            cache = lm.init_paged_cache(cfg, BATCH, RING_MAX_LEN, BLOCK, nb,
+                                        nrb, device=self.dev)
+        else:
+            cache = lm.init_cache(cfg, BATCH, RING_MAX_LEN, device=self.dev)
+        rng = np.random.default_rng(8)
+        dev = self.dev
+        act = torch.ones(BATCH, dtype=torch.bool, device=dev)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (BATCH, int(hist.max()))),
+                               device=dev)
+        zero = torch.zeros(BATCH, dtype=torch.long, device=dev)
+        lm.chunk_step(self.params, cache, toks, zero,
+                      torch.as_tensor(hist, device=dev), cfg,
+                      Ctx(seed=SEED), active=act, **kw)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (BATCH, CHUNK)), device=dev)
+        lc, cache, _ = lm.chunk_step(
+            self.params, cache, toks, torch.as_tensor(hist, device=dev),
+            torch.as_tensor(ntok, device=dev), cfg, Ctx(seed=SEED),
+            active=act, **kw)
+        nxt = torch.as_tensor(self._first_tokens(lc), device=dev)
+        ld, cache, _ = lm.decode_step(
+            self.params, cache, nxt, torch.as_tensor(pos, device=dev), cfg,
+            Ctx(seed=SEED), active=act, **kw)
+        n = 7 * cfg.num_layers + 1
+        return [("history chunk step", None, n), ("chunk step", lc, n),
+                ("decode step", ld, n)]
+
     def _step_pair(self, cfg):
         """One chunk step (over K/V history) then one decode step on `cfg`,
         from a fresh cache.  Returns [(step, logits or None, projections
@@ -1145,7 +1310,7 @@ class Smoke:
             kv.ensure(s, 40)
         view = 4 * BLOCK
         lens = lm.clamped_lens(lm.paged_lens(cfg, MAX_LEN), view)
-        table = torch.as_tensor(kv.gather_table()[:, :view // BLOCK],
+        table = torch.as_tensor(kv.gather_tables()[0][:, :view // BLOCK],
                                 device=self.dev).contiguous()
         rng = np.random.default_rng(5)
         toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
@@ -1203,14 +1368,14 @@ class Smoke:
             small, logits, _ = lm.prefill(params, batch, cfg, Ctx(seed=SEED),
                                           small)
             self.check(kv.admit(slot, S, MAX_NEW), "admission refused")
-            paged_insert(cache, small, kv.scatter_rows(slot))
+            paged_insert(cache, small, *kv.scatter_rows(slot))
             kv.ensure(slot, S)
             pos[slot] = S
             first.append(logits)
             out.append((f"prefill (encoder length {S})", logits,
                         7 * E + 11 * L + 1))
         view = view_bucket(int(pos.max()) + 1, BLOCK, MAX_LEN)
-        table = torch.as_tensor(kv.gather_table()[:, :view // BLOCK],
+        table = torch.as_tensor(kv.gather_tables()[0][:, :view // BLOCK],
                                 device=self.dev).contiguous()
         tok = np.zeros(BATCH, np.int64)
         tok[:3] = self._first_tokens(torch.cat(first))
@@ -1232,8 +1397,10 @@ class Smoke:
     def _calls_vs_plain(self, cfg, label, expect, steps):
         """Every kernel call of `steps` (a step function) on `cfg` at full
         width, checked against its plain version on the same inputs (the
-        real activations, pools and tables of the model).  `expect` names
-        the kernels the path must have called."""
+        real activations, pools and tables of the model); K1 against its
+        plain version in float64, whose pools, written in float64, must
+        hold the same values.  `expect` maps each kernel the path calls to
+        its exact number of calls."""
         from repro_torch.kernels import emt_bitserial as k5
         from repro_torch.kernels import emt_matmul as k3
         from repro_torch.kernels import ops
@@ -1258,6 +1425,10 @@ class Smoke:
                 return y
             return call
 
+        def dbl(a):
+            return a.double() if torch.is_tensor(a) and a.is_floating_point() \
+                else a
+
         def pooled(name, attr, plain, writes):
             """K1 against its plain write on pool copies (bit-identical
             pools after); K4 against its plain version on the same pools,
@@ -1266,12 +1437,17 @@ class Smoke:
                 kp2, vp2 = kp.clone(), vp.clone()
                 y = orig[attr](q, kp, vp, *args, **kw)
                 if writes:
-                    ref = plain(q, kp2, vp2, *args, **kw)
+                    kp2, vp2 = kp2.double(), vp2.double()
+                    ref = plain(q.double(), kp2, vp2,
+                                *[dbl(a) for a in args], **kw)
+                    kpd, vpd = kp.double(), vp.double()
                 else:
                     ref = plain(q, kp, vp, *args, **kw)
-                worst[name] = max(worst[name], rel_err(y, ref)[1])
-                pools_ok[name] &= bool(torch.equal(kp, kp2)
-                                       and torch.equal(vp, vp2))
+                    kpd, vpd = kp, vp
+                worst[name] = max(worst[name],
+                                  rel_err(y.to(ref.dtype), ref)[1])
+                pools_ok[name] &= bool(torch.equal(kpd, kp2)
+                                       and torch.equal(vpd, vp2))
                 counts[name] += 1
                 return y
             return call
@@ -1296,12 +1472,13 @@ class Smoke:
                                        k2.plain)):
             steps(cfg)
         for name, r in worst.items():
+            f = " (float64)" if name == "paged_attention_decode" else ""
             print(f"  {label}: {name}: {counts[name]} calls on real "
-                  f"activations, worst rel diff vs plain {r:.3e}")
-            want = name in expect
-            self.check((counts[name] > 0) == want and r <= 1e-5,
+                  f"activations, worst rel diff vs plain{f} {r:.3e}")
+            self.check(counts[name] == expect.get(name, 0) and r <= 1e-5,
                        f"{label}: {name} on the model's activations: "
-                       f"{counts[name]} calls, rel {r:.3e}")
+                       f"{counts[name]} calls (want {expect.get(name, 0)}), "
+                       f"rel {r:.3e}")
         if pairs[1]:
             print(f"  {label}: emt_bitserial (k, plane) pairs whose plane "
                   f"is zero in every row, on the real activations of its "
@@ -1313,20 +1490,72 @@ class Smoke:
         self.check(all(pools_ok.values()), f"{label}: pools {pools_ok}")
 
     def calls_vs_plain(self):
-        self._calls_vs_plain(self.cfg, "analog", (
-            "emt_matmul", "paged_attention_decode", "paged_prefill"),
-            self._step_pair)
+        """Two chunk steps and a decode step: 183 K3 calls each, 26 K2
+        calls in each chunk step, 26 K1 calls in the decode step."""
+        L = self.cfg.num_layers
+        self._calls_vs_plain(self.cfg, "analog", {
+            "emt_matmul": 3 * (7 * L + 1), "paged_attention_decode": L,
+            "paged_prefill": 2 * L}, self._step_pair)
 
     def mixed_calls_vs_plain(self):
-        self._calls_vs_plain(self.mixed, "mixed", (
-            "emt_matmul", "emt_bitserial", "paged_attention_decode",
-            "paged_prefill"), self._step_pair)
+        L = self.mixed.num_layers
+        self._calls_vs_plain(self.mixed, "mixed", {
+            "emt_matmul": 3 * (4 * L + 1), "emt_bitserial": 3 * 3 * L,
+            "paged_attention_decode": L, "paged_prefill": 2 * L},
+            self._step_pair)
 
     def s2s_calls_vs_plain(self):
+        """Three prefills (217 K3 calls each) and a decode step (109 K3,
+        12 K1 and 12 K4 calls)."""
         self.__dict__.pop("_tokens", None)
-        self._calls_vs_plain(self.s2s, "seamless", (
-            "emt_matmul", "paged_attention_decode", "paged_attention"),
+        cfg = self.s2s
+        L, E = cfg.num_layers, cfg.encoder_layers
+        self._calls_vs_plain(cfg, "seamless", {
+            "emt_matmul": 3 * (7 * E + 11 * L + 1) + 9 * L + 1,
+            "paged_attention_decode": L, "paged_attention": L},
             self._s2s_steps)
+
+    def ring_calls_vs_plain(self):
+        """The ring paged steps: 26 K1 calls in the decode step (22 on
+        wrapped ring tables), 4 K2 calls in each chunk step, 183 K3 calls
+        a step."""
+        self.__dict__.pop("_tokens", None)
+        L, G = self.ring.num_layers, self.ring.blocks().count("global")
+        self._calls_vs_plain(self.ring, "ring paged", {
+            "emt_matmul": 3 * (7 * L + 1), "paged_attention_decode": L,
+            "paged_prefill": 2 * G},
+            lambda cfg: self._ring_steps(cfg, True))
+
+    def ring_logits_vs_plain(self):
+        """Logits of the wrapped chunk step and the decode step: the paged
+        ring path (K1, K2, K3) and the contiguous one (K3) against each
+        other and each against its plain path, within 1e-3 at the 24-bit
+        DAC (see _logits_vs_plain); at the served 8-bit DAC the gaps and
+        the argmax agreement are reported."""
+        import dataclasses
+        from repro_torch.core.placement import map_corners
+        from repro_torch.kernels import emt_matmul as k3
+        plain = dict(_emt_matmul=k3.plain)
+        dac24 = self.ring.replace(emt=map_corners(
+            self.ring.emt, lambda e: e.replace(quant=dataclasses.replace(
+                e.quant, a_bits=24))))
+        for cfg, bits, limit in ((dac24, 24, 1e-3), (self.ring, 8, None)):
+            self.__dict__.pop("_tokens", None)
+            runs = {}
+            for paged in (True, False):
+                layout = "paged" if paged else "contiguous"
+
+                def steps(c, paged=paged):
+                    return self._ring_steps(c, paged)
+
+                runs[layout] = self._run_path(cfg, steps)
+                runs[layout + " plain"] = self._run_path(cfg, steps,
+                                                         plain=plain)
+            for a, b in (("paged", "paged plain"),
+                         ("contiguous", "contiguous plain"),
+                         ("paged", "contiguous")):
+                self._compare(f"ring, {bits}-bit DAC: {a} vs {b} path",
+                              runs[a], runs[b], limit=limit)
 
     @contextlib.contextmanager
     def _ops_through(self, **fns):
@@ -1519,12 +1748,16 @@ def main() -> int:
               ("engine, analog", s.engine),
               ("engine, mixed placement", s.engine_mixed),
               ("engine, seamless", s.engine_seamless),
+              ("engine, ring paged", s.engine_ring_paged),
+              ("engine, ring contiguous", s.engine_ring_contiguous),
               ("kernel calls vs plain, analog", s.calls_vs_plain),
               ("kernel calls vs plain, mixed", s.mixed_calls_vs_plain),
               ("kernel calls vs plain, seamless", s.s2s_calls_vs_plain),
+              ("kernel calls vs plain, ring", s.ring_calls_vs_plain),
               ("logits vs plain, analog", s.logits_vs_plain),
               ("logits vs plain, mixed", s.mixed_logits_vs_plain),
-              ("logits vs plain, seamless", s.s2s_logits_vs_plain)]
+              ("logits vs plain, seamless", s.s2s_logits_vs_plain),
+              ("logits vs plain, ring", s.ring_logits_vs_plain)]
     for name, fn in phases:
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
@@ -1544,6 +1777,8 @@ def main() -> int:
     print("engine, analog: " + json.dumps(s.engine_summary))
     print("engine, mixed placement: " + json.dumps(s.mixed_summary))
     print("engine, seamless: " + json.dumps(s.s2s_summary))
+    for label, summary in s.ring_summaries.items():
+        print(f"engine, {label}: " + json.dumps(summary))
     print(s.smi)
     print(json.dumps({"kernels": [s.records[n] for n in
                                   ("paged_attention_decode", "paged_prefill",

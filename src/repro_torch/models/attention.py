@@ -1,16 +1,19 @@
-"""Grouped-query attention with RoPE, qk-norm, a paged KV cache and
-encoder-decoder cross attention, every projection an EMT crossbar matmul
-(port of :mod:`repro.models.attention`, global layers).
+"""Grouped-query attention with RoPE, qk-norm, sliding windows, paged and
+contiguous KV caches and encoder-decoder cross attention, every projection
+an EMT crossbar matmul (port of :mod:`repro.models.attention`).
 
 Paged decode runs ONE fused kernel launch per layer (K/V write + attend,
-``kernels.ops.paged_attention_decode``); chunked prefill writes the chunk's
-K/V and attends through the flash-style prefill kernel
-(``kernels.ops.paged_prefill``); the cross attention's decode reads the
-paged cross K/V through the read-only kernel (``kernels.ops.
-paged_attention``).  ``cfg.fused_paged_attn=False`` takes the plain path
-instead: scatter, gather the logical view, ``_gqa_core``.  The encoder and
-the legacy bucketed prefill attend within the sequence (no paging); the
-prefill fills a contiguous batch-1 cache.  Caches are updated in place.
+``kernels.ops.paged_attention_decode``), on a global layer's table or a
+ring layer's window-sized one (write at ``pos mod window``, ring position
+mask); chunked prefill writes a global layer's chunk K/V and attends
+through the flash-style prefill kernel (``kernels.ops.paged_prefill``); the
+cross attention's decode reads the paged cross K/V through the read-only
+kernel (``kernels.ops.paged_attention``).  ``cfg.fused_paged_attn=False``
+takes the plain path instead: scatter, gather the logical view,
+``_gqa_core``.  A ring layer's chunk step, the contiguous cache (decode
+and chunk step), the encoder and the legacy bucketed prefill attend
+through ``_gqa_core``, as the JAX package does outside its kernels.
+Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -140,95 +143,180 @@ def _paged_write(pool, table, wpos, val, active):
     return pool
 
 
-def _chunk_write(cache_kv, wpos, val, write_ok, page_table):
-    """Scatter a (B, C) chunk of K or V rows through the block table in
-    place; lanes with write_ok False are dropped."""
-    bs = cache_kv.shape[1]
+def _additive(ok):
+    """Additive fp32 mask: 0 where `ok`, NEG_INF elsewhere."""
+    return torch.where(ok, 0.0, common.NEG_INF).to(torch.float32)
+
+
+def _ring_positions(idx, win: int):
+    """(B, win) absolute position each ring slot holds once row b has
+    written position idx[b]: slot s holds ``idx - ((idx - s) mod win)``
+    (negative: not written yet)."""
+    s = torch.arange(win, device=idx.device)[None, :]
+    return idx[:, None] - torch.remainder(idx[:, None] - s, win)
+
+
+def _chunk_write(cache_kv, wpos, val, write_ok, page_table=None):
+    """Scatter a (B, C) chunk of K or V rows into the cache in place: lane
+    (b, c) writes position wpos[b, c] iff write_ok[b, c].  Contiguous caches
+    index (row, position); paged ones resolve (block, offset) through
+    `page_table`.  Dropped lanes are left out before the scatter, and ring
+    callers pass wrapped positions with one writer per slot: a scatter with
+    duplicate indices has no defined winner on CUDA."""
     b, c = torch.nonzero(write_ok, as_tuple=True)
     pos = wpos.long()[b, c]
-    cache_kv.index_put_((page_table.long()[b, pos // bs], pos % bs),
-                        val[b, c].to(cache_kv.dtype))
+    rows = val[b, c].to(cache_kv.dtype)
+    if page_table is None:
+        cache_kv.index_put_((b, pos), rows)
+    else:
+        bs = cache_kv.shape[1]
+        cache_kv.index_put_((page_table.long()[b, pos // bs], pos % bs), rows)
     return cache_kv
 
 
 def _chunk_attend(q, k, v, cache, mask, *, start, ntok, positions, active,
-                  page_table, page_len: int, cfg: ModelConfig):
-    """Chunked mixed prefill+decode cache update + attention for one global
-    layer: row b's first ntok[b] lanes are real tokens at positions
-    start[b] ..; the rest are padding (writes dropped).  Write-then-attend.
+                  page_table, page_len: int, ring: bool, win: int,
+                  cfg: ModelConfig):
+    """Chunked mixed prefill+decode cache update + attention for one layer:
+    row b's first ntok[b] lanes are real tokens at positions start[b] ..;
+    the rest are padding (writes dropped).
+
+    * Global (non-ring) layers write, then attend: through the prefill
+      kernel on a paged cache, over the caller's mask on a contiguous one
+      (or a gathered paged view on the plain path).
+    * Ring layers: a chunk's writes can overwrite window positions an
+      earlier lane still needs, so the row attends ``[pre-write ring view |
+      fresh chunk]`` with ring position masks, and of the lanes that wrap
+      to one slot only the last writes.
+
     Returns (y, cache, kv_read_elems)."""
     B, C = positions.shape
     KV, hd = cfg.num_kv_heads, cfg.head_dim
     j = torch.arange(C, device=positions.device)[None, :]
     valid = j < ntok[:, None]
-    qpos = start[:, None] + torch.minimum(j, ntok[:, None] - 1)
+    qj = torch.minimum(j, ntok[:, None] - 1)
+    qpos = start[:, None] + qj
     write_ok = valid if active is None else valid & active[:, None]
-    _chunk_write(cache["k"], positions, k, write_ok, page_table)
-    _chunk_write(cache["v"], positions, v, write_ok, page_table)
-    kv_reads = _visible_chunk_kv_elems(mask, valid, KV, hd)
-    if cfg.fused_paged_attn:
-        y = kops.paged_prefill(q, cache["k"], cache["v"], page_table, qpos,
-                               softcap=float(cfg.attn_softcap or 0.0))
-        return y.to(cache["k"].dtype), cache, kv_reads
-    k_att = paged_gather(cache["k"], page_table, page_len)
-    v_att = paged_gather(cache["v"], page_table, page_len)
-    return _gqa_core(q, k_att, v_att, mask, cfg), cache, kv_reads
+    if not ring:
+        _chunk_write(cache["k"], positions, k, write_ok, page_table)
+        _chunk_write(cache["v"], positions, v, write_ok, page_table)
+        kv_reads = _visible_chunk_kv_elems(mask, valid, KV, hd)
+        if page_table is None:
+            return (_gqa_core(q, cache["k"], cache["v"], mask, cfg), cache,
+                    kv_reads)
+        if cfg.fused_paged_attn:
+            y = kops.paged_prefill(q, cache["k"], cache["v"], page_table,
+                                   qpos, softcap=float(cfg.attn_softcap or 0.0))
+            return y.to(cache["k"].dtype), cache, kv_reads
+        k_att = paged_gather(cache["k"], page_table, page_len)
+        v_att = paged_gather(cache["v"], page_table, page_len)
+        return _gqa_core(q, k_att, v_att, mask, cfg), cache, kv_reads
+
+    if page_table is not None:
+        k_old = paged_gather(cache["k"], page_table, win)
+        v_old = paged_gather(cache["v"], page_table, win)
+    else:
+        k_old, v_old = cache["k"], cache["v"]
+    # the concatenation copies the pre-write view before the writes land
+    k_att = torch.cat([k_old, k.to(k_old.dtype)], dim=1)
+    v_att = torch.cat([v_old, v.to(v_old.dtype)], dim=1)
+    write_ok = write_ok & (j >= ntok[:, None] - win)      # last writer wins
+    wpos = torch.remainder(positions, win)
+    _chunk_write(cache["k"], wpos, k, write_ok, page_table)
+    _chunk_write(cache["v"], wpos, v, write_ok, page_table)
+    # pre-chunk slot s holds position p(s) (start == 0: all negative)
+    p_old = _ring_positions(start - 1, win)                     # (B, win)
+    ok_old = ((p_old[:, None, :] >= 0)
+              & (qpos[:, :, None] - p_old[:, None, :] < win))   # (B, C, win)
+    i = torch.arange(C, device=positions.device)[None, None, :]
+    ok_new = (i <= qj[:, :, None]) & (qj[:, :, None] - i < win)  # (B, C, C)
+    mask_cat = _additive(torch.cat([ok_old, ok_new], dim=-1))[:, None]
+    kv_reads = _visible_chunk_kv_elems(mask_cat, valid, KV, hd)
+    return _gqa_core(q, k_att, v_att, mask_cat, cfg), cache, kv_reads
 
 
 def self_attention(params, x, cfg: ModelConfig, *, positions, mask,
                    ctx: Ctx, tag: str, cache=None, cache_index=None,
                    active=None, page_table=None, page_len: int = 0,
-                   chunk_lens=None):
+                   page_ring: bool = False, chunk_lens=None):
     """Self-attention.
 
     No cache (the encoder): x (B, S, D) attends within itself under `mask`.
-    Prefill (``cache_index`` None): x (B, S, D) fills positions [0, S) of the
-    contiguous cache ``{"k", "v"}`` (B, max_len, KV, hd) and attends within
-    the prompt.  Paged decode (``chunk_lens`` None): x (B, 1, D),
-    ``cache_index`` (B,) write positions.  Paged chunk step: x (B, C, D)
-    with ``chunk_lens`` (B,) real lanes per row, ``cache_index`` the per-row
-    start, ``positions`` (B, C).  Returns (y, aux, cache) with the cache's
-    tensors updated in place (None without a cache)."""
-    if cache is not None and cache_index is not None and page_table is None:
-        raise NotImplementedError(
-            "decode against the contiguous KV cache is ported with a later "
-            "slice (ROADMAP Queue 1, serving core)")
+    Prefill (``cache_index`` None): x (B, S, D) fills the contiguous cache
+    ``{"k", "v"}`` and attends within the prompt; a ring cache (a
+    sliding-window layer whose cache is its window, ``cfg.sliding_window``
+    slots) keeps the last window of positions at slots ``p mod window``.
+    Decode (``chunk_lens`` None): x (B, 1, D), ``cache_index`` (B,) write
+    positions; inactive rows write nothing.  Chunk step: x (B, C, D) with
+    ``chunk_lens`` (B,) real lanes per row, ``cache_index`` the per-row
+    start, ``positions`` (B, C).  With `page_table` (B, T) int32 and
+    `page_len` the cache is paged (the clamped global view, or the window
+    of a ring table when `page_ring`); without it, contiguous.  Returns
+    (y, aux, cache) with the cache's tensors updated in place (None without
+    a cache)."""
     q, k, v, aux = _project_qkv(params, x, cfg, ctx, tag)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    KV, hd, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
     B = x.shape[0]
     idx = cache_index
+    win = cfg.sliding_window
+    ring = cache is not None and bool(win) and cache["k"].shape[1] == win
     if cache is None or idx is None:
         if cache is not None:
             S = k.shape[1]
-            cache["k"][:, :S] = k.to(cache["k"].dtype)
-            cache["v"][:, :S] = v.to(cache["v"].dtype)
+            for key, t in (("k", k), ("v", v)):
+                if ring and S >= win:
+                    # the last window, at slots (pos mod win)
+                    cache[key].copy_(torch.roll(t[:, S - win:],
+                                                (S - win) % win, dims=1))
+                else:
+                    cache[key][:, :S] = t.to(cache[key].dtype)
         y = _gqa_core(q, k, v, mask, cfg)
     elif chunk_lens is not None:
         y, cache, reads = _chunk_attend(
             q, k, v, cache, mask, start=idx, ntok=chunk_lens,
             positions=positions, active=active, page_table=page_table,
-            page_len=page_len, cfg=cfg)
+            page_len=page_len,
+            ring=page_ring if page_table is not None else ring, win=win,
+            cfg=cfg)
         aux["kv_reads"] = aux["kv_reads"] + reads
-    else:
+    elif page_table is not None:
         L = page_len
-        mask_rows = mask.reshape(B, L)
+        if page_ring:
+            wpos = torch.remainder(idx, L)
+            mask_rows = _additive(_ring_positions(idx, L) >= 0)
+        else:
+            wpos = idx
+            mask_rows = mask.reshape(B, L)
         aux["kv_reads"] = aux["kv_reads"] + _visible_kv_elems(mask_rows, KV,
                                                               hd)
-        H = cfg.num_heads
         if cfg.fused_paged_attn:
             out, _, _ = kops.paged_attention_decode(
                 q[:, 0].reshape(B, KV, H // KV, hd), cache["k"], cache["v"],
-                page_table, mask_rows, k[:, 0], v[:, 0], idx, active,
+                page_table, mask_rows, k[:, 0], v[:, 0], wpos, active,
                 softcap=float(cfg.attn_softcap or 0.0))
             y = out.reshape(B, 1, H * hd).to(cache["k"].dtype)
         else:
-            _paged_write(cache["k"], page_table, idx, k[:, 0], active)
-            _paged_write(cache["v"], page_table, idx, v[:, 0], active)
+            _paged_write(cache["k"], page_table, wpos, k[:, 0], active)
+            _paged_write(cache["v"], page_table, wpos, v[:, 0], active)
             y = _gqa_core(q, paged_gather(cache["k"], page_table, L),
                           paged_gather(cache["v"], page_table, L),
                           mask_rows[:, None, None, :], cfg)
+    else:
+        rows = torch.arange(B, device=x.device)
+        if active is not None:
+            rows = rows[active]
+        wpos = torch.remainder(idx, win) if ring else idx
+        for key, t in (("k", k), ("v", v)):
+            cache[key].index_put_((rows, wpos.long()[rows]),
+                                  t[rows, 0].to(cache[key].dtype))
+        if ring:
+            mask = _additive(_ring_positions(idx, win) >= 0)[:, None, None, :]
+        if mask is not None:
+            aux["kv_reads"] = aux["kv_reads"] + _visible_kv_elems(mask, KV,
+                                                                  hd)
+        y = _gqa_core(q, cache["k"], cache["v"], mask, cfg)
     o, a = emt_dense(params["wo"], y, cfg.emt_at(f"{tag}/wo"),
                      tag=f"{tag}/wo", seed=ctx.seed)
     return o, add_aux(aux, a), cache
@@ -240,12 +328,12 @@ def cross_attention(params, x, cfg: ModelConfig, *, enc_out=None,
     """Encoder-decoder cross attention.
 
     Prefill (`enc_out` given): K/V projected from `enc_out` (B, S_enc, D);
-    returns the new ``{"ck", "cv"}`` of the encoder's length.  Paged decode
-    (`enc_out` None, `cache` holding the ``ck``/``cv`` pools): the cross K/V
-    written once at admission are read through the block table (read-only)
-    under `enc_mask` (B, 1, 1, page_len), the rows of each slot's real
-    encoder positions; ``kv_reads`` books the visible positions.  Returns
-    (y, aux, new cross K/V or None)."""
+    returns the new ``{"ck", "cv"}`` of the encoder's length.  Decode
+    (`enc_out` None, `cache` holding ``ck``/``cv``): the cross K/V written
+    once at admission are read, contiguous or through the block table
+    (read-only), under `enc_mask` (B, 1, 1, L), the rows of each slot's
+    real encoder positions (None: every position); ``kv_reads`` books the
+    visible positions.  Returns (y, aux, new cross K/V or None)."""
     aux = new_aux()
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, a = emt_dense(params["wq"], x, cfg.emt_at(f"{tag}/wq"),
@@ -253,11 +341,14 @@ def cross_attention(params, x, cfg: ModelConfig, *, enc_out=None,
     aux = add_aux(aux, a)
     q = q.reshape(*x.shape[:-1], H, hd)
     new_cache = None
-    if enc_out is None:
-        if page_table is None:
-            raise NotImplementedError(
-                "cross attention against the contiguous cache is ported with "
-                "a later slice (ROADMAP Queue 1, serving core)")
+    if enc_out is None and page_table is None:
+        k, v = cache["ck"], cache["cv"]
+        vis = (enc_mask if enc_mask is not None
+               else torch.zeros((x.shape[0], k.shape[1]), dtype=torch.float32,
+                                device=x.device))
+        aux["kv_reads"] = aux["kv_reads"] + _visible_kv_elems(vis, KV, hd)
+        y = _gqa_core(q, k, v, enc_mask, cfg)
+    elif enc_out is None:
         B, L = x.shape[0], page_len
         mask_rows = (enc_mask.reshape(B, L) if enc_mask is not None
                      else torch.zeros((B, L), dtype=torch.float32,

@@ -4,10 +4,13 @@ contiguous cache, the paged cache, ``chunk_step`` and ``decode_step``) plus
 the port's seeded init and the JAX weight bridge.
 
 Paged caches are dicts of per-layer ``{"k", "v"}`` pools of shape
-``(num_blocks + 1, block_size, kv_heads, head_dim)`` (zero block last), with
-``{"ck", "cv"}`` cross K/V pools beside them in an enc-dec stack, updated in
-place by the steps.  The contiguous cache that ``prefill`` fills holds
-``(batch, max_len, kv_heads, head_dim)`` per layer.
+``(num_blocks + 1, block_size, kv_heads, head_dim)`` (zero block last; a
+sliding-window ring layer's pool has ``num_ring_blocks + 1`` rows and pages
+through the ring table), with ``{"ck", "cv"}`` cross K/V pools beside them
+in an enc-dec stack.  Contiguous caches hold ``(batch, max_len, kv_heads,
+head_dim)`` per layer, ``min(window, max_len)`` positions on a ring layer.
+The steps update either in place; they take the paged layout when given
+``page_tables``/``page_lens``, the contiguous one otherwise.
 """
 from __future__ import annotations
 
@@ -90,19 +93,34 @@ def _logits(params, h, cfg: ModelConfig, ctx: Ctx):
 
 def paged_lens(cfg: ModelConfig, max_len: int) -> dict:
     """Logical per-slot cache lengths of the paged layout.  Sliding-window
-    layers whose window is shorter than max_len need ring tables, which a
-    later slice ports."""
+    layers hold ``min(window, max_len)`` positions (the contiguous rule of
+    ``stack.block_state_specs``); when the window does not shrink the cache
+    they share the global table (``ring`` False, lengths equal).  The
+    explicit ``ring`` flag, not equal lengths, routes local layers to the
+    ring table: the engine's per-step clamp of the global view
+    (:func:`clamped_lens`) can make the global length equal the window."""
     ring = min(cfg.sliding_window, max_len) if cfg.sliding_window else 0
-    if ring and ring < max_len and "local" in cfg.blocks():
-        raise NotImplementedError(
-            "paged ring tables for sliding-window layers are ported with a "
-            "later slice; serve an all-global stack")
-    return {"global": max_len}
+    has_ring = bool(ring and ring < max_len and "local" in cfg.blocks())
+    return {"global": max_len, "local": ring if has_ring else max_len,
+            "ring": has_ring}
 
 
 def clamped_lens(page_lens_full: dict, view_len: int) -> dict:
-    """Clamp the global logical view to ``view_len`` positions."""
-    return {"global": min(int(view_len), page_lens_full["global"])}
+    """Clamp the global logical view to ``view_len`` positions; ring layers
+    keep their window-sized view."""
+    lens = dict(page_lens_full)
+    lens["global"] = min(int(view_len), page_lens_full["global"])
+    if not lens["ring"]:
+        lens["local"] = lens["global"]
+    return lens
+
+
+def ring_layers(cfg: ModelConfig, page_lens: dict) -> frozenset:
+    """Names of the layers whose K/V page through the ring table."""
+    if not page_lens["ring"]:
+        return frozenset()
+    return frozenset(f"layer_{i:03d}" for i, kind in enumerate(cfg.blocks())
+                     if kind == "local")
 
 
 def _zeros(shapes: dict, dtype, device):
@@ -113,26 +131,34 @@ def _zeros(shapes: dict, dtype, device):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Zeroed contiguous cache (the one ``prefill`` fills): per layer
-    ``k``/``v`` (batch, max_len, KV, hd), plus ``ck``/``cv`` of max_len
-    positions in an enc-dec stack."""
-    paged_lens(cfg, max_len)            # refuses ring layouts, as paged does
+    """Zeroed contiguous cache: per layer ``k``/``v`` (batch, length, KV,
+    hd), length max_len, or ``min(window, max_len)`` slots for a
+    sliding-window layer (a ring: position p at slot p mod window), plus
+    ``ck``/``cv`` of max_len positions in an enc-dec stack."""
     return {f"layer_{i:03d}": _zeros(
-        stk.block_state_specs(cfg, batch, max_len,
+        stk.block_state_specs(cfg, kind, batch, max_len,
                               cross_len=max_len if cfg.is_encdec else 0),
-        cfg.dtype, device) for i in range(cfg.num_layers)}
+        cfg.dtype, device) for i, kind in enumerate(cfg.blocks())}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
-                     block_size: int, num_blocks: int, device="cuda"):
-    """Zeroed block pools for every attention layer; an enc-dec stack's
-    cross K/V (``ck``/``cv``) page through the same global table."""
-    paged_lens(cfg, max_len)
-    shape = (num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim)
-    keys = ("k", "v", "ck", "cv") if cfg.is_encdec else ("k", "v")
-    return {f"layer_{i:03d}": _zeros(dict.fromkeys(keys, shape), cfg.dtype,
-                                     device)
-            for i in range(cfg.num_layers)}
+                     block_size: int, num_blocks: int,
+                     num_ring_blocks: int = 0, device="cuda"):
+    """Zeroed block pools for every attention layer, ``(num_blocks + 1,
+    block_size, KV, hd)`` (zero block last), or ``num_ring_blocks + 1``
+    rows for a ring layer (:func:`paged_lens`); an enc-dec stack's cross
+    K/V (``ck``/``cv``) page through the global table."""
+    ring = ring_layers(cfg, paged_lens(cfg, max_len))
+    kv = (block_size, cfg.num_kv_heads, cfg.head_dim)
+    cache = {}
+    for i in range(cfg.num_layers):
+        name = f"layer_{i:03d}"
+        rows = (num_ring_blocks if name in ring else num_blocks) + 1
+        shapes = dict.fromkeys(("k", "v"), (rows,) + kv)
+        if cfg.is_encdec:
+            shapes.update(dict.fromkeys(("ck", "cv"), (num_blocks + 1,) + kv))
+        cache[name] = _zeros(shapes, cfg.dtype, device)
+    return cache
 
 
 def prefill(params, batch, cfg: ModelConfig, ctx: Ctx, cache):
@@ -167,6 +193,12 @@ def prefill(params, batch, cfg: ModelConfig, ctx: Ctx, cache):
     return cache, logits[:, 0], add_aux(aux, a)
 
 
+def _cache_len(cache) -> int:
+    """The contiguous cache's longest K/V (ring layers hold fewer)."""
+    return max((blk["k"].shape[1] for blk in cache.values() if "k" in blk),
+               default=1)
+
+
 def _masks(cfg: ModelConfig, qpos, L: int):
     B = qpos.shape[0]
     k_pos = torch.arange(L, device=qpos.device)[None].expand(B, L)
@@ -178,15 +210,19 @@ def chunk_step(params, cache, tokens, start, ntok, cfg: ModelConfig,
                ctx: Ctx, active=None, page_tables=None, page_lens=None):
     """One mixed prefill+decode step over a (B, C) token chunk: row b
     advances by ntok[b] tokens at positions start[b] .. start[b] + ntok[b]
-    - 1 (padding lanes past ntok[b] are dropped).  Returns (last real lane's
-    logits (B, vocab), cache, aux)."""
+    - 1 (padding lanes past ntok[b] are dropped).  `page_tables`
+    ``{"global": (B, Tg), "local": (B, Tl)}`` int32 and `page_lens`
+    (:func:`clamped_lens`) select the paged layout; without them the cache
+    is contiguous.  Returns (last real lane's logits (B, vocab), cache,
+    aux)."""
     B, C = tokens.shape
     x = common.embed(params["embed"], tokens, cfg.embed_scale,
                      cfg.d_model).to(cfg.dtype)
     j = torch.arange(C, device=tokens.device)[None, :]
     wpos = start[:, None] + j
     qpos = start[:, None] + torch.minimum(j, ntok[:, None] - 1)
-    masks = _masks(cfg, qpos, page_lens["global"])
+    L = page_lens["global"] if page_lens else _cache_len(cache)
+    masks = _masks(cfg, qpos, L)
     h, aux, cache = stk.apply_stack(
         params["decoder"], x, cfg, cfg.blocks(), ctx=ctx, tag="dec",
         positions=wpos, mask=masks, caches=cache, cache_index=start,
@@ -202,7 +238,8 @@ def chunk_step(params, cache, tokens, start, ntok, cfg: ModelConfig,
 def decode_step(params, cache, tokens, index, cfg: ModelConfig, ctx: Ctx,
                 active=None, page_tables=None, page_lens=None, enc_lens=None):
     """One decode step: `tokens` (B,) generated at positions `index` (B,);
-    inactive rows leave the cache untouched.  `enc_lens` (B,) masks an
+    inactive rows leave the cache untouched.  `page_tables`/`page_lens` as
+    in :func:`chunk_step`.  `enc_lens` (B,) masks an
     enc-dec stack's cross attention to each row's real encoder positions
     (the cross K/V pools hold zeros past them; a row of length 0 attends
     nothing and gets zeros).  Returns (logits (B, vocab), cache, aux)."""
@@ -210,7 +247,7 @@ def decode_step(params, cache, tokens, index, cfg: ModelConfig, ctx: Ctx,
     x = common.embed(params["embed"], tokens[:, None], cfg.embed_scale,
                      cfg.d_model).to(cfg.dtype)
     pos = index[:, None]
-    L = page_lens["global"]
+    L = page_lens["global"] if page_lens else _cache_len(cache)
     masks = _masks(cfg, pos, L)
     enc_mask = None
     if enc_lens is not None and cfg.is_encdec:

@@ -30,12 +30,16 @@ def block_specs(cfg: ModelConfig, kind: str, cross: bool = False,
     return specs
 
 
-def block_state_specs(cfg: ModelConfig, batch: int, max_len: int,
+def block_state_specs(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                       cross_len: int = 0) -> dict:
     """Shapes of one attention block's contiguous cache entries: ``k``/``v``
-    (batch, max_len, KV, hd), plus ``ck``/``cv`` of `cross_len` positions in
-    an enc-dec decoder."""
-    kv = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    (batch, length, KV, hd), plus ``ck``/``cv`` of `cross_len` positions in
+    an enc-dec decoder.  The length is max_len, or ``min(window, max_len)``
+    for a sliding-window layer, which keeps a ring buffer of its window."""
+    length = max_len
+    if kind == "local" and cfg.sliding_window:
+        length = min(max_len, cfg.sliding_window)
+    kv = (batch, length, cfg.num_kv_heads, cfg.head_dim)
     out = {"k": kv, "v": kv}
     if cross_len:
         out["ck"] = out["cv"] = (batch, cross_len, cfg.num_kv_heads,
@@ -45,27 +49,40 @@ def block_state_specs(cfg: ModelConfig, batch: int, max_len: int,
 
 def apply_block(params, x, cfg: ModelConfig, *, kind: str, tag: str,
                 ctx: Ctx, positions, mask, cache=None, cache_index=None,
-                active=None, page_table=None, page_len: int = 0,
+                active=None, page_tables=None, page_lens=None,
                 chunk_lens=None, enc_out=None, enc_mask=None):
-    """One residual block.  Returns (y, aux, cache): the block's cache with
-    new cross K/V merged in at prefill (None without a cache)."""
+    """One residual block.  Paged steps give `page_tables`/`page_lens`
+    (``lm.clamped_lens``): a local layer pages through the ring table when
+    ``page_lens["ring"]`` says the window shrinks its cache (the flag, not
+    equal lengths, decides: the engine's clamp can make the global view as
+    long as the window), every other layer and the cross K/V through the
+    global one.  Returns (y, aux, cache): the block's cache with new cross
+    K/V merged in at prefill (None without a cache)."""
     h = common.rmsnorm(params["norm1"], x, cfg.norm_eps)
     window = cfg.sliding_window if kind == "local" else 0
     m = mask
     if isinstance(mask, dict):
         m = mask["local"] if kind == "local" else mask["global"]
+    pt = xpt = None
+    pl = xpl = 0
+    ring = False
+    if page_tables is not None:
+        ring = kind == "local" and page_lens["ring"]
+        which = "local" if ring else "global"
+        pt, pl = page_tables[which], page_lens[which]
+        xpt, xpl = page_tables["global"], page_lens["global"]
     y, aux, cache = self_attention(
         params["attn"], h, cfg.replace(sliding_window=window),
         positions=positions, mask=m, ctx=ctx, tag=f"{tag}/attn", cache=cache,
-        cache_index=cache_index, active=active, page_table=page_table,
-        page_len=page_len, chunk_lens=chunk_lens)
+        cache_index=cache_index, active=active, page_table=pt, page_len=pl,
+        page_ring=ring, chunk_lens=chunk_lens)
     x = x + y
     if enc_out is not None or (cache is not None and "ck" in cache):
         h = common.rmsnorm(params["norm_x"], x, cfg.norm_eps)
         y, a, ckv = cross_attention(
             params["xattn"], h, cfg, enc_out=enc_out, enc_mask=enc_mask,
-            ctx=ctx, tag=f"{tag}/xattn", cache=cache, page_table=page_table,
-            page_len=page_len)
+            ctx=ctx, tag=f"{tag}/xattn", cache=cache, page_table=xpt,
+            page_len=xpl)
         aux = add_aux(aux, a)
         if ckv:
             cache = {**cache, **ckv}
@@ -90,8 +107,8 @@ def apply_stack(params, x, cfg: ModelConfig, kinds, *, ctx: Ctx, tag: str,
                 page_tables=None, page_lens=None, chunk_lens=None,
                 enc_out=None, enc_mask=None):
     """Apply the whole stack.  `caches` (layer name -> block cache) is None
-    for the encoder; paged steps give `page_tables`/`page_lens` (the global
-    table also pages the cross K/V).  Returns (x, aux, caches)."""
+    for the encoder; paged steps give `page_tables`/`page_lens`
+    (:func:`apply_block` routes them).  Returns (x, aux, caches)."""
     aux = new_aux()
     lane_ok = None
     if chunk_lens is not None:
@@ -104,8 +121,6 @@ def apply_stack(params, x, cfg: ModelConfig, kinds, *, ctx: Ctx, tag: str,
             lane_ok = lane_ok & active[:, None]
         lane_ok = lane_ok[:, :, None]
         x = torch.where(lane_ok, x, torch.zeros_like(x))
-    pt = page_tables["global"] if page_tables is not None else None
-    pl = page_lens["global"] if page_lens is not None else 0
     new_caches = None if caches is None else {}
     for i, kind in enumerate(kinds):
         name = f"layer_{i:03d}"
@@ -113,8 +128,8 @@ def apply_stack(params, x, cfg: ModelConfig, kinds, *, ctx: Ctx, tag: str,
             params[name], x, cfg, kind=kind, tag=f"{tag}/{name}", ctx=ctx,
             positions=positions, mask=mask,
             cache=None if caches is None else caches[name],
-            cache_index=cache_index, active=active, page_table=pt,
-            page_len=pl, chunk_lens=chunk_lens, enc_out=enc_out,
+            cache_index=cache_index, active=active, page_tables=page_tables,
+            page_lens=page_lens, chunk_lens=chunk_lens, enc_out=enc_out,
             enc_mask=enc_mask)
         aux = add_aux(aux, a)
         if new_caches is not None:

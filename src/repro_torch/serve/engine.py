@@ -1,24 +1,30 @@
-"""Continuous-batching serving engine over the paged KV cache (port of
-:mod:`repro.serve.engine` for one device and paged KV).
+"""Continuous-batching serving engine (port of :mod:`repro.serve.engine`
+for one device).
 
-A fixed batch of ``batch_size`` slots shares per-layer block pools.  A FIFO
-scheduler admits the queue head into a free slot when the block budget
-allows.  With chunked prefill (the default for decoder-only stacks) its
-prompt then streams in ``prefill_chunk`` tokens per step through the mixed
-chunk step (:func:`repro_torch.models.lm.chunk_step`) while other slots
-decode one token in the same step.  The legacy bucketed prefill (the only
-one for encoder-decoder stacks, and ``chunked_prefill=False``) runs the
-prompt alone at admission, left-padded into a power-of-two bucket
+A fixed batch of ``batch_size`` slots shares one KV cache: contiguous
+(``paged=False``, the default, as in JAX), a ``(batch_size, max_len, ...)``
+region per slot and layer, a window-sized ring on a sliding-window layer;
+or paged (``paged=True``), per-layer block pools with per-slot block tables
+(global layers) and per-slot rings of blocks (sliding-window layers,
+``num_ring_blocks``).  A FIFO scheduler admits the queue head into a free
+slot when the block budgets allow.  With chunked prefill (the default for
+decoder-only stacks) its prompt then streams in ``prefill_chunk`` tokens
+per step through the mixed chunk step
+(:func:`repro_torch.models.lm.chunk_step`) while other slots decode one
+token in the same step.  The legacy bucketed prefill (the only one for
+encoder-decoder stacks, and ``chunked_prefill=False``) runs the prompt
+alone at admission, left-padded into a power-of-two bucket
 (:func:`prefill_bucket`), through :func:`repro_torch.models.lm.prefill`
-into a contiguous batch-1 cache, scatters that into the slot's blocks
-(:func:`paged_insert`) and samples the first token from its logits; the
-encoder of an enc-dec stack sees all-zero frame embeddings of the bucket's
-length (the speech front end is a stub, as in the JAX engine).  Once no slot
-is prefilling, the engine runs the pure decode step
-(:func:`repro_torch.models.lm.decode_step`), one fused K/V-write + attention
-kernel per layer (and one read-only cross-attention kernel per layer in an
-enc-dec stack).  Each step's view is clamped to the block-rounded
-power-of-two bucket of the furthest live position (:func:`view_bucket`).
+into a contiguous batch-1 cache, copies that into the slot's region or
+blocks (:func:`paged_insert`) and samples the first token from its logits;
+the encoder of an enc-dec stack sees all-zero frame embeddings of the
+bucket's length (the speech front end is a stub, as in the JAX engine).
+Once no slot is prefilling, the engine runs the pure decode step
+(:func:`repro_torch.models.lm.decode_step`): on the paged cache one fused
+K/V-write + attention kernel per layer (and one read-only cross-attention
+kernel per layer in an enc-dec stack), each step's global view clamped to
+the block-rounded power-of-two bucket of the furthest live position
+(:func:`view_bucket`).  A retiring slot's region or blocks are zeroed.
 
 Energy: a step's ``energy_pj`` is split e / batch_size per row; idle rows'
 share accrues to ``idle_energy_pj``, so per-request energy plus idle waste
@@ -66,15 +72,19 @@ def prefill_bucket(n: int, lo: int = 4) -> int:
     return b
 
 
-def paged_insert(cache, small, rows) -> None:
+def paged_insert(cache, small, row_g, row_l=None,
+                 ring=frozenset()) -> None:
     """Scatter a prefilled batch-1 contiguous cache into the pools, in
     place: every entry of layer ``small[name]`` (1, L, KV, hd), zero-padded
     to the row's blocks, lands in ``cache[name]`` at the block ids of
-    `rows` (width,); out-of-bounds ids (unallocated entries) are dropped.
-    The blocks' zero tails clear whatever their previous owner left."""
-    rows = torch.as_tensor(rows, dtype=torch.int64)
+    `row_l` (the slot's ring table row) for the K/V of a layer named in
+    `ring`, else of `row_g` (its global row); out-of-bounds ids
+    (unallocated entries) are dropped.  The blocks' zero tails clear
+    whatever their previous owner left."""
     for name, blk in cache.items():
         for key, pool in blk.items():
+            rows = row_l if name in ring and key in ("k", "v") else row_g
+            rows = torch.as_tensor(rows, dtype=torch.int64)
             nb, bs = pool.shape[:2]
             ok = rows < nb
             x = small[name][key][0].to(pool.dtype)
@@ -116,19 +126,21 @@ class ServingEngine:
     ``submit()`` enqueues a request and returns its rid, ``step()`` admits
     and advances every active slot one step and returns finished
     :class:`GenResult`s, ``drain()`` steps until idle, ``generate()`` is the
-    batch wrapper.  `params` must live on `device`.
+    batch wrapper.  `params` must live on `device`.  The paged pools
+    default to as many positions as the contiguous regions:
+    ``batch_size * ceil(max_len / block_size)`` global blocks and
+    ``batch_size * ceil(window / block_size)`` ring blocks.
     """
 
     def __init__(self, cfg: ModelConfig, params, batch_size: int,
                  max_len: int, seed: int = 0, fresh_noise: bool = True,
-                 paged: bool = True, block_size: int = 16,
-                 num_blocks: Optional[int] = None, placement=None,
+                 paged: bool = False, block_size: int = 16,
+                 num_blocks: Optional[int] = None,
+                 num_ring_blocks: Optional[int] = None, placement=None,
                  chunked_prefill: Optional[bool] = None,
                  prefill_chunk: int = 16, prefix_cache: bool = False,
                  n_shards: int = 1, max_pending: Optional[int] = None,
                  device="cuda"):
-        if not paged:
-            raise _later("the contiguous KV cache (paged=False)")
         if placement is not None:
             # a device placement (EMTConfig or DevicePlacement) overrides the
             # config's EMT surface for this engine; params must have been
@@ -157,12 +169,28 @@ class ServingEngine:
         self.fresh_noise = fresh_noise
         self.prefill_chunk = int(prefill_chunk)
         self.block_size = block_size
-        self.page_lens = lm.paged_lens(cfg, max_len)
-        if num_blocks is None:
-            num_blocks = batch_size * -(-max_len // block_size)
-        self.kv = PagedKV(batch_size, max_len, block_size, num_blocks)
-        self.cache = lm.init_paged_cache(cfg, batch_size, max_len, block_size,
-                                         num_blocks, device=self.device)
+        self.paged = bool(paged)
+        self.kv = None
+        if self.paged:
+            self.page_lens = lm.paged_lens(cfg, max_len)
+            ring_len = (self.page_lens["local"] if self.page_lens["ring"]
+                        else 0)
+            # default pools: as many positions as the contiguous regions
+            if num_blocks is None:
+                num_blocks = batch_size * -(-max_len // block_size)
+            if not ring_len:
+                num_ring_blocks = 0
+            elif num_ring_blocks is None:
+                num_ring_blocks = batch_size * -(-ring_len // block_size)
+            self.kv = PagedKV(batch_size, max_len, block_size, num_blocks,
+                              ring_len, num_ring_blocks)
+            self.ring = lm.ring_layers(cfg, self.page_lens)
+            self.cache = lm.init_paged_cache(
+                cfg, batch_size, max_len, block_size, num_blocks,
+                num_ring_blocks, device=self.device)
+        else:
+            self.cache = lm.init_cache(cfg, batch_size, max_len,
+                                       device=self.device)
         self.scheduler = Scheduler(batch_size, self.kv,
                                    max_pending=max_pending)
         self.total_energy_pj = 0.0
@@ -172,7 +200,7 @@ class ServingEngine:
         self.prefill_tokens_total = 0
         self._steps = 0              # global step counter (noise clock)
         self.peak_concurrent = 0
-        self._table_dev = None       # (view_len, table) on device; None=stale
+        self._tables_dev = None      # (view_len, tables) on device; None=stale
         self.view_len = 0
 
     # -- streaming API -------------------------------------------------------
@@ -201,9 +229,9 @@ class ServingEngine:
             raise ValueError(f"top_p must be >= 0, got {req.top_p}")
         if req.top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {req.top_k}")
-        if not self.kv.fits(S, req.max_new):
+        if self.paged and not self.kv.fits(S, req.max_new):
             raise ValueError(f"request needs more KV blocks than the pool "
-                             f"holds ({self.kv.pool.num_blocks} x "
+                             f"holds ({self.kv.pool_g.num_blocks} x "
                              f"{self.block_size})")
         return prompt
 
@@ -247,9 +275,10 @@ class ServingEngine:
         energy and sample the first token."""
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         if self.chunked:
-            if not self.kv.admit(sid, len(prompt), req.max_new):
+            if self.paged and not self.kv.admit(sid, len(prompt),
+                                                req.max_new):
                 raise RuntimeError("admission raced the block budget")
-            self._table_dev = None
+            self._tables_dev = None
             self.scheduler.place(sid, Slot(rid=rid, req=req, pos=0,
                                            last_token=0, prompt=prompt))
             return
@@ -265,10 +294,14 @@ class ServingEngine:
         small = lm.init_cache(cfg, 1, self.max_len, device=self.device)
         small, logits, aux = lm.prefill(self.params, batch, cfg,
                                         Ctx(seed=self.seed), small)
-        if not self.kv.admit(sid, S, req.max_new):
-            raise RuntimeError("admission raced the block budget")
-        self._table_dev = None
-        paged_insert(self.cache, small, self.kv.scatter_rows(sid))
+        if self.paged:
+            if not self.kv.admit(sid, S, req.max_new):
+                raise RuntimeError("admission raced the block budget")
+            self._tables_dev = None
+            paged_insert(self.cache, small, *self.kv.scatter_rows(sid),
+                         ring=self.ring)
+        else:
+            self._insert_slot(small, sid)
         prefill_e = float(aux["energy_pj"])
         self._book_corners(aux["corners"])
         self.total_energy_pj += prefill_e
@@ -316,15 +349,16 @@ class ServingEngine:
             act[i] = True
             enc[i] = s.enc_len
         self.peak_concurrent = max(self.peak_concurrent, len(active))
-        for i, s in active:
-            if self.kv.ensure(i, s.pos):
-                self._table_dev = None
-        table, lens = self._paged_table(max(1 + s.pos for _, s in active))
+        paged = {}
+        if self.paged:
+            for i, s in active:
+                if self.kv.ensure(i, s.pos):
+                    self._tables_dev = None
+            paged = self._paged_tables(max(1 + s.pos for _, s in active))
         logits, self.cache, aux = lm.decode_step(
             self.params, self.cache, self._dev(tokens), self._dev(index),
             self.cfg, Ctx(seed=self._step_seed()), active=self._dev(act),
-            page_tables={"global": table}, page_lens=lens,
-            enc_lens=self._dev(enc))
+            enc_lens=self._dev(enc), **paged)
         next_tok = sampling.sample_tokens(
             logits, *self._sampling_args(active)).cpu().numpy()
         share = self._book_step(aux, active)
@@ -355,16 +389,17 @@ class ServingEngine:
             else:
                 tokens[i, 0] = s.last_token
         self.peak_concurrent = max(self.peak_concurrent, len(active))
-        for i, s in active:
-            if not s.prefilling and self.kv.ensure(i, s.pos):
-                self._table_dev = None
-        table, lens = self._paged_table(
-            max(int(start[i] + ntok[i]) for i, _ in active))
+        paged = {}
+        if self.paged:
+            for i, s in active:
+                if not s.prefilling and self.kv.ensure(i, s.pos):
+                    self._tables_dev = None
+            paged = self._paged_tables(
+                max(int(start[i] + ntok[i]) for i, _ in active))
         logits, self.cache, aux = lm.chunk_step(
             self.params, self.cache, self._dev(tokens), self._dev(start),
             self._dev(ntok), self.cfg, Ctx(seed=self._step_seed()),
-            active=self._dev(act), page_tables={"global": table},
-            page_lens=lens)
+            active=self._dev(act), **paged)
         next_tok = sampling.sample_tokens(
             logits, *self._sampling_args(active)).cpu().numpy()
         share = self._book_step(aux, active)
@@ -390,16 +425,21 @@ class ServingEngine:
         s.last_token = t
         s.generated.append(t)
 
-    def _paged_table(self, need: int):
-        """The block table clamped to the view bucket covering `need`
-        positions, on device (re-uploaded only when it changed)."""
+    def _paged_tables(self, need: int) -> dict:
+        """The step's ``page_tables`` and ``page_lens``: the global table
+        clamped to the view bucket covering `need` positions and the ring
+        table (window-sized, never clamped), on device (re-uploaded only
+        when they changed)."""
         vlen = view_bucket(need, self.block_size, self.max_len)
-        if self._table_dev is None or self._table_dev[0] != vlen:
+        if self._tables_dev is None or self._tables_dev[0] != vlen:
             width = -(-vlen // self.block_size)
-            tg = self.kv.gather_table()[:, :width]
-            self._table_dev = (vlen, self._dev(np.ascontiguousarray(tg)))
+            tg, tl = self.kv.gather_tables()
+            self._tables_dev = (vlen, {
+                "global": self._dev(np.ascontiguousarray(tg[:, :width])),
+                "local": self._dev(tl)})
         self.view_len = vlen
-        return self._table_dev[1], lm.clamped_lens(self.page_lens, vlen)
+        return {"page_tables": self._tables_dev[1],
+                "page_lens": lm.clamped_lens(self.page_lens, vlen)}
 
     def _book_step(self, aux, active) -> float:
         """Book a step's aux; returns the per-active-slot energy share
@@ -445,8 +485,10 @@ class ServingEngine:
                     raise RuntimeError(
                         f"drain() made no progress for {stalled} steps: "
                         f"{self.scheduler.pending} pending, "
-                        f"{self.scheduler.num_active} active; pool free="
-                        f"{self.kv.pool.num_free}/{self.kv.pool.num_blocks}")
+                        f"{self.scheduler.num_active} active" + (
+                            f"; pool free={self.kv.pool_g.num_free}/"
+                            f"{self.kv.pool_g.num_blocks}" if self.paged
+                            else ""))
             else:
                 stalled = 0
             last = snap
@@ -518,17 +560,33 @@ class ServingEngine:
             return None
         return self._retire(slot_id, reason)
 
+    def _insert_slot(self, small, slot: int) -> None:
+        """Copy a prefilled batch-1 cache into slot `slot`'s contiguous
+        region, zero-padding entries shorter than it (the legacy bucket's
+        cross K/V)."""
+        for name, blk in self.cache.items():
+            for key, t in blk.items():
+                v = small[name][key][0].to(t.dtype)
+                t[slot] = F.pad(v, (0, 0, 0, 0, 0, t.shape[1] - v.shape[0]))
+
     def _retire(self, slot_id: int, reason: str) -> GenResult:
-        """Release the slot; its blocks are zeroed before any reuse so a
-        later request can never read its K/V."""
+        """Release the slot; its cache region or blocks (global and ring)
+        are zeroed before any reuse so a later request can never read its
+        K/V."""
         slot = self.scheduler.retire(slot_id)
-        freed = self.kv.release(slot_id)
-        self._table_dev = None
-        if freed:
-            ids = self._dev(np.asarray(freed, np.int64))
+        if self.paged:
+            freed_g, freed_l = self.kv.release(slot_id)
+            self._tables_dev = None
+            ids_g = self._dev(np.asarray(freed_g, np.int64))
+            ids_l = self._dev(np.asarray(freed_l, np.int64))
+            for name, blk in self.cache.items():
+                for key, pool in blk.items():
+                    ring = name in self.ring and key in ("k", "v")
+                    pool[ids_l if ring else ids_g] = 0.0
+        else:
             for blk in self.cache.values():
-                for pool in blk.values():
-                    pool[ids] = 0.0
+                for t in blk.values():
+                    t[slot_id] = 0.0
         return GenResult(rid=slot.rid,
                          tokens=np.asarray(slot.generated, np.int32),
                          energy_pj=slot.prefill_energy_pj + slot.energy_pj,

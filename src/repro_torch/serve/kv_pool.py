@@ -1,10 +1,11 @@
-"""Paged KV cache, host side: block allocator with reservation credits and
-per-slot block tables (port of :mod:`repro.serve.kv_pool` without the prefix
-registry, ring tables or shards; those come with later slices).
+"""Paged KV cache, host side: block allocators with reservation credits and
+per-slot block tables, global and sliding-window ring (port of
+:mod:`repro.serve.kv_pool` for one shard, without the prefix registry).
 
-Device side, every attention layer's pool is ``(num_blocks + 1, block_size,
-kv_heads, head_dim)``; row ``num_blocks`` is the zero block that unallocated
-table entries read.  Admission allocates the prompt's blocks and reserves
+Device side, every global attention layer's pool is ``(num_blocks + 1,
+block_size, kv_heads, head_dim)`` and every ring layer's ``(num_ring_blocks
++ 1, ...)``; the last row is the zero block that unallocated table entries
+read.  Admission allocates the prompt's blocks and the ring, and reserves
 the decode worst case, so an admitted request never runs out of blocks
 mid-decode (``append`` only converts credits).
 """
@@ -87,66 +88,123 @@ class BlockPool:
 
 
 class PagedKV:
-    """Host-side paged-KV state: one block pool + per-slot block tables.
+    """Host-side paged-KV state: two block-id spaces and per-slot tables.
 
-    ``table[slot, j]`` holds positions ``[j*bs, (j+1)*bs)``; ``-1`` marks an
-    unallocated entry, which the device view maps to the zero block."""
+    * ``pool_g`` / ``table_g``: global (and cross) attention layers;
+      ``table_g[slot, j]`` holds positions ``[j*bs, (j+1)*bs)`` of
+      ``[0, max_len)``.
+    * ``pool_l`` / ``table_l``: sliding-window ring layers (``ring_len``
+      > 0); the ring's ``ring_len`` slots are paged the same way, every
+      block allocated at admission (ring writes wrap, so the table never
+      grows).  Without a ring, ``pool_l`` is None and ``table_l`` one
+      unallocated column.
+
+    ``-1`` marks an unallocated entry; the device views map it to the zero
+    block (gathers) or out of bounds (scatters)."""
 
     def __init__(self, batch_size: int, max_len: int, block_size: int,
-                 num_blocks: int):
+                 num_blocks: int, ring_len: int = 0, num_ring_blocks: int = 0):
         self.batch_size = batch_size
         self.max_len = max_len
         self.block_size = block_size
-        self.pool = BlockPool(num_blocks, block_size)
-        self.width = self.pool.blocks_for(max_len)
-        self.table = np.full((batch_size, self.width), -1, np.int64)
+        self.ring_len = ring_len
+        self.pool_g = BlockPool(num_blocks, block_size)
+        self.pool_l = (BlockPool(num_ring_blocks, block_size) if ring_len
+                       else None)
+        self.width_g = self.pool_g.blocks_for(max_len)
+        self.width_l = self.pool_g.blocks_for(ring_len) if ring_len else 1
+        self.table_g = np.full((batch_size, self.width_g), -1, np.int64)
+        self.table_l = np.full((batch_size, self.width_l), -1, np.int64)
 
     def needs(self, prompt_len: int, max_new: int):
-        """(alloc, reserve) block counts: decode writes positions up to
-        prompt_len + max_new - 2, clipped to max_len."""
+        """(global alloc, global reserve, ring alloc) block counts: decode
+        writes positions up to prompt_len + max_new - 2, clipped to
+        max_len; the ring takes its whole window at admission."""
         total = min(prompt_len + max_new - 1, self.max_len)
-        ga = self.pool.blocks_for(prompt_len)
-        return ga, self.pool.blocks_for(total) - ga
+        ga = self.pool_g.blocks_for(prompt_len)
+        gr = self.pool_g.blocks_for(total) - ga
+        la = self.pool_l.blocks_for(self.ring_len) if self.pool_l else 0
+        return ga, gr, la
 
     def fits(self, prompt_len: int, max_new: int) -> bool:
-        """Whether the request could be admitted on an empty pool."""
-        return self.pool.num_blocks >= sum(self.needs(prompt_len, max_new))
+        """Whether the request could be admitted on empty pools."""
+        ga, gr, la = self.needs(prompt_len, max_new)
+        return (self.pool_g.num_blocks >= ga + gr
+                and (self.pool_l is None or self.pool_l.num_blocks >= la))
 
     def can_admit(self, prompt_len: int, max_new: int) -> bool:
-        return self.pool.can(sum(self.needs(prompt_len, max_new)))
+        ga, gr, la = self.needs(prompt_len, max_new)
+        return (self.pool_g.can(ga + gr)
+                and (self.pool_l is None or self.pool_l.can(la)))
 
     def admit(self, slot: int, prompt_len: int, max_new: int) -> bool:
-        ga, gr = self.needs(prompt_len, max_new)
-        ids = self.pool.alloc(slot, ga, reserve=gr)
-        if ids is None:
+        """Allocate the prompt's blocks, the decode reservation and the
+        ring; all or nothing."""
+        ga, gr, la = self.needs(prompt_len, max_new)
+        ids_g = self.pool_g.alloc(slot, ga, reserve=gr)
+        if ids_g is None:
             return False
-        self.table[slot, :ga] = ids
+        if self.pool_l is not None:
+            ids_l = self.pool_l.alloc(slot, la)
+            if ids_l is None:
+                self.pool_g.free(slot)
+                return False
+            self.table_l[slot, :la] = ids_l
+        self.table_g[slot, :ga] = ids_g
         return True
 
     def ensure(self, slot: int, pos: int) -> bool:
         """Make position `pos` writable; True if the table changed."""
         j = pos // self.block_size
-        if self.table[slot, j] >= 0:
+        if self.table_g[slot, j] >= 0:
             return False
-        self.table[slot, j] = self.pool.append(slot)
+        self.table_g[slot, j] = self.pool_g.append(slot)
         return True
 
-    def release(self, slot: int) -> List[int]:
-        ids = self.pool.free(slot)
-        self.table[slot] = -1
-        return ids
+    def release(self, slot: int):
+        """Free `slot`'s blocks; returns the (global, ring) ids, which the
+        engine zeroes."""
+        g = self.pool_g.free(slot)
+        l = self.pool_l.free(slot) if self.pool_l is not None else []
+        self.table_g[slot] = -1
+        self.table_l[slot] = -1
+        return g, l
 
     @property
-    def zero_block(self) -> int:
-        return self.pool.num_blocks
+    def zero_block_g(self) -> int:
+        return self.pool_g.num_blocks
 
-    def gather_table(self) -> np.ndarray:
-        """(B, width) int32 table for reads: unallocated -> zero block."""
-        return np.where(self.table >= 0, self.table,
-                        self.zero_block).astype(np.int32)
+    @property
+    def zero_block_l(self) -> int:
+        return self.pool_l.num_blocks if self.pool_l is not None else 0
 
-    def scatter_rows(self, slot: int) -> np.ndarray:
-        """(width,) int32 row for the prefill insert: unallocated -> out of
-        bounds (dropped), so the zero block is never written."""
-        return np.where(self.table[slot] >= 0, self.table[slot],
-                        self.zero_block + 1).astype(np.int32)
+    def gather_tables(self):
+        """(B, width_g), (B, width_l) int32 tables for reads: unallocated
+        -> the zero block."""
+        tg = np.where(self.table_g >= 0, self.table_g, self.zero_block_g)
+        tl = np.where(self.table_l >= 0, self.table_l, self.zero_block_l)
+        return tg.astype(np.int32), tl.astype(np.int32)
+
+    def scatter_rows(self, slot: int):
+        """(width_g,), (width_l,) int32 rows for the prefill insert:
+        unallocated -> out of bounds (dropped), so the zero block is never
+        written."""
+        rg = np.where(self.table_g[slot] >= 0, self.table_g[slot],
+                      self.zero_block_g + 1)
+        rl = np.where(self.table_l[slot] >= 0, self.table_l[slot],
+                      self.zero_block_l + 1)
+        return rg.astype(np.int32), rl.astype(np.int32)
+
+    def check(self) -> None:
+        """Both pools' conservation, and every table entry owned by its
+        slot."""
+        for pool, table in ((self.pool_g, self.table_g),
+                            (self.pool_l, self.table_l)):
+            if pool is None:
+                continue
+            pool.check()
+            for slot in range(self.batch_size):
+                ids = [int(b) for b in table[slot] if b >= 0]
+                if not set(ids) <= set(pool.owned(slot)):
+                    raise AssertionError(f"slot {slot} table names blocks "
+                                         f"it does not own")

@@ -39,9 +39,11 @@ class Slot:
 
 
 class Scheduler:
-    """FIFO admission queue + slot table + paged-KV block tables."""
+    """FIFO admission queue + slot table, and the paged-KV block tables
+    when the engine pages its cache (`kv`; None on the contiguous cache,
+    where a free slot is the whole budget)."""
 
-    def __init__(self, batch_size: int, kv: PagedKV,
+    def __init__(self, batch_size: int, kv: Optional[PagedKV] = None,
                  max_pending: Optional[int] = None):
         self.batch_size = batch_size
         self.kv = kv
@@ -84,8 +86,10 @@ class Scheduler:
         return None
 
     def can_admit(self, prompt_len: int, max_new: int) -> bool:
+        """A free slot, and the global and ring block budgets (paged)."""
         return (self.free_slot() is not None
-                and self.kv.can_admit(prompt_len, max_new))
+                and (self.kv is None
+                     or self.kv.can_admit(prompt_len, max_new)))
 
     def place(self, slot_id: int, slot: Slot) -> None:
         if self.slots[slot_id] is not None:

@@ -1,8 +1,8 @@
 """The serving config as ``repro.serve.spec.ServeSpec.build_config``
-resolves it, for the port's slices: float32 serving, an all-global stack
-(sliding-window ring layers are ported with a later slice, ROADMAP Queue 1),
-one EMT corner (`mode`, `device`) or a named device placement, and
-optionally per-row DAC scales."""
+resolves it, for the port's slices: float32 serving, the published stack
+(sliding-window ring layers beside global ones) or, with ``all_global``,
+every layer global, one EMT corner (`mode`, `device`) or a named device
+placement, and optionally per-row DAC scales."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,10 +16,14 @@ from repro_torch.core.placement import map_corners
 
 def build_config(arch: str = "gemma3-1b", mode: str = "analog", *,
                  smoke: bool = True, device: str | None = None,
-                 placement: str | None = None, a_per_row: bool = False,
+                 placement: str | None = None, all_global: bool = False,
+                 a_per_row: bool = False, prefix_cache: bool = False,
                  model_overrides=None):
     """`placement` names a preset from PLACEMENTS and replaces `mode` and
-    `device` (a placement names its corners per layer)."""
+    `device` (a placement names its corners per layer).  `all_global`
+    coerces sliding-window layers to global attention; `prefix_cache`
+    (the engine option the config must allow) refuses a stack that keeps
+    ring layers."""
     if placement is not None:
         if device is not None:
             raise ValueError("placement and device are mutually exclusive "
@@ -36,8 +40,15 @@ def build_config(arch: str = "gemma3-1b", mode: str = "analog", *,
                 raise ValueError(f"unknown device corner {device!r}") from e
         cfg = get_config(arch, emt_mode=mode, smoke=smoke, device=device)
     cfg = cfg.replace(dtype=torch.float32)
-    if cfg.sliding_window and "local" in cfg.blocks():
+    has_ring = bool(cfg.sliding_window) and "local" in cfg.blocks()
+    if all_global and has_ring:
         cfg = cfg.replace(layer_pattern=("attn",), sliding_window=0)
+        has_ring = False
+    if prefix_cache and has_ring:
+        raise ValueError(
+            "prefix_cache requires an all-global attention stack (ring K/V "
+            "is positional and cannot be shared) — set all_global=True or "
+            "pick a stack without sliding windows")
     if model_overrides:
         cfg = cfg.replace(**model_overrides)
     if a_per_row:

@@ -37,7 +37,8 @@ def _models(arch, a_per_row=False, **overrides):
                       a_per_row=a_per_row,
                       model_overrides=overrides or None).build_config()
     params_j = init_params(jlm.specs(cfg_j), jax.random.PRNGKey(0))
-    cfg_t = build_config(arch, smoke=True, a_per_row=a_per_row,
+    cfg_t = build_config(arch, smoke=True, all_global=True,
+                         a_per_row=a_per_row,
                          model_overrides=overrides or None)
     params_t = tlm.load_jax_arrays(_tree_to_arrays(params_j), cfg_t,
                                    device="cpu")
@@ -101,8 +102,8 @@ def test_encdec_engine_matches_jax(seamless, batch_size, stagger):
     eng, res = out["torch"]
     assert not eng.chunked                     # None resolves to legacy
     assert eng.metrics()["kv_reads_total"] > 0
-    eng.kv.pool.check()
-    assert eng.kv.pool.num_free == eng.kv.pool.num_blocks
+    eng.kv.check()
+    assert eng.kv.pool_g.num_free == eng.kv.pool_g.num_blocks
     for blk in eng.cache.values():             # retired blocks zeroed
         assert set(blk) == {"k", "v", "ck", "cv"}
         assert all(float(p.abs().sum()) == 0.0 for p in blk.values())
@@ -141,14 +142,14 @@ def test_legacy_admission_rules(seamless):
     """Bucket sizing, first-token retirement at admission, the zero
     encoder input and the cross K/V inserted at the bucket's length."""
     _, _, cfg, params = seamless
-    eng = TEng(cfg, params, batch_size=2, max_len=16, block_size=4,
-               fresh_noise=False, device="cpu")
+    eng = TEng(cfg, params, batch_size=2, max_len=16, paged=True,
+               block_size=4, fresh_noise=False, device="cpu")
     assert [eng._bucket_len(n) for n in (1, 5, 8, 9, 16)] == [4, 8, 8, 9, 16]
     # bucket 8 + 9 new tokens - 1 = 16 positions fits; 10 new does not
     eng.validate(TReq(prompt=np.ones(5, np.int32), max_new=9))
     with pytest.raises(ValueError, match="KV blocks"):
-        TEng(cfg, params, batch_size=1, max_len=16, block_size=4,
-             num_blocks=3, device="cpu").submit(
+        TEng(cfg, params, batch_size=1, max_len=16, paged=True,
+             block_size=4, num_blocks=3, device="cpu").submit(
                  TReq(prompt=np.ones(5, np.int32), max_new=9))
     rid = eng.submit(TReq(prompt=np.ones(5, np.int32), max_new=1))
     (res,) = eng.step()                        # done at admission
@@ -158,7 +159,7 @@ def test_legacy_admission_rules(seamless):
     eng.step()                                 # admission + one decode
     (sid, slot), = eng.scheduler.active_slots()
     assert (slot.pos, slot.enc_len, len(slot.generated)) == (5, 4, 2)
-    blk = eng.kv.table[sid, 0]
+    blk = eng.kv.table_g[sid, 0]
     ck = eng.cache["layer_000"]["ck"][blk]
     # the engine's encoder input is all zeros (the speech front end is a
     # stub), so the served cross K/V are exactly zero

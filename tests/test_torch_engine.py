@@ -35,7 +35,7 @@ def _models(a_per_row):
                       all_global=True, a_per_row=a_per_row).build_config() \
         .replace(num_layers=2)
     params_j = init_params(jlm.specs(cfg_j), jax.random.PRNGKey(0))
-    cfg_t = build_config(smoke=True, a_per_row=a_per_row,
+    cfg_t = build_config(smoke=True, all_global=True, a_per_row=a_per_row,
                          model_overrides={"num_layers": 2})
     params_t = tlm.load_jax_arrays(_tree_to_arrays(params_j), cfg_t,
                                    device="cpu")
@@ -164,8 +164,8 @@ def test_cancel_queued_and_active(small_port):
     rest = eng.drain()
     assert sorted(r.rid for r in rest) == rids[1:4]
     assert eng.energy_conserved(rest + [live, queued])
-    eng.kv.pool.check()
-    assert eng.kv.pool.num_free == eng.kv.pool.num_blocks
+    eng.kv.check()
+    assert eng.kv.pool_g.num_free == eng.kv.pool_g.num_blocks
     for blk in eng.cache.values():               # retired blocks zeroed
         assert float(blk["k"].abs().sum()) == 0.0
 
@@ -189,7 +189,7 @@ def test_validation_and_backpressure(small_port):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(paged=False), "contiguous"),
+    (dict(paged=False, prefix_cache=True), "prefix cache"),
     (dict(chunked_prefill=True, arch="seamless-m4t-medium"),
      "chunked_prefill"),
     (dict(prefix_cache=True), "prefix cache"),

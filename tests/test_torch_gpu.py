@@ -382,11 +382,12 @@ def _serve_on_card(placement, arch="gemma3-1b"):
     from repro_torch.models import lm
     from repro_torch.serve.engine import GenRequest, ServingEngine
     from repro_torch.serve.spec import build_config
-    cfg = build_config(arch, smoke=True, a_per_row=True, placement=placement,
+    cfg = build_config(arch, smoke=True, all_global=True, a_per_row=True,
+                       placement=placement,
                        model_overrides={"num_layers": 2})
     params = lm.init_model_params(cfg, 0)
-    eng = ServingEngine(cfg, params, batch_size=2, max_len=32, block_size=8,
-                        prefill_chunk=8, fresh_noise=False)
+    eng = ServingEngine(cfg, params, batch_size=2, max_len=32, paged=True,
+                        block_size=8, prefill_chunk=8, fresh_noise=False)
     counters = (k1.paged_attention_decode, k3.emt_matmul)
     counters += ((k4.paged_attention,) if cfg.is_encdec
                  else (k2.paged_prefill,))

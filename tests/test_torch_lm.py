@@ -33,7 +33,7 @@ def models():
         .replace(num_layers=2)
     params_j = init_params(jlm.specs(cfg_j), jax.random.PRNGKey(0))
     arrays = _tree_to_arrays(params_j)
-    cfg_t = build_config(smoke=True, a_per_row=True,
+    cfg_t = build_config(smoke=True, all_global=True, a_per_row=True,
                          model_overrides={"num_layers": 2})
     params_t = tlm.load_jax_arrays(arrays, cfg_t, device="cpu")
     return cfg_j, params_j, cfg_t, params_t, arrays
@@ -69,13 +69,14 @@ def test_seeded_init_full_width_specs_and_determinism(monkeypatch):
     """Full-width gemma3-1b has the published matrix sizes (embed/unembed
     301,989,888 + 26 x 26,836,992); the seeded init is deterministic; entry
     points default to the card and refuse to fall back to the CPU."""
-    cfg = build_config(smoke=False, a_per_row=True)
+    cfg = build_config(smoke=False, all_global=True, a_per_row=True)
     from repro_torch.utils.pytrees import flatten_with_paths
     mats = sum(int(np.prod(s.shape))
                for _, s in flatten_with_paths(tlm.specs(cfg))
                if len(s.shape) == 2)
     assert mats == 301_989_888 + 26 * 26_836_992
-    small = build_config(smoke=True, model_overrides={"num_layers": 2})
+    small = build_config(smoke=True, all_global=True,
+                         model_overrides={"num_layers": 2})
     a = tlm.init_model_params(small, 5, device="cpu")
     b = tlm.init_model_params(small, 5, device="cpu")
     assert torch.equal(a["embed"]["table"], b["embed"]["table"])
@@ -94,7 +95,7 @@ def test_chunk_and_decode_logits_and_greedy_tokens_match(models):
             jkv.ensure(s, p)
             tkv.ensure(s, p)
     tg, tl = jkv.gather_tables()
-    np.testing.assert_array_equal(tkv.gather_table(), tg)
+    np.testing.assert_array_equal(tkv.gather_tables()[0], tg)
     cj = jlm.init_paged_cache(cfg_j, B, MAX_LEN, BS, nb)
     ct = tlm.init_paged_cache(cfg_t, B, MAX_LEN, BS, nb, device="cpu")
     jt = {"global": jnp.asarray(tg), "local": jnp.asarray(tl)}
@@ -196,12 +197,32 @@ def test_plain_attention_path_matches_jax_fallback(models):
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=1e-4)
 
 
-def test_ring_layout_raises_until_ported():
-    from repro_torch.configs import get_config
-    cfg = get_config("gemma3-1b", smoke=True)    # 5:1 local:global, window 8
-    with pytest.raises(NotImplementedError, match="ring"):
-        tlm.paged_lens(cfg, 48)
-    assert build_config(smoke=True).blocks() == ("attn",) * cfg.num_layers
+@pytest.mark.parametrize("all_global", [False, True])
+def test_build_config_resolves_the_stack_as_servespec(all_global):
+    """The published 5:1 local:global stack (smoke window 8) unless
+    all_global coerces every layer to global attention, as
+    ServeSpec.build_config resolves it; a prefix cache is refused on a
+    stack that keeps ring layers, with JAX's message."""
+    for smoke in (True, False):
+        spec = ServeSpec(smoke=smoke, all_global=all_global, a_per_row=True)
+        cfg_j = spec.build_config()
+        cfg_t = build_config(smoke=smoke, all_global=all_global,
+                             a_per_row=True)
+        assert cfg_t.blocks() == cfg_j.blocks()
+        assert cfg_t.sliding_window == cfg_j.sliding_window
+        assert ("local" in cfg_t.blocks()) is not all_global
+    assert build_config(smoke=False, all_global=all_global).sliding_window \
+        == (0 if all_global else 512)
+    if all_global:
+        assert build_config(all_global=True, prefix_cache=True).blocks() == \
+            ServeSpec(all_global=True, prefix_cache=True, paged=True) \
+            .build_config().blocks()
+        return
+    with pytest.raises(ValueError) as jerr:
+        ServeSpec(prefix_cache=True, paged=True).build_config()
+    with pytest.raises(ValueError) as terr:
+        build_config(prefix_cache=True)
+    assert str(terr.value) == str(jerr.value)
 
 
 @pytest.mark.parametrize("chunk", [0, 5])

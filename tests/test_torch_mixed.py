@@ -51,8 +51,8 @@ SPEC = dict(arch="gemma3-1b", placement="mixed", all_global=True,
 def models():
     cfg_j = ServeSpec(**SPEC).build_config().replace(num_layers=2)
     params_j = init_params(jlm.specs(cfg_j), jax.random.PRNGKey(0))
-    cfg_t = build_config(smoke=True, placement="mixed", a_per_row=True,
-                         model_overrides={"num_layers": 2})
+    cfg_t = build_config(smoke=True, placement="mixed", all_global=True,
+                         a_per_row=True, model_overrides={"num_layers": 2})
     params_t = tlm.load_jax_arrays(_tree_to_arrays(params_j), cfg_t,
                                    device="cpu")
     return cfg_j, params_j, cfg_t, params_t
@@ -118,7 +118,7 @@ def served(models):
         ej = JEng(cfg_j, params_j, fresh_noise=False, **ENGINE)
         lv, st = [], []
         out["jax"] = (ej, _run(ej, JReq, lv, st), lv, st)
-    analog = build_config(smoke=True, a_per_row=True,
+    analog = build_config(smoke=True, all_global=True, a_per_row=True,
                           model_overrides={"num_layers": 2})
     for tag, replay in (("torch", None),
                         ("replay", [(a, b) for a, b, _ in lv])):

@@ -129,7 +129,8 @@ def test_placement_plan_matches_jax(name):
     DAC scale, as ServeSpec resolves it; every resolved config is equal."""
     jc = ServeSpec(arch="gemma3-1b", placement=name, all_global=True,
                    a_per_row=True, smoke=True).build_config()
-    tc = build_config(smoke=True, placement=name, a_per_row=True)
+    tc = build_config(smoke=True, placement=name, all_global=True,
+                      a_per_row=True)
     assert tc.layer_paths() == jc.layer_paths()
     assert tc.placement_plan() == jc.placement_plan()
     for path in tc.layer_paths():

@@ -256,7 +256,7 @@ def test_paged_decode_with_enc_lens_matches(models, fused):
         (cj, lj, _), (ct, lt, _) = _prefill_both(models, plen, S, max_len,
                                                  rng)
         assert jkv.admit(slot, S, 8) and tkv.admit(slot, S, 8)
-        row = tkv.scatter_rows(slot)
+        row, _ = tkv.scatter_rows(slot)
         np.testing.assert_array_equal(row, jkv.scatter_rows(slot)[0])
         pj = insert(pj, cj, jnp.asarray(row), jnp.asarray(row),
                     jnp.int32(slot))
@@ -275,7 +275,7 @@ def test_paged_decode_with_enc_lens_matches(models, fused):
             jkv.ensure(s, int(pos[s]))
             tkv.ensure(s, int(pos[s]))
         tg, _ = jkv.gather_tables()
-        np.testing.assert_array_equal(tkv.gather_table(), tg)
+        np.testing.assert_array_equal(tkv.gather_tables()[0], tg)
         view = 16
         lens_j = jlm.clamped_lens(jlm.paged_lens(cfg_j, max_len), view)
         lens_t = tlm.clamped_lens(tlm.paged_lens(cfg_t, max_len), view)
