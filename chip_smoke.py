@@ -58,7 +58,30 @@ Phases (any failure exits non-zero and prints no result line):
    and a decode step: every paged kernel call held to its plain version
    (K1 on the ring tables to its float64 plain version), and the logits
    of the paged and contiguous paths against each other and each against
-   its plain path, 1e-3 at the 24-bit DAC, the 8-bit gaps reported.
+   its plain path, 1e-3 at the 24-bit DAC, the 8-bit gaps reported;
+7. the serving front end at full gemma3-1b width (all-global, analog,
+   per-row DAC scale, frozen noise, paged, temperature 0), built through
+   ``ServeSpec.build_engine``: the prefix cache on the default scenario
+   matrix's shared-prefix cell (8 requests of 128 tokens with a 64-token
+   header, staggered 2 steps; then a repeat of one prompt, a prompt that
+   diverges inside a block, and a continuation of a request's prompt and
+   its first 17 generated tokens), served with the cache off and on (a
+   pool small enough to evict): identical tokens, the prompt tokens the
+   cache served not computed, a copy-on-write admission, a hit on a block
+   that decode wrote, an eviction, exact launch counts; then the matrix's
+   Poisson cell (16 requests of 6-20 tokens at 4 req/s, block 8) through
+   the launcher's ``serve_streaming`` and ``StreamingServer``, one request
+   cancelled through its handle after its first token, the others
+   finished; every result equal to a fresh engine replaying the stream's
+   schedule of submits and cancels, exact launch counts, TTFT and
+   inter-token latency reported; against an ``engine.serve`` run of the
+   same requests, the logits of every token up to a request's first
+   differing one held within POISSON_LOGIT_TOL (on the card a token's
+   float order depends on the step it is computed in), and each
+   difference's logit margins and DAC level flips printed; then each new
+   path's kernel calls against their plain versions: the prefix path's on
+   tables whose rows share blocks and over copied blocks, the Poisson
+   path's at block 8.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Every "ms" is the kernel's time in one
@@ -74,7 +97,9 @@ that step from torch.profiler, null where no trace recorded them (not
 measured).  "launches" counts
 K1-K3 in the analog run, K4 in the seamless run and K5 in the mixed run;
 K1-K3 also carry ``ring_paged_launches`` and ``ring_contiguous_launches``,
-their counts in the two ring runs.
+their counts in the two ring runs, and ``prefix_launches`` and
+``poisson_launches``, their counts in the prefix cache's cache-on run and
+in the Poisson stream.
 Bounds are the largest of the bytes over the H100 SXM's published 3.35
 TB/s, the FP32 pipe's operations (FLOPs, and for the noisy matmuls the
 hash's integer multiplies and the noise factor's FMULs as two each) over
@@ -127,6 +152,24 @@ SEED = 0
 # the ring paths: prompts past gemma3-1b's 512-position window, so that
 # every ring wraps
 RING_MAX_LEN, RING_PROMPTS = 640, (520, 600)
+# the prefix path: prompts of 128 tokens and a continuation of 145 (request
+# 0's prompt and its first 17 generated tokens, so that block 8, written by
+# decode, is hit); the cache-on run's pool evicts registered blocks
+PREFIX_MAX_LEN, PREFIX_CONT_AT, PREFIX_ON_BLOCKS = 192, 17, 40
+# the request the Poisson path cancels after its first token
+POISSON_CANCEL = 3
+# The Poisson stream against engine.serve of the same requests: a token may
+# be computed in a decode step or as a decode lane of a chunk step, under
+# another view bucket, so it sums in another float32 order, and at the
+# 8-bit DAC a level can flip at a .5 tie.  One step's logits then move by
+# 0.12-0.23 (the logits phases' 8-bit kernel vs plain and f32 vs f64
+# gaps on the H100); the stream's logits are held to engine.serve's within
+# about twice that on every token up to a request's first differing one.
+POISSON_LOGIT_TOL = 0.5
+# a token reported in both schedules whatever the run: request 2's token
+# 10, which came out differently in the stream and in engine.serve in
+# earlier runs on the H100
+POISSON_PROBE = (2, 10)
 
 
 def bound(nbytes: float, flops: float, alu: float = 0.0, fma: float = 0.0):
@@ -984,9 +1027,9 @@ class Smoke:
         """Serve `reqs` on `eng`, profiling single steps (from the third on)
         until `per_kind` steps with prefill work (chunk steps; admission
         steps of the legacy prefill) and `per_kind` decode steps are
-        captured; print each step's wall time, device busy time (the sum of
-        its device events) and top kernels.  Profiling single steps keeps
-        the trace small."""
+        captured, then stop; print each step's wall time, device busy time
+        (the sum of its device events) and top kernels.  Profiling single
+        steps keeps the trace small."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -995,9 +1038,9 @@ class Smoke:
         prefill = "chunk" if eng.chunked else "admission + decode"
         seen = {prefill: 0, "decode": 0}
         n = 0
-        while eng.scheduler.busy:
+        while eng.scheduler.busy and min(seen.values()) < per_kind:
             n += 1
-            if n < 3 or min(seen.values()) >= per_kind:
+            if n < 3:
                 eng.step()
                 continue
             before = (eng.prefill_tokens_total, eng.scheduler.pending)
@@ -1698,6 +1741,589 @@ class Smoke:
     def s2s_logits_vs_plain(self):
         self._logits_vs_plain(self.s2s, "seamless", self._s2s_steps)
 
+    # -- phase 7: the prefix cache and the streaming front end ---------------
+    def _replay(self, eng, schedule):
+        """Apply a recorded schedule (engine step count, "submit" / request
+        / rid or "cancel" / rid / reason) to a fresh engine, each event
+        after as many model steps as it came after, stepping in between;
+        returns {rid: result}."""
+        out, events = {}, list(schedule)
+        for _ in range(10_000):
+            while events and events[0][0] == eng._steps:
+                _, kind, a, b = events.pop(0)
+                if kind == "submit":
+                    self.check(eng.submit(a) == b, "replay: rid mismatch")
+                else:
+                    res = eng.cancel(a, b)
+                    if res is not None:
+                        out[res.rid] = res
+            if not eng.scheduler.busy:
+                break
+            for res in eng.step():
+                out[res.rid] = res
+        self.check(not events and not eng.scheduler.busy,
+                   f"replay: {len(events)} events left, busy "
+                   f"{eng.scheduler.busy}")
+        return out
+
+    def _serve_spec(self, **kw):
+        """gemma3-1b at published widths, all-global, analog, per-row DAC,
+        frozen noise, paged, temperature 0: the default scenario matrix's
+        base (benchmarks/matrix.py default_matrix) on the card."""
+        from repro_torch.serve.spec import ServeSpec
+        return ServeSpec(arch=ARCH, mode="analog", smoke=False,
+                         all_global=True, a_per_row=True, frozen_noise=True,
+                         paged=True, temperature=0.0, **kw)
+
+    def _reset_launches(self):
+        counters = self._counters()
+        for w in counters.values():
+            w.launches = 0
+        return counters
+
+    def _prefix_requests(self, spec):
+        """The default matrix's shared-prefix cell at full-width lengths:
+        8 requests of 128 tokens sharing a 64-token header (ratio 0.5),
+        workload seed 11, max_new 8, request 0 (the continuation's donor)
+        max_new 24; then request 1's prompt again (7 blocks hit, the last
+        copied with 15 rows) and request 2's first 72 tokens with a new
+        tail (4 blocks hit, 8 rows copied)."""
+        import dataclasses
+        import numpy as np
+        from repro_torch.serve.engine import GenRequest
+        from repro_torch.serve.spec import ScenarioSpec, make_requests
+        cell = ScenarioSpec(name="prefix", serve=spec, arrival="stagger",
+                            stagger=2, n_requests=8, prompt_lo=128,
+                            prompt_hi=128, shared_prefix_ratio=0.5,
+                            max_new=8, workload_seed=11)
+        reqs = make_requests(cell, self.cfg.vocab_size)
+        reqs[0] = dataclasses.replace(reqs[0], max_new=24)
+        fork = reqs[2].prompt.copy()
+        fork[72:] = (fork[72:] + 1) % self.cfg.vocab_size
+        reqs += [GenRequest(prompt=reqs[1].prompt.copy(), max_new=8, seed=8),
+                 GenRequest(prompt=fork, max_new=8, seed=9)]
+        return reqs
+
+    def _prefix_run(self, spec, reqs):
+        """Submit `reqs` one every 2 steps and step until idle; once request
+        0 has generated PREFIX_CONT_AT tokens (its decode has filled block
+        8), submit the continuation: request 0's prompt and those tokens.
+        Returns (engine, {label: result}, prefix admissions as (label,
+        cached_len, cow), model steps, launches, wall)."""
+        import numpy as np
+        from repro_torch.serve.engine import GenRequest
+        eng = spec.build_engine(self.cfg, self.params,
+                                max_len=PREFIX_MAX_LEN, torch_device=self.dev)
+        streamed, labels, admissions = {}, {}, []
+        eng.on_token = lambda rid, t: streamed.setdefault(rid, []).append(t)
+        if spec.prefix_cache:
+            admit, admit_slot, current = eng.kv.admit_prefix, eng._admit, []
+
+            def traced_admit(sid, rid, req):
+                current[:] = [labels[rid]]
+                return admit_slot(sid, rid, req)
+
+            def traced(slot, prompt, max_new):
+                res = admit(slot, prompt, max_new)
+                if res is not None:
+                    admissions.append((current[0], res["cached_len"],
+                                       res["cow"]))
+                return res
+
+            eng._admit, eng.kv.admit_prefix = traced_admit, traced
+        queue = [(f"r{i}", r) for i, r in enumerate(reqs)]
+        results, cont = {}, None
+
+        def step():
+            nonlocal cont
+            for res in eng.step():
+                results[labels[res.rid]] = res
+            got = streamed.get(0, [])
+            if cont is None and len(got) >= PREFIX_CONT_AT:
+                cont = GenRequest(prompt=np.concatenate(
+                    [reqs[0].prompt, np.asarray(got[:PREFIX_CONT_AT],
+                                                np.int32)]),
+                    max_new=8, seed=10)
+                labels[eng.submit(cont)] = "continuation"
+
+        steps = {"chunk_step": 0, "decode_step": 0}
+        self.sync()
+        self.torch.cuda.reset_peak_memory_stats()
+        counters = self._reset_launches()
+        t0 = time.perf_counter()
+        with self._counting_steps(steps):
+            for label, r in queue:
+                labels[eng.submit(r)] = label
+                step()
+                step()
+            while eng.scheduler.busy or cont is None:
+                step()
+            self.sync()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in counters.items()}
+        self.check(all(streamed[rid] == results[lab].tokens.tolist()
+                       for rid, lab in labels.items()),
+                   "prefix path: on_token streams differ from the results")
+        return eng, results, admissions, steps, launches, wall
+
+    def engine_prefix(self):
+        """The prefix cache at full width: the shared-prefix workload with
+        the cache off (default pool), then on (a pool small enough to
+        evict registered blocks).  Tokens identical per request; the on
+        run computes cached_prefix_tokens fewer prompt tokens, in fewer
+        chunk steps, with a copy-on-write admission, a hit on a block that
+        decode wrote, and an eviction; launches exact (K1 26 per decode
+        step, K2 26 per chunk step, K3 183 per step)."""
+        import numpy as np
+        torch = self.torch
+        L = self.cfg.num_layers
+        off = self._serve_spec(block_size=BLOCK, prefill_chunk=CHUNK,
+                               batch_size=BATCH, seed=SEED)
+        on = off.replace(prefix_cache=True, num_blocks=PREFIX_ON_BLOCKS)
+        self.check(on.build_config() == self.cfg,
+                   "the prefix spec resolves another config")
+        reqs = self._prefix_requests(off)
+        runs = {}
+        for tag, spec in (("off", off), ("on", on)):
+            eng, res, adm, steps, launches, wall = self._prefix_run(spec,
+                                                                     reqs)
+            peak = torch.cuda.max_memory_allocated()
+            m = eng.metrics()
+            ntok = sum(len(r.tokens) for r in res.values())
+            prefill_uj = sum(r.prefill_energy_pj for r in res.values()) * 1e-6
+            print(f"  prefix cache {tag}: {len(res)} requests, "
+                  f"{m['steps']} steps ({steps['chunk_step']} chunk, "
+                  f"{steps['decode_step']} decode), {ntok} tokens in "
+                  f"{wall:.3f} s -> {ntok / wall:.2f} tok/s; prompt tokens "
+                  f"computed {m['prefill_tokens_total']}, served from the "
+                  f"cache {m['cached_prefix_tokens']} (hits "
+                  f"{eng.kv.prefix_hits}, evictions "
+                  f"{eng.kv.prefix_evictions}, pool "
+                  f"{eng.kv.pool_g.num_blocks} blocks); prefill energy "
+                  f"{prefill_uj:.3f} uJ; peak device memory "
+                  f"{peak / 2**30:.2f} GiB")
+            print(f"  launches ({tag}): {launches}")
+            self.check(eng.energy_conserved(list(res.values())),
+                       f"prefix {tag}: energy not conserved")
+            self._check_launches(f"prefix {tag}", launches, m["steps"], {
+                "emt_matmul": 7 * L + 1, "emt_bitserial": 0,
+                "paged_attention": 0})
+            self.check(launches["paged_attention_decode"]
+                       == L * steps["decode_step"]
+                       and launches["paged_prefill"]
+                       == L * steps["chunk_step"]
+                       and sum(steps.values()) == m["steps"],
+                       f"prefix {tag}: K1/K2 launches {launches} for steps "
+                       f"{steps}, want {L} per decode / chunk step")
+            want_new = {f"r{i}": r.max_new for i, r in enumerate(reqs)}
+            want_new["continuation"] = 8
+            for label, r in res.items():
+                ok = (r.done_reason == "max_new"
+                      and len(r.tokens) == want_new[label]
+                      and ((r.tokens >= 0) & (r.tokens < self.cfg.vocab_size))
+                      .all())
+                self.check(bool(ok), f"prefix {tag}: {label} malformed {r}")
+            runs[tag] = dict(eng=eng, res=res, adm=adm, steps=steps, m=m,
+                             launches=launches, wall=wall, ntok=ntok,
+                             peak=peak, prefill_uj=prefill_uj)
+        a, b = runs["off"], runs["on"]
+        self.check(sorted(a["res"]) == sorted(b["res"])
+                   and len(a["res"]) == len(reqs) + 1,
+                   f"prefix: results {sorted(a['res'])} / {sorted(b['res'])}")
+        for label in a["res"]:
+            ta, tb = a["res"][label].tokens, b["res"][label].tokens
+            same = np.array_equal(ta, tb)
+            print(f"    {label}: off {ta.tolist()} on {tb.tolist()}"
+                  + ("" if same else "  <- DIFFERS"))
+            self.check(same, f"prefix cache changed the tokens of {label}")
+        cached = b["m"]["cached_prefix_tokens"]
+        self.check(cached > 0 and b["m"]["prefill_tokens_total"]
+                   == a["m"]["prefill_tokens_total"] - cached,
+                   f"prefix: {cached} cached, prompt tokens computed "
+                   f"{b['m']['prefill_tokens_total']} vs "
+                   f"{a['m']['prefill_tokens_total']}")
+        adm = {label: (n, cow) for label, n, cow in b["adm"]}
+        print(f"  prefix admissions (label: cached_len, copy src -> dst): "
+              f"{adm}")
+        self.check(adm.get("r8", (0, None))[0] == 127
+                   and adm["r8"][1] is not None,
+                   f"prefix: repeat of r1 admitted as {adm.get('r8')}, want "
+                   f"127 cached with a copied last block")
+        self.check(adm.get("r9", (0, None))[0] == 72
+                   and adm["r9"][1] is not None,
+                   f"prefix: fork of r2 admitted as {adm.get('r9')}, want "
+                   f"72 cached with a copied block")
+        self.check(adm.get("continuation", (0,))[0] == 9 * BLOCK,
+                   f"prefix: continuation admitted as "
+                   f"{adm.get('continuation')}, want {9 * BLOCK} cached "
+                   f"(block 8 written by decode)")
+        self.check(b["eng"].kv.prefix_evictions > 0,
+                   "prefix: no registered block was evicted")
+        self.check(b["steps"]["chunk_step"] < a["steps"]["chunk_step"],
+                   f"prefix: chunk steps {a['steps']} off, {b['steps']} on")
+        b["eng"].kv.check()
+        print(f"  prefix cache: prefill energy saved "
+              f"{a['prefill_uj'] - b['prefill_uj']:.3f} uJ of "
+              f"{a['prefill_uj']:.3f}; tok/s off {a['ntok'] / a['wall']:.2f},"
+              f" on {b['ntok'] / b['wall']:.2f}")
+        for name in ("paged_attention_decode", "paged_prefill",
+                     "emt_matmul"):
+            self.records.setdefault(name, {})["prefix_launches"] = \
+                b["launches"][name]
+        self._profile_steps(on.build_engine(
+            self.cfg, self.params, max_len=PREFIX_MAX_LEN,
+            torch_device=self.dev), reqs, 1)
+        self.prefix_summary = {
+            tag: dict(tok_s=r["ntok"] / r["wall"], wall_s=r["wall"],
+                      tokens=r["ntok"], steps=r["m"]["steps"],
+                      chunk_steps=r["steps"]["chunk_step"],
+                      decode_steps=r["steps"]["decode_step"],
+                      prefill_tokens=r["m"]["prefill_tokens_total"],
+                      cached_prefix_tokens=r["m"]["cached_prefix_tokens"],
+                      prefill_uj=r["prefill_uj"], peak_gib=r["peak"] / 2**30)
+            for tag, r in runs.items()}
+
+    def _poisson_cell(self):
+        """The default matrix's Poisson cell at full width: (spec, cell,
+        requests, max_len)."""
+        from repro_torch.serve.engine import prefill_bucket
+        from repro_torch.serve.spec import ScenarioSpec, make_requests
+        spec = self._serve_spec(seed=7, batch_size=4, prefill_chunk=16,
+                                block_size=8, max_pending=16)
+        cell = ScenarioSpec(name="poisson", serve=spec, arrival="poisson",
+                            rate_rps=4.0, n_requests=16, prompt_lo=6,
+                            prompt_hi=20, max_new=12, workload_seed=5)
+        return (spec, cell, make_requests(cell, self.cfg.vocab_size),
+                prefill_bucket(cell.prompt_hi) + cell.max_new)
+
+    def server_stream(self):
+        """The default matrix's Poisson cell at full width through the
+        launcher's serve_streaming (StreamingServer): 16 requests of 6-20
+        tokens at 4 req/s, max_new 12, block 8, max_pending 16, workload
+        seed 5; request POISSON_CANCEL is cancelled through its handle after
+        its first token, every other request finishes.  The engine's submits
+        and cancels are recorded against its step count, and a fresh engine
+        replaying that schedule must give every result's tokens, done
+        reason and energy (the server adds nothing to the engine's work);
+        launches exact; the serving thread launches on the main thread's
+        stream.  An engine.serve run of the same requests is compared on
+        the logits (_schedule_gap): on the card a request's tokens depend
+        on the schedule (a token computed in a decode step or in a chunk
+        step, under another view bucket, sums in another float32 order,
+        and a DAC level can flip at a tie; ROADMAP Queue 3)."""
+        import numpy as np
+        from repro_torch.kernels import _build
+        from repro_torch.launch.serve import serve_streaming
+        L = self.cfg.num_layers
+        spec, cell, reqs, max_len = self._poisson_cell()
+
+        def make():
+            return spec.build_engine(self.cfg, self.params, max_len=max_len,
+                                     torch_device=self.dev)
+
+        eng = make()
+        index = self.dev.index or 0
+        streams, step = set(), eng.step
+
+        def traced_step():
+            streams.add(_build.stream(index))
+            return step()
+
+        eng.step = traced_step
+        schedule, submit, cancel = [], eng.submit, eng.cancel
+
+        def traced_submit(req):
+            rid = submit(req)
+            schedule.append((eng._steps, "submit", req, rid))
+            return rid
+
+        def traced_cancel(rid, reason="cancelled"):
+            res = cancel(rid, reason)
+            schedule.append((eng._steps, "cancel", rid, reason))
+            return res
+
+        eng.submit, eng.cancel = traced_submit, traced_cancel
+        cancellers = []
+
+        def on_handle(i, h):
+            if i == POISSON_CANCEL:
+                cancellers.append(_cancel_after_first_token(h))
+
+        steps = {"chunk_step": 0, "decode_step": 0}
+        self.sync()
+        counters = self._reset_launches()
+        with self._counting_steps(steps):
+            results, wall, rejected, ttft, itl = serve_streaming(
+                eng, reqs, rate=cell.rate_rps, deadline_s=spec.deadline_s,
+                max_pending=spec.max_pending, seed=cell.workload_seed,
+                on_handle=on_handle)
+            self.sync()
+        launches = {name: w.launches for name, w in counters.items()}
+        for t in cancellers:
+            t.join(timeout=60)
+        self.check(len(cancellers) == 1 and not cancellers[0].is_alive(),
+                   "Poisson: the cancelling client did not finish")
+        m = eng.metrics()
+        ntok = sum(len(r.tokens) for r in results)
+        pct = lambda xs, q: float(np.percentile(np.asarray(xs) * 1e3, q))  # noqa: E731
+        summary = dict(
+            tok_s=ntok / wall, wall_s=wall, tokens=ntok, steps=m["steps"],
+            chunk_steps=steps["chunk_step"],
+            decode_steps=steps["decode_step"], rejected=rejected,
+            ttft_ms_p50=pct(ttft, 50), ttft_ms_p99=pct(ttft, 99),
+            itl_ms_p50=pct(itl, 50), itl_ms_p99=pct(itl, 99))
+        print(f"  streaming @ {cell.rate_rps:g} req/s: {len(results)} "
+              f"results, {ntok} tokens in {wall:.3f} s -> "
+              f"{ntok / wall:.2f} tok/s; TTFT p50 {summary['ttft_ms_p50']:.1f}"
+              f" ms / p99 {summary['ttft_ms_p99']:.1f} ms, inter-token p50 "
+              f"{summary['itl_ms_p50']:.1f} ms / p99 "
+              f"{summary['itl_ms_p99']:.1f} ms; rejected {rejected}; "
+              f"{m['steps']} steps {steps}")
+        print(f"  launches (Poisson stream): {launches}; serving-thread "
+              f"streams {sorted(streams)}, main thread's "
+              f"{_build.stream(index)}")
+        self.check(streams == {_build.stream(index)},
+                   f"serving thread launched on streams {streams}")
+        self.check(rejected == 0 and len(results) == len(reqs),
+                   f"Poisson: {len(results)} results, {rejected} rejected")
+        self._check_launches("Poisson", launches, m["steps"], {
+            "emt_matmul": 7 * L + 1, "emt_bitserial": 0,
+            "paged_attention": 0})
+        self.check(launches["paged_attention_decode"]
+                   == L * steps["decode_step"]
+                   and launches["paged_prefill"] == L * steps["chunk_step"]
+                   and sum(steps.values()) == m["steps"],
+                   f"Poisson: K1/K2 launches {launches} for steps {steps}")
+        self.check(eng.energy_conserved(results),
+                   "Poisson: energy not conserved")
+        for r in results:
+            want = "cancelled" if r.rid == POISSON_CANCEL else "max_new"
+            self.check(r.done_reason == want and len(r.tokens) > 0,
+                       f"Poisson: rid {r.rid} {r.done_reason}, want {want}")
+        traced = {"stream": {}, "serve": {}}
+        replay_eng = make()
+        with self._token_trace(replay_eng, traced["stream"]):
+            replay = self._replay(replay_eng, schedule)
+        for r in results:
+            b = replay.get(r.rid)
+            self.check(b is not None and np.array_equal(r.tokens, b.tokens)
+                       and r.done_reason == b.done_reason
+                       and np.isclose(r.energy_pj, b.energy_pj, rtol=1e-9),
+                       f"Poisson: rid {r.rid} {r.done_reason} "
+                       f"{r.tokens.tolist()}, the replayed schedule gave "
+                       f"{b}")
+        serve_eng = make()
+        with self._token_trace(serve_eng, traced["serve"]):
+            ref = {r.rid: r.tokens for r in serve_eng.serve(reqs)}
+        differ = {r.rid: int(np.argmin(np.append(
+            r.tokens == ref[r.rid][:len(r.tokens)], False)))
+            for r in results if not np.array_equal(
+                r.tokens, ref[r.rid][:len(r.tokens)])}
+        print(f"  Poisson vs its replayed schedule ({len(schedule)} submits "
+              f"and cancels): {len(results)} results compared, request "
+              f"{POISSON_CANCEL} cancelled after "
+              f"{len(results[POISSON_CANCEL].tokens)} tokens; vs "
+              f"engine.serve: {len(differ)} requests differ "
+              f"{ {rid: (i, int(results[rid].tokens[i]), int(ref[rid][i])) for rid, i in differ.items()} } "
+              f"(rid: first index, stream token, engine.serve token)")
+        summary["serve_differs"] = len(differ)
+        summary["serve_logit_gap"] = self._schedule_gap(
+            results, differ, traced["stream"], traced["serve"],
+            7 * L + 1)
+        for name in ("paged_attention_decode", "paged_prefill",
+                     "emt_matmul"):
+            self.records.setdefault(name, {})["poisson_launches"] = \
+                launches[name]
+        self._profile_steps(make(), reqs, 1)
+        self.poisson_summary = summary
+
+    @contextlib.contextmanager
+    def _token_trace(self, eng, out: dict):
+        """Record, for every token `eng` samples, out[(rid, index)] =
+        (logits row, [the DAC levels, as int8, of the input row that
+        computes it, per projection in call order]).  That row is the
+        request's slot at its last prompt position in its final prompt
+        chunk, else at its one decode position; a prompt's earlier chunks
+        are overwritten by its final one."""
+        from repro_torch.core import emt_linear
+        from repro_torch.serve import sampling
+        torch = self.torch
+        quant, sample = emt_linear.quant_levels, sampling.sample_tokens
+        step = {}
+
+        def levels(x, *args, **kw):
+            lv, scale = quant(x, *args, **kw)
+            rows = lv.detach().reshape(eng.batch_size, -1, lv.shape[-1])
+            for i, s in eng.scheduler.active_slots():
+                col = len(s.prompt) - s.pos - 1 if s.prefilling else 0
+                step.setdefault((s.rid, len(s.generated)), []).append(
+                    rows[i, min(col, rows.shape[1] - 1)].to(torch.int8))
+            return lv, scale
+
+        def sample_tokens(logits, *args):
+            for i, s in eng.scheduler.active_slots():
+                key = (s.rid, len(s.generated))
+                out[key] = (logits[i].detach().clone(), step.pop(key, []))
+            step.clear()
+            return sample(logits, *args)
+
+        emt_linear.quant_levels = levels
+        sampling.sample_tokens = sample_tokens
+        try:
+            yield
+        finally:
+            emt_linear.quant_levels = quant
+            sampling.sample_tokens = sample
+
+    def _schedule_gap(self, results, differ, stream, serve, projections):
+        """Hold the Poisson stream's logits (`stream`, traced on the replay
+        of its schedule, which gave the stream's results bit for bit) to
+        engine.serve's (`serve`) on every token of every request up to and
+        including its first differing one (`differ`: rid -> index), within
+        POISSON_LOGIT_TOL.  At each first difference and at POISSON_PROBE
+        print both runs' top-2 margins, the margin of each run's token over
+        the other's, and the DAC levels that differ in the row computing
+        it.  Returns the largest logit gap."""
+        worst, at = 0.0, None
+        for r in results:
+            n = min(len(r.tokens), differ.get(r.rid, len(r.tokens)) + 1)
+            for i in range(n):
+                d = (stream[(r.rid, i)][0] - serve[(r.rid, i)][0]).abs() \
+                    .max().item()
+                if d > worst:
+                    worst, at = d, (r.rid, i)
+        print(f"  Poisson vs engine.serve: logits max|diff| {worst:.4e} at "
+              f"(rid, token) {at} over every token up to each request's "
+              f"first differing one, limit {POISSON_LOGIT_TOL:g}")
+        self.check(worst <= POISSON_LOGIT_TOL,
+                   f"Poisson: logits differ from engine.serve's by "
+                   f"{worst:.4e} at {at} > {POISSON_LOGIT_TOL:g}")
+        for rid, i in sorted(set(differ.items()) | {POISSON_PROBE}):
+            (la, lva), (lb, lvb) = stream[(rid, i)], serve[(rid, i)]
+            (va, ia), (vb, ib) = la.topk(2), lb.topk(2)
+            ta, tb = int(ia[0]), int(ib[0])
+            self.check(len(lva) == len(lvb) == projections,
+                       f"Poisson: {len(lva)} / {len(lvb)} projections "
+                       f"traced for ({rid}, {i}), want {projections}")
+            flips = [int((a != b).sum().item()) for a, b in zip(lva, lvb)]
+            first = next((c for c, f in enumerate(flips) if f), None)
+            print(f"  Poisson (rid {rid}, token {i}): stream {ta} (over "
+                  f"the runner-up {int(ia[1])} by {float(va[0] - va[1]):.4e},"
+                  f" over {tb} by {float(la[ta] - la[tb]):.4e}), "
+                  f"engine.serve {tb} (over the runner-up {int(ib[1])} by "
+                  f"{float(vb[0] - vb[1]):.4e}, over {ta} by "
+                  f"{float(lb[tb] - lb[ta]):.4e}); logits max|diff| "
+                  f"{(la - lb).abs().max().item():.4e}; DAC levels that "
+                  f"differ in its row: {sum(flips)} of "
+                  f"{sum(a.numel() for a in lva)}, in "
+                  f"{sum(f > 0 for f in flips)} of {len(flips)} "
+                  f"projections, first at projection {first}; first 7 "
+                  f"{flips[:7]}")
+        return worst
+
+    def _engine_calls_vs_plain(self, label, eng, waves):
+        """Every kernel call of a served engine's steps held against its
+        plain version (_calls_vs_plain): for each list of requests in
+        `waves`, submit them, then step `eng` until it has run a decode
+        step.  The model steps are counted: K3 must run 183 calls a step,
+        K2 26 a chunk step and K1 26 a decode step, exactly.  Returns the
+        step counts."""
+        L = self.cfg.num_layers
+        steps = {"chunk_step": 0, "decode_step": 0}
+        expect = {}                     # filled once the steps are known
+
+        def run(cfg):
+            with self._counting_steps(steps):
+                for wave in waves:
+                    for r in wave:
+                        eng.submit(r)
+                    decoded = steps["decode_step"]
+                    while steps["decode_step"] == decoded:
+                        if not eng.scheduler.busy:
+                            raise RuntimeError(f"{label}: the engine went "
+                                               "idle before a decode step")
+                        eng.step()
+            expect.update(emt_matmul=(7 * L + 1) * sum(steps.values()),
+                          paged_prefill=L * steps["chunk_step"],
+                          paged_attention_decode=L * steps["decode_step"])
+
+        self._calls_vs_plain(self.cfg, label, expect, run)
+        print(f"  {label}: model steps checked {steps}")
+        self.check(steps["chunk_step"] > 0 and steps["decode_step"] > 0,
+                   f"{label}: steps {steps}")
+        return steps
+
+    def prefix_calls_vs_plain(self):
+        """The prefix path's kernel calls on tables whose rows share blocks:
+        the shared-prefix workload's request 1 (max_new 24) is served
+        until its prompt is in the cache; then its repeat (7 blocks hit,
+        the last copied with 15 rows) and a fork of it at token 72 (4
+        blocks hit, 8 rows copied) are admitted beside it.  Every kernel
+        call of the steps from that admission to a decode step (K2 over
+        shared and copied blocks beside a decode lane, K1 over the three
+        rows) is held to its plain version; the donor's prompt blocks are
+        unchanged across them."""
+        import dataclasses
+        from repro_torch.serve.engine import GenRequest
+        torch = self.torch
+        spec = self._serve_spec(block_size=BLOCK, prefill_chunk=CHUNK,
+                                batch_size=BATCH, seed=SEED,
+                                prefix_cache=True,
+                                num_blocks=PREFIX_ON_BLOCKS)
+        donor = dataclasses.replace(self._prefix_requests(spec)[1],
+                                    max_new=24)
+        fork = donor.prompt.copy()
+        fork[72:] = (fork[72:] + 1) % self.cfg.vocab_size
+        eng = spec.build_engine(self.cfg, self.params,
+                                max_len=PREFIX_MAX_LEN, torch_device=self.dev)
+        copies, copy = [], eng._pool_copy
+
+        def traced(cache, src, dst):
+            copies.append((src, dst))
+            return copy(cache, src, dst)
+
+        eng._pool_copy = traced
+        rid = eng.submit(donor)
+        while eng.prefill_tokens_total < len(donor.prompt):
+            eng.step()
+        ids = torch.as_tensor(
+            eng.kv.table_g[eng.scheduler.slot_of(rid), :8].astype("int64"),
+            device=self.dev)
+        before = [pool[ids].clone() for blk in eng.cache.values()
+                  for pool in blk.values()]
+        self._engine_calls_vs_plain("prefix", eng, [[
+            GenRequest(prompt=donor.prompt.copy(), max_new=8, seed=8),
+            GenRequest(prompt=fork, max_new=8, seed=9)]])
+        rows = [eng.kv.table_g[i] for i, _ in eng.scheduler.active_slots()]
+        owners = {}
+        for row in rows:
+            for b in set(row[row >= 0].tolist()):
+                owners[b] = owners.get(b, 0) + 1
+        shared = sorted(b for b, n in owners.items() if n > 1)
+        after = [pool[ids] for blk in eng.cache.values()
+                 for pool in blk.values()]
+        same = all(torch.equal(a, b) for a, b in zip(before, after))
+        print(f"  prefix: {len(rows)} rows in flight sharing blocks "
+              f"{shared}; copy-on-write (src, dst) {copies}; cached "
+              f"prompt tokens {eng.cached_prefix_tokens}; the donor's "
+              f"prompt blocks unchanged: {same}")
+        self.check(len(rows) == 3 and len(shared) == 7 and len(copies) == 2
+                   and eng.cached_prefix_tokens == 127 + 72 and same,
+                   f"prefix: rows {len(rows)}, shared {shared}, copies "
+                   f"{copies}, cached {eng.cached_prefix_tokens}, donor "
+                   f"unchanged {same}")
+
+    def poisson_calls_vs_plain(self):
+        """The Poisson path's kernel calls at its block size (8) and view
+        buckets: three of the cell's requests are admitted and served to a
+        decode step, then two more (chunk steps beside decode lanes) to
+        the next decode step; every kernel call held to its plain
+        version."""
+        spec, _, reqs, max_len = self._poisson_cell()
+        eng = spec.build_engine(self.cfg, self.params, max_len=max_len,
+                                torch_device=self.dev)
+        self._engine_calls_vs_plain("Poisson", eng, [reqs[:3], reqs[3:5]])
+
     def _level_flips(self, path, label, la, lb, steps):
         """Count the DAC levels that differ between two runs of `steps`
         (as a step function returned them: (step, logits, projections)),
@@ -1719,6 +2345,20 @@ class Smoke:
                   f"differ: first 7 projections' inputs {flips[:7]}; all "
                   f"projections {sum(flips)} of {total}; "
                   f"first at projection {first}")
+
+
+def _cancel_after_first_token(handle, timeout: float = 600.0):
+    """Cancel `handle` from a client thread once its first token arrived
+    (a client hanging up after the first token); returns the thread."""
+    import threading
+
+    def run():
+        if handle.next_token(timeout=timeout) is not None:
+            handle.cancel()
+
+    t = threading.Thread(target=run, name="cancel-after-first", daemon=True)
+    t.start()
+    return t
 
 
 def _flat(tree, prefix=""):
@@ -1757,7 +2397,11 @@ def main() -> int:
               ("logits vs plain, analog", s.logits_vs_plain),
               ("logits vs plain, mixed", s.mixed_logits_vs_plain),
               ("logits vs plain, seamless", s.s2s_logits_vs_plain),
-              ("logits vs plain, ring", s.ring_logits_vs_plain)]
+              ("logits vs plain, ring", s.ring_logits_vs_plain),
+              ("engine, prefix cache", s.engine_prefix),
+              ("server, Poisson stream", s.server_stream),
+              ("kernel calls vs plain, prefix", s.prefix_calls_vs_plain),
+              ("kernel calls vs plain, Poisson", s.poisson_calls_vs_plain)]
     for name, fn in phases:
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
@@ -1779,6 +2423,8 @@ def main() -> int:
     print("engine, seamless: " + json.dumps(s.s2s_summary))
     for label, summary in s.ring_summaries.items():
         print(f"engine, {label}: " + json.dumps(summary))
+    print("engine, prefix cache: " + json.dumps(s.prefix_summary))
+    print("server, Poisson stream: " + json.dumps(s.poisson_summary))
     print(s.smi)
     print(json.dumps({"kernels": [s.records[n] for n in
                                   ("paged_attention_decode", "paged_prefill",

@@ -43,6 +43,23 @@ def attention_specs(cfg: ModelConfig, tag: str = "") -> dict:
     return specs
 
 
+def paged_attn_plan(cfg: ModelConfig):
+    """Per-layer paged decode-attention path: (layer path, resolution)
+    rows, as the launcher prints them.  The fused kernels dispatch on the
+    tensors' device (the CUDA kernel on the card, its plain version on the
+    CPU); ``fused_paged_attn=False`` takes the plain gather path."""
+    if not cfg.fused_paged_attn:
+        res = "gather fallback (fused_paged_attn=False)"
+    else:
+        res = "fused paged kernel [cuda on the card, plain on the cpu]"
+    rows = []
+    for i, kind in enumerate(cfg.blocks()):
+        rows.append((f"dec/layer_{i:03d}/attn ({kind})", res))
+        if cfg.is_encdec:
+            rows.append((f"dec/layer_{i:03d}/xattn (cross)", res))
+    return rows
+
+
 def _project_qkv(params, x, cfg: ModelConfig, ctx: Ctx, tag: str):
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     aux = new_aux()

@@ -26,6 +26,23 @@ kernel per layer in an enc-dec stack), each step's global view clamped to
 the block-rounded power-of-two bucket of the furthest live position
 (:func:`view_bucket`).  A retiring slot's region or blocks are zeroed.
 
+Prefix caching (``prefix_cache=True``; paged, chunked, all-global): full
+prompt blocks are keyed by a rolling hash of the token prefix and
+refcounted in the block pool (:mod:`repro_torch.serve.kv_pool`).  A prompt
+that starts with a resident registered chain shares those blocks instead of
+prefilling them again, so the hit bills no energy or K/V reads; a prompt
+that diverges inside a registered block copies the donor block
+(:func:`make_pool_copy`) and resumes prefill at the divergence.  Blocks
+that decode fills register too, so a continuation (prompt ++ generated)
+hits them.  Registered blocks whose refcount drops to zero park with their
+content and are zeroed only when evicted for reuse.
+
+Streaming and control: ``on_token(rid, token)`` fires the moment a token is
+sampled (the streaming front end, :mod:`repro_torch.serve.server`), and a
+``controller`` (:mod:`repro_torch.serve.control`) gates admission on a
+rolling energy budget and sheds requests past their own
+``energy_budget_uj``.
+
 Energy: a step's ``energy_pj`` is split e / batch_size per row; idle rows'
 share accrues to ``idle_energy_pj``, so per-request energy plus idle waste
 equals the engine total.  ``corner_energy_pj`` books the same energy per
@@ -36,7 +53,7 @@ engine seed and generation is a pure function of the request.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -44,14 +61,14 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import lm
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN_KINDS, ModelConfig
 from repro_torch.models.context import Ctx
 from repro_torch.serve import sampling
 from repro_torch.serve.kv_pool import PagedKV
 from repro_torch.serve.scheduler import RejectedError, Scheduler, Slot
 
 __all__ = ["ServingEngine", "GenRequest", "GenResult", "RejectedError",
-           "paged_insert", "prefill_bucket", "view_bucket"]
+           "make_pool_copy", "paged_insert", "prefill_bucket", "view_bucket"]
 
 
 def view_bucket(need: int, block_size: int, max_len: int) -> int:
@@ -94,6 +111,24 @@ def paged_insert(cache, small, row_g, row_l=None,
             pool[rows[ok].to(pool.device)] = x[ok.to(x.device)]
 
 
+def make_pool_copy(cfg: ModelConfig):
+    """Copy one global-pool block row src -> dst across every attention
+    layer's pools, in place: the device half of the prefix cache's
+    copy-on-write (the donor's leading rows are the prompt's K/V verbatim;
+    the diverging tail is overwritten by the resumed prefill and never
+    visible to a mask before that)."""
+    names = [f"layer_{i:03d}" for i, kind in enumerate(cfg.blocks())
+             if kind in ATTN_KINDS]
+
+    def copy(cache, src: int, dst: int):
+        for name in names:
+            for pool in cache[name].values():
+                pool[dst] = pool[src]
+        return cache
+
+    return copy
+
+
 @dataclasses.dataclass
 class GenRequest:
     prompt: np.ndarray               # (S,) int32
@@ -103,6 +138,9 @@ class GenRequest:
     top_p: float = 1.0               # >= 1 = disabled
     seed: int = 0                    # sampling seed
     eos_id: Optional[int] = None
+    # per-request energy SLA: past it the controller sheds the request
+    # (done_reason "energy_budget"); None = no budget
+    energy_budget_uj: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -112,12 +150,16 @@ class GenResult:
     energy_pj: float
     prefill_energy_pj: float
     steps: int
-    done_reason: str                 # eos | max_new | max_len | cancelled
+    # eos | max_new | max_len, or from cancel(): cancelled | timeout |
+    # energy_budget (the slot retired early with its partial tokens)
+    done_reason: str
 
 
-def _later(what: str) -> NotImplementedError:
+def _later(what: str, item: str) -> NotImplementedError:
+    """The error of a feature the port has not reached yet; `item` names
+    its ROADMAP Queue 1 item."""
     return NotImplementedError(f"{what} is ported with a later slice of the "
-                               f"port (ROADMAP Queue 1, serving core)")
+                               f"port (ROADMAP Queue 1 {item})")
 
 
 class ServingEngine:
@@ -140,7 +182,8 @@ class ServingEngine:
                  chunked_prefill: Optional[bool] = None,
                  prefill_chunk: int = 16, prefix_cache: bool = False,
                  n_shards: int = 1, max_pending: Optional[int] = None,
-                 device="cuda"):
+                 on_token: Optional[Callable[[int, int], None]] = None,
+                 controller=None, device="cuda"):
         if placement is not None:
             # a device placement (EMTConfig or DevicePlacement) overrides the
             # config's EMT surface for this engine; params must have been
@@ -154,10 +197,9 @@ class ServingEngine:
         if self.chunked and not can_chunk:
             raise ValueError("chunked_prefill requires a decoder-only "
                              "attention stack")
-        if prefix_cache:
-            raise _later("the prefix cache")
         if n_shards != 1:
-            raise _later("sharded serving (n_shards > 1)")
+            raise _later("sharded serving (n_shards > 1)",
+                         "item 11, multi-device serving")
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk {prefill_chunk} < 1")
         self.device = resolve_device(device)
@@ -193,11 +235,29 @@ class ServingEngine:
                                        device=self.device)
         self.scheduler = Scheduler(batch_size, self.kv,
                                    max_pending=max_pending)
+        # refcounted prefix caching shares prompt blocks across requests:
+        # paged and chunked only, and ring K/V (positional) cannot be shared
+        self.prefix_cache = bool(prefix_cache)
+        if self.prefix_cache:
+            if not (self.paged and self.chunked):
+                raise ValueError("prefix_cache requires paged=True and "
+                                 "chunked prefill")
+            if self.page_lens["ring"]:
+                raise ValueError("prefix_cache requires an all-global "
+                                 "attention stack (sliding-window ring K/V "
+                                 "is positional and cannot be shared)")
+            self._pool_copy = make_pool_copy(cfg)
+        # on_token(rid, token) fires as each token is sampled, inside step();
+        # it must be cheap and must not touch the engine
+        self.on_token = on_token
+        # the energy control plane (serve/control.py), or None
+        self.controller = controller
         self.total_energy_pj = 0.0
         self.idle_energy_pj = 0.0
         self.corner_energy_pj = {}
         self.kv_reads_total = 0.0
         self.prefill_tokens_total = 0
+        self.cached_prefix_tokens = 0    # prompt positions the cache served
         self._steps = 0              # global step counter (noise clock)
         self.peak_concurrent = 0
         self._tables_dev = None      # (view_len, tables) on device; None=stale
@@ -229,6 +289,9 @@ class ServingEngine:
             raise ValueError(f"top_p must be >= 0, got {req.top_p}")
         if req.top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {req.top_k}")
+        if req.energy_budget_uj is not None and not req.energy_budget_uj > 0:
+            raise ValueError(f"energy_budget_uj must be > 0, "
+                             f"got {req.energy_budget_uj}")
         if self.paged and not self.kv.fits(S, req.max_new):
             raise ValueError(f"request needs more KV blocks than the pool "
                              f"holds ({self.kv.pool_g.num_blocks} x "
@@ -241,7 +304,9 @@ class ServingEngine:
 
     def step(self) -> List[GenResult]:
         """Admit queued requests, then advance every active slot one step:
-        a mixed chunk step while any slot is prefilling, else pure decode."""
+        a mixed chunk step while any slot is prefilling, else pure decode.
+        Then the controller, if any, sheds requests past their energy
+        budget."""
         finished = self._admit_pending()
         active = self.scheduler.active_slots()
         if active:
@@ -249,16 +314,24 @@ class ServingEngine:
                 finished += self._chunk_advance(active)
             else:
                 finished += self._decode_advance(active)
+        if self.controller is not None:
+            for rid in self.controller.over_budget(self):
+                res = self.cancel(rid, reason="energy_budget")
+                if res is not None:
+                    finished.append(res)
         return finished
 
     def _admit_pending(self) -> List[GenResult]:
         """FIFO admission into free slots, stopping at the first request the
-        block budget cannot take."""
+        block budget or the controller's energy bucket cannot take."""
         finished = []
         while self.scheduler.pending:
             rid, req = self.scheduler.peek_pending()
             if not self.scheduler.can_admit(
                     self._bucket_len(len(req.prompt)), req.max_new):
+                break
+            if (self.controller is not None
+                    and not self.controller.may_admit(self)):
                 break
             self.scheduler.pop_pending()
             sid = self.scheduler.free_slot()
@@ -275,11 +348,21 @@ class ServingEngine:
         energy and sample the first token."""
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         if self.chunked:
-            if self.paged and not self.kv.admit(sid, len(prompt),
-                                                req.max_new):
+            pos = 0
+            if self.prefix_cache:
+                res = self.kv.admit_prefix(sid, prompt, req.max_new)
+                if res is None:
+                    raise RuntimeError("admission raced the block budget")
+                self._zero_evicted()        # before the copy may land there
+                if res["cow"] is not None:
+                    self._pool_copy(self.cache, *res["cow"])
+                pos = res["cached_len"]
+                self.cached_prefix_tokens += pos
+            elif self.paged and not self.kv.admit(sid, len(prompt),
+                                                  req.max_new):
                 raise RuntimeError("admission raced the block budget")
             self._tables_dev = None
-            self.scheduler.place(sid, Slot(rid=rid, req=req, pos=0,
+            self.scheduler.place(sid, Slot(rid=rid, req=req, pos=pos,
                                            last_token=0, prompt=prompt))
             return
         cfg = self.cfg
@@ -315,6 +398,7 @@ class ServingEngine:
             rid=rid, req=req, pos=S, last_token=tok0, generated=[tok0],
             prefill_energy_pj=prefill_e,
             enc_len=S if cfg.is_encdec else 0))
+        self._emit(rid, tok0)
 
     def _sampling_args(self, active):
         B = self.batch_size
@@ -368,6 +452,7 @@ class ServingEngine:
             s.steps += 1
             s.pos += 1
             self._take_token(s, int(next_tok[i]))
+            self._register_decode_blocks(i, s)
             done = self._maybe_retire(i)
             if done is not None:
                 finished.append(done)
@@ -409,6 +494,9 @@ class ServingEngine:
                 s.prefill_energy_pj += share
                 s.pos += int(ntok[i])
                 self.prefill_tokens_total += int(ntok[i])
+                if self.prefix_cache:
+                    # full prompt blocks just written become shareable
+                    self.kv.register_filled(i, s.pos)
                 if not s.prefilling:        # final chunk: first sampled token
                     self._take_token(s, int(next_tok[i]))
             else:
@@ -416,6 +504,7 @@ class ServingEngine:
                 s.steps += 1
                 s.pos += 1
                 self._take_token(s, int(next_tok[i]))
+                self._register_decode_blocks(i, s)
             done = self._maybe_retire(i)
             if done is not None:
                 finished.append(done)
@@ -424,12 +513,44 @@ class ServingEngine:
     def _take_token(self, s: Slot, t: int) -> None:
         s.last_token = t
         s.generated.append(t)
+        self._emit(s.rid, t)
+
+    def _emit(self, rid: int, token: int) -> None:
+        if self.on_token is not None:
+            self.on_token(rid, token)
+
+    def _register_decode_blocks(self, slot_id: int, s: Slot) -> None:
+        """When a decode step fills a block, extend the slot's hash chain
+        over its written stream (prompt ++ generated) and register the
+        block, so an identical continuation admits against it."""
+        if not self.prefix_cache or s.pos % self.block_size:
+            return
+        # written positions are [0, pos): the prompt, then every generated
+        # token but the newest (sampled this step, written next step)
+        stream = np.concatenate(
+            [s.prompt, np.asarray(s.generated[:-1], np.int32)])
+        self.kv.register_filled(slot_id, s.pos, stream=stream)
+
+    def _zero_evicted(self) -> None:
+        """Zero the blocks the prefix cache evicted for reuse: their stale
+        K/V must never be visible to the new owner (K1 and K4 assume masked
+        pool entries are finite, and zeros are what a blank block holds)."""
+        if not self.prefix_cache:
+            return
+        (evicted,) = self.kv.pop_evicted_g()
+        if not evicted:
+            return
+        ids = self._dev(np.asarray(evicted, np.int64))
+        for blk in self.cache.values():
+            for pool in blk.values():
+                pool[ids] = 0.0
 
     def _paged_tables(self, need: int) -> dict:
         """The step's ``page_tables`` and ``page_lens``: the global table
         clamped to the view bucket covering `need` positions and the ring
         table (window-sized, never clamped), on device (re-uploaded only
-        when they changed)."""
+        when they changed).  Prefix-cache evictions are zeroed first."""
+        self._zero_evicted()
         vlen = view_bucket(need, self.block_size, self.max_len)
         if self._tables_dev is None or self._tables_dev[0] != vlen:
             width = -(-vlen // self.block_size)
@@ -460,7 +581,9 @@ class ServingEngine:
 
     def cancel(self, rid: int, reason: str = "cancelled") -> Optional[GenResult]:
         """Cancel `rid` wherever it is: still queued (empty result) or bound
-        to a slot (retired now with its partial tokens and energy)."""
+        to a slot (retired now with its partial tokens and energy; shared
+        prefix blocks only lose a reference).  `reason` becomes the
+        ``done_reason``; None when `rid` is unknown or already finished."""
         if self.scheduler.remove_pending(rid) is not None:
             return GenResult(rid=rid, tokens=np.zeros(0, np.int32),
                              energy_pj=0.0, prefill_energy_pj=0.0, steps=0,
@@ -503,6 +626,7 @@ class ServingEngine:
         self.corner_energy_pj = {}
         self.kv_reads_total = 0.0
         self.prefill_tokens_total = 0
+        self.cached_prefix_tokens = 0
         self._steps = 0
         self.peak_concurrent = 0
 
@@ -516,6 +640,7 @@ class ServingEngine:
             "peak_concurrent": int(self.peak_concurrent),
             "kv_reads_total": float(self.kv_reads_total),
             "prefill_tokens_total": int(self.prefill_tokens_total),
+            "cached_prefix_tokens": int(self.cached_prefix_tokens),
         }
 
     def energy_conserved(self, results, rtol: float = 1e-6) -> bool:
@@ -570,9 +695,10 @@ class ServingEngine:
                 t[slot] = F.pad(v, (0, 0, 0, 0, 0, t.shape[1] - v.shape[0]))
 
     def _retire(self, slot_id: int, reason: str) -> GenResult:
-        """Release the slot; its cache region or blocks (global and ring)
-        are zeroed before any reuse so a later request can never read its
-        K/V."""
+        """Release the slot; its cache region, or the blocks that became
+        blank (global and ring), are zeroed before any reuse so a later
+        request can never read its K/V.  Shared and prefix-cached blocks
+        keep their content."""
         slot = self.scheduler.retire(slot_id)
         if self.paged:
             freed_g, freed_l = self.kv.release(slot_id)

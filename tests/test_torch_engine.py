@@ -189,23 +189,30 @@ def test_validation_and_backpressure(small_port):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(paged=False, prefix_cache=True), "prefix cache"),
-    (dict(chunked_prefill=True, arch="seamless-m4t-medium"),
-     "chunked_prefill"),
-    (dict(prefix_cache=True), "prefix cache"),
-    (dict(n_shards=2), "sharded"),
+    pytest.param(dict(paged=False, prefix_cache=True),
+                 "requires paged=True and chunked prefill",
+                 id="kw0-prefix cache"),
+    pytest.param(dict(chunked_prefill=True, arch="seamless-m4t-medium"),
+                 "chunked_prefill", id="kw1-chunked_prefill"),
+    pytest.param(dict(prefix_cache=True, arch="gemma3-1b"),
+                 "requires an all-global attention stack",
+                 id="kw2-prefix cache"),
+    pytest.param(dict(n_shards=2), "sharded", id="kw3-sharded"),
 ])
 def test_unported_engine_modes_raise(small_port, kw, match):
-    """Modes not ported yet raise NotImplementedError; chunked prefill on
-    an encoder-decoder stack raises ValueError, as in JAX."""
+    """Sharded serving is not ported yet (NotImplementedError); JAX's
+    ValueErrors refuse the prefix cache on a contiguous cache and on a
+    ring stack (gemma3-1b smoke as published), and chunked prefill on an
+    encoder-decoder stack."""
     kw = dict(kw)
     arch = kw.pop("arch", None)
     cfg, params = small_port
     exc = NotImplementedError
+    if arch is not None or "prefix_cache" in kw:
+        exc = ValueError
     if arch is not None:
         cfg = build_config(arch, smoke=True)
         params = tlm.init_model_params(cfg, 0, device="cpu")
-        exc = ValueError
     args = dict(ENGINE, **kw)
     with pytest.raises(exc, match=match):
         TEng(cfg, params, device="cpu", **args)
