@@ -81,7 +81,25 @@ Phases (any failure exits non-zero and prints no result line):
    difference's logit margins and DAC level flips printed; then each new
    path's kernel calls against their plain versions: the prefix path's on
    tables whose rows share blocks and over copied blocks, the Poisson
-   path's at block 8.
+   path's at block 8;
+8. training (float32): K3's backward kernels K3-dx and K3-dw at
+   gemma3-1b's training shapes (M = 8 x 128; the tied unembed's table.T)
+   and the CNN's K = 27 and 576, against float64 plain versions, dw bit
+   for bit against the plain pass, two calls bit-identical, timed beside
+   K3's forward, torch.matmul yardsticks and bounds; then
+   ``launch.train``'s path at full width (gemma3-1b as published, analog,
+   AdamW, lam 1e-6, batch 8 x 128): a gradient step (finite nonzero
+   gradients on every w and rho_raw; K3, K3-dx, K3-dw 183 launches each),
+   three steps through ``train_loop`` with exact launch counts, the step-2
+   checkpoint (JAX's format) restored bit for bit, the third step
+   profiled (device busy, peak memory), and a fresh loop resuming from
+   step 2 whose third step equals the uninterrupted one bit for bit; the
+   loss and every gradient of a full-width step, kernels against plain
+   versions at a 24-bit DAC (TRAIN_PLAIN_TOL); vgg16_cifar (batch 32,
+   SyntheticImages) under A+B (K3, K3-dx, K3-dw) and A+B+C (K5, the
+   ideal-matmul VJP): gradients against the plain versions
+   (CNN_PLAIN_TOL, ReLU gate flips counted), three steps with exact
+   launch counts, finite losses and every rho moved by technique B.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Every "ms" is the kernel's time in one
@@ -89,7 +107,8 @@ main-path step: K1 = the 26 decode-attention launches of a gemma3 decode
 step, K2 = the 26 prefill launches of a chunk step, K3 = the 183 noisy
 matmuls of an analog decode step, K4 = the 12 cross-attention launches of
 a seamless decode step, K5 = the 78 bit-serial MLP matmuls of a mixed
-decode step; K3's and K5's records also carry ``chunk_ms``,
+decode step, K3-dx and K3-dw (``emt_matmul_dx``, ``emt_matmul_dw``) = the
+183 calls each of a gemma3-1b training step at M = 1,024; K3's and K5's records also carry ``chunk_ms``,
 ``chunk_bound_ms`` and ``chunk_library_ms``, the same matmuls and their
 yardstick at M = 64, and K1's, K4's and K5's
 ``device_ms`` (K5's also ``chunk_device_ms``), the kernels' device time in
@@ -99,7 +118,10 @@ K1-K3 in the analog run, K4 in the seamless run and K5 in the mixed run;
 K1-K3 also carry ``ring_paged_launches`` and ``ring_contiguous_launches``,
 their counts in the two ring runs, and ``prefix_launches`` and
 ``poisson_launches``, their counts in the prefix cache's cache-on run and
-in the Poisson stream.
+in the Poisson stream; K3's ``train_launches``, ``train_ms``,
+``train_bound_ms`` and ``train_library_ms`` are its forward's in the
+training run; K3-dx's and K3-dw's "launches" count the training run's
+three uninterrupted steps and ``cnn_launches`` the two CNN runs'.
 Bounds are the largest of the bytes over the H100 SXM's published 3.35
 TB/s, the FP32 pipe's operations (FLOPs, and for the noisy matmuls the
 hash's integer multiplies and the noise factor's FMULs as two each) over
@@ -112,6 +134,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -170,6 +193,27 @@ POISSON_LOGIT_TOL = 0.5
 # 10, which came out differently in the stream and in engine.serve in
 # earlier runs on the H100
 POISSON_PROBE = (2, 10)
+# training: gemma3-1b at full width through launch.train's path (AdamW, lam
+# 1e-6, 3 steps, batch 8 x 128 tokens) and the paper's vgg16_cifar (batch
+# 32 of 32 x 32 images, 10 classes) under regimes A+B and A+B+C
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 3
+CNN_BATCH, CNN_STEPS, CNN_LR, CNN_LAM = 32, 3, 5e-3, 3e-8
+TRAIN_KERNELS = ("emt_matmul", "emt_matmul_dx", "emt_matmul_dw",
+                 "emt_bitserial")
+# K3-dx and K3-dw against their float64 plain versions: dx sums up to
+# 262,144 float32 products in one thread's sequence (the tied unembed),
+# ~eps * sqrt(N) = 3e-5 of the result
+K3_BWD_TOL = 1e-4
+# a full-width training step's loss and gradients, kernels against the
+# plain versions on the card at a 24-bit DAC: float32 order differences of
+# the kernels' sums carried through 26 layers' backward
+TRAIN_PLAIN_TOL = 1e-3
+# the same for vgg16_cifar: its ReLUs are not continuous in their
+# gradient, so a pre-activation within the two runs' float32 difference of
+# 0 opens its gate in one run and not in the other, and moves the
+# gradients below it by that position's whole term (1.2e-3 measured on
+# the H100 at the 24-bit DAC, the gates that differ counted and printed)
+CNN_PLAIN_TOL = 1e-2
 
 
 def bound(nbytes: float, flops: float, alu: float = 0.0, fma: float = 0.0):
@@ -1080,6 +1124,8 @@ class Smoke:
                 "paged_attention": k1.paged_attention,
                 "paged_prefill": k2.paged_prefill,
                 "emt_matmul": k3.emt_matmul,
+                "emt_matmul_dx": k3.emt_matmul_dx,
+                "emt_matmul_dw": k3.emt_matmul_dw,
                 "emt_bitserial": k5.emt_bitserial}
 
     @contextlib.contextmanager
@@ -2346,6 +2392,511 @@ class Smoke:
                   f"projections {sum(flips)} of {total}; "
                   f"first at projection {first}")
 
+    # -- phase 8: training ----------------------------------------------------
+    def k3_backward(self):
+        """K3-dx and K3-dw at gemma3-1b's training shapes (M = 8 x 128
+        tokens; the five distinct projection shapes and the tied unembed's
+        table.T) and at the CNN's odd K = 27 and K = 576 (M = 32 x 32 x 32):
+        held to their float64 plain versions, dw bit for bit to the float32
+        plain pass on the same x^T g, two calls bit-identical; K3's forward
+        at the same M beside them; times per gemma3 training step."""
+        from repro_torch.core import hashrng, quant, regularizer
+        from repro_torch.core.emt_linear import _tag_plane
+        from repro_torch.core.noise import noise_factor
+        from repro_torch.kernels import emt_matmul as k
+        torch = self.torch
+        emt = self.cfg.emt
+        dev = emt.device
+        L = self.cfg.num_layers
+        M = TRAIN_BATCH * TRAIN_SEQ
+        blk = self.params["decoder"]["layer_000"]
+        cases = []          # (label, w, rho_raw, tag, M, calls a step)
+        for grp, w, per in (("attn", "wq", 1), ("attn", "wk", 2),
+                            ("attn", "wo", 1), ("ffn", "wg", 2),
+                            ("ffn", "wd", 1)):
+            p = blk[grp][w]
+            tag = f"dec/layer_000/{'mlp' if grp == 'ffn' else grp}/{w}"
+            cases.append((w, p["w"], p["rho_raw"], tag, M, per * L))
+        cases.append(("unembed, table.T", self.params["embed"]["table"].T,
+                      self.params["lm_head"]["rho_raw"], "unembed", M, 1))
+        gen = torch.Generator(device=self.dev).manual_seed(6)
+        raw = torch.tensor(regularizer.rho_init_raw(4.0), device=self.dev)
+        for K, tag in ((27, "s0b0/c1"), (576, "s0b0/c2")):
+            w = torch.randn((K, 64), generator=gen, device=self.dev) / K ** .5
+            cases.append((f"CNN {tag}", w, raw, tag,
+                          CNN_BATCH * 32 * 32, 0))
+        keys_dx = ("emt_tiled", "split_sum")
+        keys_dw = ("gemm", "emt_dw_pass", "partial_sum")
+        tot = {}
+
+        def add(key, v, n):
+            """tot[key] += v * n; None (not measured) once any is None."""
+            if key in tot and tot[key] is None or v is None:
+                tot[key] = None
+            else:
+                tot[key] = tot.get(key, 0.0) + v * n
+
+        worst = {"dx": 0.0, "dw": 0.0}
+        for label, w, rho_raw, tag, Mc, per_step in cases:
+            wq, _ = quant.quantize_weights(w, emt.quant)
+            rho = regularizer.rho_from_raw(rho_raw)
+            sig = dev.sigma_rel(rho)
+            kw = dict(device=dev, seed=SEED, plane=_tag_plane(tag))
+            K, N = wq.shape
+            x = torch.randn((Mc, K), generator=gen, device=self.dev)
+            g = torch.randn((Mc, N), generator=gen, device=self.dev)
+            dx = k.emt_matmul_dx(g, wq, sig, **kw)
+            dw, dsig = k.emt_matmul_dw(x, g, wq, sig, **kw)
+            dw2, dsig2 = k.emt_matmul_dw(x, g, wq, sig, **kw)
+            same = (torch.equal(dx, k.emt_matmul_dx(g, wq, sig, **kw))
+                    and torch.equal(dw, dw2) and torch.equal(dsig, dsig2))
+            del dw2
+            pdw, _ = k.plain_dw(x, g, wq, sig, **kw)
+            exact = torch.equal(dw, pdw)
+            del pdw
+            dx64 = k.plain_dx(g.double(), wq, sig, **kw)
+            d_dx, r_dx = rel_err(dx.double(), dx64)
+            del dx64
+            dw64, dsig64 = k.plain_dw(x.double(), g.double(), wq, sig, **kw)
+            d_dw, r_dw = rel_err(dw.double(), dw64)
+            del dw64
+            terms = torch.sum(torch.abs(torch.matmul(x.T.double(), g.double())
+                                        * wq.double())).item()
+            r_sig = abs(dsig.item() - dsig64.item()) / max(terms, 1e-30)
+            self.sync()
+            worst["dx"] = max(worst["dx"], d_dx)
+            worst["dw"] = max(worst["dw"], d_dw)
+            layout = "transposed" if wq.stride(0) == 1 else "n-major"
+            p = k.plan_dx(Mc, K, N, self.sms)
+            print(f"  K3 backward {label} {K}x{N} ({layout}) at M={Mc}: dx "
+                  f"rel {r_dx:.3e} ({p.splits} N slab(s), {p.ctas} CTAs), "
+                  f"dw rel {r_dw:.3e}, dsigma {dsig.item():.6e} vs "
+                  f"{dsig64.item():.6e} (rel to sum|terms| {r_sig:.3e}); dw "
+                  f"bit-identical to the float32 plain pass: {exact}; two "
+                  f"calls bit-identical: {same}")
+            self.check(r_dx <= K3_BWD_TOL and r_dw <= K3_BWD_TOL
+                       and r_sig <= K3_BWD_TOL,
+                       f"K3 backward {label}: rel dx {r_dx:.3e}, dw "
+                       f"{r_dw:.3e}, dsigma {r_sig:.3e} > {K3_BWD_TOL}")
+            self.check(exact and same, f"K3 backward {label}: dw vs the "
+                       f"plain pass {exact}, two calls {same}")
+            # times: the kernels, their plain versions and the yardsticks
+            # (torch.matmul on the pre-noised weight; x^T g then the factor)
+            f = noise_factor(hashrng.tile_state_offsets(
+                SEED, 0, 0, (K, N), dev.state_offsets, dev.state_probs,
+                kw["plane"], device=self.dev), sig)
+            wn = wq * f
+            it = 3 if K * N < 50e6 else 2
+            t = dict(
+                fwd=cuda_time(lambda: k.emt_matmul(x, wq, sig, **kw), it),
+                fwd_lib=cuda_time(lambda: torch.matmul(x, wn), it),
+                dx=cuda_time(lambda: k.emt_matmul_dx(g, wq, sig, **kw), it),
+                dx_lib=cuda_time(lambda: torch.matmul(g, wn.T), it),
+                dw=cuda_time(lambda: k.emt_matmul_dw(x, g, wq, sig, **kw),
+                             it),
+                dw_lib=cuda_time(lambda: torch.matmul(x.T, g).mul_(f), it),
+                dx_plain=cuda_time(lambda: k.plain_dx(g, wq, sig, **kw), 1,
+                                   warmup=1),
+                dw_plain=cuda_time(lambda: k.plain_dw(x, g, wq, sig, **kw),
+                                   1, warmup=1))
+            del wn, f
+            t["dx_dev"] = device_ms(
+                lambda: k.emt_matmul_dx(g, wq, sig, **kw), keys_dx)
+            t["dw_dev"] = device_ms(
+                lambda: k.emt_matmul_dw(x, g, wq, sig, **kw), keys_dw)
+            t["pass_dev"] = device_ms(
+                lambda: k.emt_matmul_dw(x, g, wq, sig, **kw),
+                ("emt_dw_pass", "partial_sum"))
+            alu, fma = hash_ops("K3", K * N)
+            mkn = 2 * Mc * K * N
+            b = dict(
+                fwd=(4 * (Mc * K + K * N + Mc * N), mkn, alu, fma),
+                dx=(4 * (Mc * N + K * N + Mc * K), mkn, alu, fma),
+                dw=(4 * (Mc * K + Mc * N + 2 * K * N), mkn + 3 * K * N, alu,
+                    fma),
+                pass_=(4 * 3 * K * N, 3 * K * N, alu, fma))
+            bms = {n: bound(*v) for n, v in b.items()}
+            print(f"    per call: forward {t['fwd']:.3f} ms (torch.matmul "
+                  f"on the pre-noised weight {t['fwd_lib']:.3f}, bound "
+                  f"{bms['fwd'][0]:.3f} {bms['fwd'][2]}); dx {t['dx']:.3f} "
+                  f"ms, device {fmt(t['dx_dev'])} (yardstick "
+                  f"{t['dx_lib']:.3f}, plain {t['dx_plain']:.3f}, bound "
+                  f"{bms['dx'][0]:.3f} {bms['dx'][2]}); dw {t['dw']:.3f} ms, "
+                  f"device {fmt(t['dw_dev'])}, of which the pass "
+                  f"{fmt(t['pass_dev'])} (pass bound {bms['pass_'][0]:.4f} "
+                  f"{bms['pass_'][2]}; yardstick {t['dw_lib']:.3f}, plain "
+                  f"{t['dw_plain']:.3f}, bound {bms['dw'][0]:.3f} "
+                  f"{bms['dw'][2]})")
+            if per_step:
+                for n, v in t.items():
+                    add(n, v, per_step)
+                for n, v in b.items():
+                    for i, part in enumerate(v):
+                        add(f"{n}_b{i}", part, per_step)
+            del x, g, dx, dw
+        bnd = {n: bound(*(tot[f"{n}_b{i}"] for i in range(4)))
+               for n in ("fwd", "dx", "dw", "pass_")}
+        print(f"  per gemma3-1b training step ({7 * L + 1} calls each, "
+              f"M={M}): forward {tot['fwd']:.2f} ms (yardstick "
+              f"{tot['fwd_lib']:.2f}, bound {bnd['fwd'][0]:.2f} "
+              f"{bnd['fwd'][2]}); dx {tot['dx']:.2f} ms, device "
+              f"{fmt(tot['dx_dev'], 2)} (yardstick {tot['dx_lib']:.2f}, bound "
+              f"{bnd['dx'][0]:.2f} {bnd['dx'][2]}); dw {tot['dw']:.2f} ms, "
+              f"device {fmt(tot['dw_dev'], 2)}, the pass "
+              f"{fmt(tot['pass_dev'], 2)} "
+              f"(pass bound {bnd['pass_'][0]:.2f} {bnd['pass_'][2]}; "
+              f"yardstick {tot['dw_lib']:.2f}, bound {bnd['dw'][0]:.2f} "
+              f"{bnd['dw'][2]})")
+        src = "src/repro_torch/kernels/csrc/emt_matmul_bwd.cu"
+        replaces = ("src/repro/kernels/emt_matmul.py:57 (no TPU backward "
+                    "kernel: XLA's VJP of src/repro/core/noise.py:102)")
+        for name, key in (("emt_matmul_dx", "dx"), ("emt_matmul_dw", "dw")):
+            self.records[name] = dict(
+                name=name, route="cuda", source=src, replaces=replaces,
+                launches=None, max_abs_err=worst[key], ms=tot[key],
+                device_ms=tot[f"{key}_dev"], plain_ms=tot[f"{key}_plain"],
+                bound_ms=bnd[key][0], bound_by=bnd[key][1],
+                library_ms=tot[f"{key}_lib"])
+        self.records["emt_matmul_dw"].update(
+            pass_device_ms=tot["pass_dev"], pass_bound_ms=bnd["pass_"][0])
+        self.records.setdefault("emt_matmul", {}).update(
+            train_ms=tot["fwd"], train_bound_ms=bnd["fwd"][0],
+            train_library_ms=tot["fwd_lib"])
+
+    def _free_serving(self):
+        """Drop the serving phases' weights before the training phases."""
+        for name in ("params", "s2s_params"):
+            self.__dict__.pop(name, None)
+        self.torch.cuda.empty_cache()
+        print(f"  device memory in use: "
+              f"{self.torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def _counted(self, train_step, per_step: list):
+        """train_step with every launch count reset before and read after
+        each call (appended to per_step)."""
+        counters = self._counters()
+
+        def step(state, batch):
+            for c in counters.values():
+                c.launches = 0
+            out = train_step(state, batch)
+            self.sync()
+            per_step.append({n: counters[n].launches for n in TRAIN_KERNELS})
+            return out
+        return step
+
+    def _check_counts(self, label, per_step, want):
+        for i, got in enumerate(per_step):
+            self.check(got == want, f"{label} step {i}: launches {got}, "
+                                    f"want {want}")
+
+    def _grad_report(self, label, grads, leaves):
+        """Every leaf of `leaves` (path suffixes) finite with a nonzero
+        gradient."""
+        bad = [p for p, gr in _flat(grads)
+               if p.endswith(leaves) and not (
+                   bool(self.torch.isfinite(gr).all())
+                   and gr.abs().max().item() > 0)]
+        n = sum(1 for p, _ in _flat(grads) if p.endswith(leaves))
+        print(f"  {label}: {n} gradient leaves ({', '.join(leaves)}) finite "
+              f"and nonzero: {n - len(bad)} of {n}")
+        self.check(not bad, f"{label}: zero or non-finite gradients {bad[:5]}")
+
+    def train_gemma3(self):
+        """launch.train's path at full width: gemma3-1b as published (22
+        ring layers, window 512, 4 global), analog, float32, AdamW, lam
+        1e-6, batch 8 x 128.  A gradient step at step 0: finite nonzero
+        gradients on every w and rho_raw and exact launch counts (K3,
+        K3-dx, K3-dw 183 each); two steps through train_loop (checkpoint at
+        step 2), the step-2 checkpoint restored bit for bit, the third step
+        profiled; then a fresh train_loop resumes from step 2 and its third
+        step must equal the uninterrupted one bit for bit."""
+        import dataclasses
+        import shutil
+        from repro_torch.ckpt.checkpoint import CheckpointManager
+        from repro_torch.launch import train as launch
+        from repro_torch.train.loop import train_loop
+        from repro_torch.train.step import make_grad_fn
+        from torch.profiler import DeviceType, ProfilerActivity, profile
+        torch = self.torch
+        self._free_serving()
+        ckpt = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        argv = ["--arch", ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--lam", "1e-6",
+                "--opt", "adamw", "--ckpt-dir", ckpt, "--ckpt-every", "2"]
+        t0 = time.perf_counter()
+        run = launch.setup(argv, torch_device="cuda", seed=SEED)
+        self.sync()
+        L = run.cfg.num_layers
+        want = dict(emt_matmul=7 * L + 1, emt_matmul_dx=7 * L + 1,
+                    emt_matmul_dw=7 * L + 1, emt_bitserial=0)
+        n = sum(p.numel() for _, p in _flat(run.state["params"]))
+        state_gb = sum(t.numel() * t.element_size()
+                       for _, t in _flat(run.state)) / 1e9
+        print(f"  launch.train {' '.join(argv)}: {run.cfg.name}, "
+              f"{run.cfg.blocks().count('local')} ring + "
+              f"{run.cfg.blocks().count('global')} global layers, {n:,} "
+              f"parameters, train state {state_gb:.2f} GB (float32 weights "
+              f"and AdamW m, v), set up in {time.perf_counter() - t0:.2f} s")
+        # 1. gradients at step 0
+        counters = self._reset_launches()
+        loss, _, grads = make_grad_fn(run.cfg, run.tcfg.lam)(
+            run.state["params"], run.data.batch_at(0), 0)
+        self.sync()
+        got = {n: counters[n].launches for n in TRAIN_KERNELS}
+        print(f"  gradient step: loss {loss.item():.4f}, launches {got}")
+        self.check(got == want, f"train gradient step launches {got}")
+        self.check(bool(torch.isfinite(loss)), "train loss not finite")
+        self._grad_report("gemma3-1b step 0", grads,
+                          ("/w", "rho_raw", "embed/table"))
+        del grads
+        # 2. two steps through the loop; the checkpoint at step 2
+        per_step = []
+        counted = self._counted(run.train_step, per_step)
+        torch.cuda.reset_peak_memory_stats()
+        box = [run.state]
+        run.state = None
+        t0 = time.perf_counter()
+        state2, hist = train_loop(box.pop(), counted, run.data.batch_at,
+                                  dataclasses.replace(run.loop, total_steps=2,
+                                                      log_every=1))
+        loop_s = time.perf_counter() - t0
+        # 3. the checkpoint restores bit for bit
+        t0 = time.perf_counter()
+        restored, meta = CheckpointManager(ckpt).restore(2, state2)
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(_flat(restored), _flat(state2)))
+        ckpt_gb = os.path.getsize(os.path.join(
+            ckpt, "step_000000002", "state.npz")) / 1e9
+        print(f"  checkpoint step {meta['step']} ({ckpt_gb:.2f} GB, sha256 "
+              f"checked): restored in {restore_s:.1f} s, bit-identical: "
+              f"{same}")
+        self.check(same, "train checkpoint restore differs")
+        del restored
+        # 4. the third step, uninterrupted and profiled
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state3, m3 = counted(state2, run.data.batch_at(2))
+        wall = (time.perf_counter() - t0) * 1e3
+        del state2
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+        ev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        busy = sum(e.self_device_time_total for e in ev) / 1e3
+        ops = sum(e.count for e in prof.key_averages()
+                  if e.key.startswith("aten::"))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [h["loss"] for h in hist] + [float(m3["loss"])]
+        times = [h["step_time_s"] for h in hist]
+        norms = [round(h["grad_norm"], 4) for h in hist]
+        print(f"  steps 1-2 through train_loop: {loop_s:.1f} s with the "
+              f"async checkpoint, step times {times} s (synchronized); "
+              f"losses {losses}, grad norms {norms}")
+        print(f"  step 3 profiled: wall {wall:.1f} ms (profiler on), device "
+              f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%), {ops} aten "
+              f"ops; peak device memory {peak:.2f} GiB; top:")
+        for e in ev[:10]:
+            print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+                  f"{e.count:6d}x {e.key[:80]}")
+        self.check(all(math.isfinite(v) for v in losses),
+                   f"train losses {losses}")
+        self._check_counts("train", per_step, want)
+        self.train_summary = dict(
+            steps=len(per_step), losses=losses, step_time_s=times,
+            step3_busy_ms=busy, step3_wall_ms=wall, aten_ops=ops,
+            peak_gib=peak, state_gb=state_gb, ckpt_gb=ckpt_gb,
+            restore_s=restore_s)
+        for name in ("emt_matmul_dx", "emt_matmul_dw"):
+            self.records[name]["launches"] = sum(c[name] for c in per_step)
+        self.records.setdefault("emt_matmul", {})["train_launches"] = sum(
+            c["emt_matmul"] for c in per_step)
+        # 5. a fresh loop resumes from the step-2 checkpoint
+        shutil.rmtree(os.path.join(ckpt, "step_000000003"),
+                      ignore_errors=True)
+        logs, resumed_steps = [], []
+        t0 = time.perf_counter()
+        resumed, hist3 = train_loop(
+            state3, self._counted(run.train_step, resumed_steps),
+            run.data.batch_at, dataclasses.replace(run.loop, total_steps=3,
+                                                   log_every=1),
+            log=logs.append)
+        resume_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(_flat(resumed), _flat(state3)))
+        print(f"  resumed run: {logs[0]!r}, one step in {resume_s:.1f} s "
+              f"with the restore and the save; loss {hist3[-1]['loss']:.6f} "
+              f"vs {float(m3['loss']):.6f} uninterrupted; state "
+              f"bit-identical to the uninterrupted step 3: {same}")
+        self.check(logs and logs[0] == "[loop] resumed from step 2",
+                   f"resume: {logs[:1]}")
+        self.check(same and hist3[-1]["loss"] == float(m3["loss"]),
+                   "resumed step differs from the uninterrupted one")
+        self._check_counts("resumed", resumed_steps, want)
+        self.train_params = resumed["params"]
+        self.train_run = run
+        del resumed, state3
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    def _compare_grads(self, label, a, b, limit):
+        """Loss and every gradient leaf of two runs: each leaf's max |diff|
+        over its max |value|; the per-layer rho_raw scalars as one vector."""
+        torch = self.torch
+        (la, ga), (lb, gb) = a, b
+        fa, fb = dict(_flat(ga)), dict(_flat(gb))
+        r_loss = abs(la.item() - lb.item()) / abs(lb.item())
+        worst = []
+        rho = [p for p in fb if p.endswith("rho_raw")]
+        for p in fb:
+            if p in rho:
+                continue
+            d = (fa[p] - fb[p]).abs().max().item()
+            worst.append((d / max(fb[p].abs().max().item(), 1e-30), p))
+        if rho:
+            va = torch.stack([fa[p].reshape(()) for p in rho])
+            vb = torch.stack([fb[p].reshape(()) for p in rho])
+            d = (va - vb).abs().max().item()
+            worst.append((d / max(vb.abs().max().item(), 1e-30),
+                          f"rho_raw x{len(rho)}"))
+        worst.sort(reverse=True)
+        finite = all(bool(torch.isfinite(t).all()) for t in fa.values())
+        print(f"  {label}: loss {la.item():.6f} vs {lb.item():.6f} (rel "
+              f"{r_loss:.3e}); {len(worst)} gradient groups, worst rel "
+              f"{worst[0][0]:.3e} ({worst[0][1]}), then "
+              + ", ".join(f"{r:.2e} {p}" for r, p in worst[1:4])
+              + f"; finite {finite} (limit {limit:g})")
+        self.check(finite and r_loss <= limit and worst[0][0] <= limit,
+                   f"{label}: loss rel {r_loss:.3e}, worst gradient "
+                   f"{worst[0]}")
+
+    def train_vs_plain(self):
+        """One full-width gemma3-1b gradient step (the trained weights of
+        the phase before, step 3's batch and noise) through the kernels
+        (K3, K3-dx, K3-dw) and through their plain versions on the card
+        with the same VJP, at a 24-bit DAC (levels finer than float32's
+        rounding, so a level tie decides nothing): the loss and every
+        gradient leaf within TRAIN_PLAIN_TOL."""
+        from repro_torch.kernels import emt_matmul as k3
+        from repro_torch.train.step import make_grad_fn
+        run = self.train_run
+        cfg = run.cfg.replace(emt=_dac_bits(run.cfg.emt, 24))
+        grad_fn = make_grad_fn(cfg, run.tcfg.lam)
+        batch = run.data.batch_at(3)
+        loss, _, gk = grad_fn(self.train_params, batch, 3)
+        kern = (loss, gk)
+        with self._ops_through(_emt_matmul=k3.plain_differentiable):
+            loss, _, gp = grad_fn(self.train_params, batch, 3)
+        self._compare_grads("gemma3-1b, 24-bit DAC: kernels vs plain",
+                            kern, (loss, gp), TRAIN_PLAIN_TOL)
+        del kern, gk, gp, self.train_params, self.train_run
+        self.torch.cuda.empty_cache()
+
+    @contextlib.contextmanager
+    def _relu_gates(self, out: list):
+        """Append every F.relu's open gates (input > 0), in call order."""
+        import torch.nn.functional as F
+        orig = F.relu
+
+        def record(x, *args, **kw):
+            out.append(x.detach() > 0)
+            return orig(x, *args, **kw)
+
+        F.relu = record
+        try:
+            yield
+        finally:
+            F.relu = orig
+
+    def train_cnn(self):
+        """vgg16_cifar (channels 64/128/256, 2 blocks a stage, 32 x 32
+        images, 10 classes) on SyntheticImages, batch 32, AdamW at a
+        constant lr 5e-3, lam 3e-8 (the reference's paper_repro settings),
+        under A+B (analog reads through K3, K3-dx, K3-dw; trainable rho)
+        and A+B+C (bit-serial reads through K5 with the ideal-matmul VJP).
+        Gradients at step 0 held to the plain versions on the card at a
+        24-bit DAC (bit-serial read noise off there: a bit-serial read is
+        discontinuous in its level); then CNN_STEPS steps at the paper's
+        8-bit DAC with exact launch counts, finite losses, and every rho
+        moved by technique B."""
+        from repro_torch.configs import paper_cnn
+        from repro_torch.data.synthetic import SyntheticImages
+        from repro_torch.kernels import emt_bitserial as k5
+        from repro_torch.kernels import emt_matmul as k3
+        from repro_torch.train.optimizer import constant_schedule
+        from repro_torch.train.step import (TrainConfig, init_state,
+                                            make_grad_fn, make_train_step)
+        torch = self.torch
+        data = SyntheticImages(num_classes=10, image_size=32, device=self.dev)
+        self.cnn_summary = {}
+        for regime in ("A+B", "A+B+C"):
+            cfg = paper_cnn.vgg16_cifar(paper_cnn.regime(regime))
+            convs = 2 * len(cfg.channels) * cfg.blocks_per_stage
+            bitserial = regime == "A+B+C"
+            want = dict(emt_matmul=0 if bitserial else convs + 1,
+                        emt_matmul_dx=0 if bitserial else convs,
+                        emt_matmul_dw=0 if bitserial else convs + 1,
+                        emt_bitserial=convs + 1 if bitserial else 0)
+            tcfg = TrainConfig(lam=CNN_LAM, lr=CNN_LR)
+            train_step, opt = make_train_step(
+                cfg, tcfg, schedule=constant_schedule(CNN_LR))
+            state = init_state(cfg, opt, SEED, device=self.dev)
+            # gradients against the plain versions
+            check = cfg.replace(emt=_dac_bits(cfg.emt, 24, quiet=True))
+            grad_fn = make_grad_fn(check, CNN_LAM)
+            batch = data.batch(CNN_BATCH, 0)
+            gates_k, gates_p = [], []
+            with self._relu_gates(gates_k):
+                loss, _, gk = grad_fn(state["params"], batch, 0)
+            kern = (loss, gk)
+            with self._ops_through(
+                    _emt_matmul=k3.plain_differentiable,
+                    _emt_bitserial=k5.plain_differentiable), \
+                    self._relu_gates(gates_p):
+                loss, _, gp = grad_fn(state["params"], batch, 0)
+            flips = sum(int((a != b).sum()) for a, b in zip(gates_k, gates_p))
+            print(f"  vgg16_cifar {regime}: ReLU gates that differ between "
+                  f"the two runs: {flips} of "
+                  f"{sum(a.numel() for a in gates_k):,}")
+            self._compare_grads(f"vgg16_cifar {regime}, 24-bit DAC"
+                                + (", read noise off" if bitserial else "")
+                                + ": kernels vs plain", kern, (loss, gp),
+                                CNN_PLAIN_TOL)
+            del kern, gk, gp, gates_k, gates_p
+            rho0 = {p: t.detach().clone() for p, t in
+                    _flat(state["params"]) if p.endswith("rho_raw")}
+            per_step, losses = [], []
+            step = self._counted(train_step, per_step)
+            t0 = time.perf_counter()
+            for i in range(CNN_STEPS):
+                state, m = step(state, data.batch(CNN_BATCH, i))
+                losses.append(float(m["loss"]))
+            secs = time.perf_counter() - t0
+            params = dict(_flat(state["params"]))
+            moved = sum(not torch.equal(params[p], v) for p, v in rho0.items())
+            rho = [params[p].item() for p in rho0]
+            start = float(next(iter(rho0.values())))
+            print(f"  vgg16_cifar {regime}: {CNN_STEPS} steps in {secs:.2f} "
+                  f"s, losses {losses}, launches a step {per_step[0]}, "
+                  f"rho_raw moved in {moved} of {len(rho0)} layers (from "
+                  f"{start:.6f} to {min(rho):.6f}..{max(rho):.6f}); energy "
+                  f"{float(m['energy_uj']):.4f} uJ a batch, acc "
+                  f"{float(m['acc']):.3f}")
+            self.check(all(math.isfinite(v) for v in losses),
+                       f"CNN {regime} losses {losses}")
+            self.check(moved == len(rho0) and moved == convs + 1,
+                       f"CNN {regime}: rho moved in {moved} of {len(rho0)}")
+            self._check_counts(f"CNN {regime}", per_step, want)
+            self.cnn_summary[regime] = dict(losses=losses, seconds=secs,
+                                            launches=per_step[0])
+            for name in ("emt_matmul_dx", "emt_matmul_dw"):
+                rec = self.records.setdefault(name, {})
+                rec["cnn_launches"] = rec.get("cnn_launches", 0) + sum(
+                    c[name] for c in per_step)
+            del state
+
 
 def _cancel_after_first_token(handle, timeout: float = 600.0):
     """Cancel `handle` from a client thread once its first token arrived
@@ -2359,6 +2910,20 @@ def _cancel_after_first_token(handle, timeout: float = 600.0):
     t = threading.Thread(target=run, name="cancel-after-first", daemon=True)
     t.start()
     return t
+
+
+def _dac_bits(emt, bits: int, quiet: bool = False):
+    """`emt` (a config or a placement) with every corner's activation DAC
+    at `bits`; `quiet` also turns the bit-serial corners' read noise off."""
+    import dataclasses
+    from repro_torch.core.placement import map_corners
+
+    def corner(e):
+        e = e.replace(quant=dataclasses.replace(e.quant, a_bits=bits))
+        if quiet and e.mode == "bitserial":
+            e = e.replace(device=dataclasses.replace(e.device, amplitude=0.0))
+        return e
+    return map_corners(emt, corner)
 
 
 def _flat(tree, prefix=""):
@@ -2385,6 +2950,7 @@ def main() -> int:
               ("K1 paged_attention_decode", s.k1),
               ("K2 paged_prefill", s.k2), ("K4 paged_attention", s.k4),
               ("K5 emt_bitserial", s.k5),
+              ("K3 backward", s.k3_backward),
               ("engine, analog", s.engine),
               ("engine, mixed placement", s.engine_mixed),
               ("engine, seamless", s.engine_seamless),
@@ -2401,7 +2967,10 @@ def main() -> int:
               ("engine, prefix cache", s.engine_prefix),
               ("server, Poisson stream", s.server_stream),
               ("kernel calls vs plain, prefix", s.prefix_calls_vs_plain),
-              ("kernel calls vs plain, Poisson", s.poisson_calls_vs_plain)]
+              ("kernel calls vs plain, Poisson", s.poisson_calls_vs_plain),
+              ("train, gemma3-1b analog", s.train_gemma3),
+              ("train vs plain", s.train_vs_plain),
+              ("train, paper CNN", s.train_cnn)]
     for name, fn in phases:
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
@@ -2425,11 +2994,14 @@ def main() -> int:
         print(f"engine, {label}: " + json.dumps(summary))
     print("engine, prefix cache: " + json.dumps(s.prefix_summary))
     print("server, Poisson stream: " + json.dumps(s.poisson_summary))
+    print("train, gemma3-1b analog: " + json.dumps(s.train_summary))
+    print("train, paper CNN: " + json.dumps(s.cnn_summary))
     print(s.smi)
     print(json.dumps({"kernels": [s.records[n] for n in
                                   ("paged_attention_decode", "paged_prefill",
                                    "emt_matmul", "paged_attention",
-                                   "emt_bitserial")]}))
+                                   "emt_bitserial", "emt_matmul_dx",
+                                   "emt_matmul_dw")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """Run some phases of chip_smoke.py alone, from any checkout.
 
-Runs the smoke's device, build and model phases, then the named kernel
-phases (methods of chip_smoke.Smoke: k1, k2, k3, k4, k5), with the
-chip_smoke.py and src/ of the checkout at --root.  Two checkouts timed in
+Runs the smoke's device, build and model phases, then the named phases
+(methods of chip_smoke.Smoke: the kernels' k1, k2, k3, k4, k5 and
+k3_backward, or any other, e.g. train_gemma3 train_vs_plain train_cnn),
+with the chip_smoke.py and src/ of the checkout at --root.  Two checkouts timed in
 one process each, one after the other on one card, compare a kernel's
 versions: e.g. an unpacked `git archive` of the parent commit against this
 tree, in the order parent, change, change, parent.

@@ -1,5 +1,5 @@
 """Technique C: the low-fluctuation bit-serial decomposition (paper §4.3),
-port of :mod:`repro.core.decompose` (forward only).
+port of :mod:`repro.core.decompose`.
 
 An activation quantized to integer level ``q`` is fed to the crossbar one
 binary digit at a time (Eq. 14): ``x = sum_p delta_p 2^p``.  Each bit-plane
@@ -10,8 +10,10 @@ more than one bit is set (Eqs. 16-18), and energy ``rho sum_p delta_p``
 (Eqs. 19-20).
 
 :func:`bitserial_fwd` is the plain arithmetic of the bit-serial kernel
-(``kernels/emt_bitserial.py``); the ideal-matmul backward is ported with the
-training slice.
+(``kernels/emt_bitserial.py``).  Backward: the decomposition is a zero-mean
+perturbation of the ideal matmul, so it gets the ideal-matmul VJP
+(:func:`ideal_vjp`, JAX's ``_bwd``): the bit planes' ``sign``/``floor``
+have no derivative to take.
 """
 from __future__ import annotations
 
@@ -74,7 +76,42 @@ def bitserial_fwd(xq, w, sig, device: DeviceModel, bits: int, seed=0,
 def bitserial_matmul_ref(xq, w, rho, device: DeviceModel, bits: int, seed=0,
                          base_plane=0) -> torch.Tensor:
     """y = the bit-serial noisy matmul of levels `xq` (..., K) with `w`
-    (K, N) at energy coefficient `rho` (a scalar tensor); `seed` is the
-    step's noise seed, taken at run time."""
-    return bitserial_fwd(xq, w, device.sigma_rel(rho), device, bits,
-                         seed=seed, base_plane=base_plane)
+    (K, N) at energy coefficient `rho` (a scalar tensor), with the
+    ideal-matmul VJP; `seed` is the step's noise seed, taken at run time."""
+    def fwd(xq, w, sig):
+        return bitserial_fwd(xq, w, sig, device, bits, seed=seed,
+                             base_plane=base_plane)
+    return ideal_vjp(fwd, xq, w, device.sigma_rel(rho))
+
+
+class _IdealVJP(torch.autograd.Function):
+    """y = forward(xq, w, sig) with JAX's ``decompose._bwd``: gx = g @ w^T
+    in xq's dtype, gw = xq^T g in float32, and zero for sig."""
+
+    @staticmethod
+    def forward(ctx, xq, w, sig, forward, kw):
+        ctx.save_for_backward(xq, w, sig)
+        return forward(xq, w, sig, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, w, sig = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.matmul(g, w.T).to(xq.dtype)
+        if ctx.needs_input_grad[1]:
+            lead = xq.reshape(-1, xq.shape[-1]).to(torch.float32)
+            gw = torch.matmul(lead.T, g.reshape(-1, g.shape[-1])
+                              .to(torch.float32)).to(w.dtype)
+        gsig = torch.zeros_like(sig) if ctx.needs_input_grad[2] else None
+        return gx, gw, gsig, None, None
+
+
+def ideal_vjp(forward, xq, w, sig, **kw):
+    """forward(xq, w, sig, **kw), differentiable with the ideal-matmul VJP
+    when grad mode is on and an input requires it (else the forward alone,
+    with no autograd bookkeeping)."""
+    if torch.is_grad_enabled() and (xq.requires_grad or w.requires_grad
+                                    or sig.requires_grad):
+        return _IdealVJP.apply(xq, w, sig, forward, kw)
+    return forward(xq, w, sig, **kw)

@@ -28,7 +28,14 @@ def rho_from_raw(rho_raw: torch.Tensor) -> torch.Tensor:
     return softplus(rho_raw) + RHO_MIN
 
 
+def jax_abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with the derivative JAX gives it: +1 at x = 0 (lax.abs's JVP
+    selects g where x >= 0), where torch.abs gives 0.  Quantized weights
+    hold exact zeros, so technique B's gradient differs there otherwise."""
+    return torch.where(x >= 0, x, -x)
+
+
 def layer_reg_term(w: torch.Tensor, rho: torch.Tensor, alpha: float):
     """alpha * rho * sum|w|, differentiable in both w and rho."""
-    return alpha * rho * torch.sum(torch.abs(w.to(torch.float32)))
+    return alpha * rho * torch.sum(jax_abs(w.to(torch.float32)))
 

@@ -30,8 +30,9 @@
 //   and FMAs this step's.  Threads that share columns reduce once, at the
 //   end of the slab (shared memory in warp order for n-major, a shuffle
 //   butterfly for k-major).
-// * M > 16 (chunk and prefill steps): a 64 x 64 tiled kernel, 32-deep K
-//   tiles, float4 loads in both layouts.  The raw weight and x tiles of the
+// * M > 16 (chunk and prefill steps): a 64 x 64 tiled kernel
+//   (emt_tiled.cuh, shared with the input gradient), 32-deep K tiles,
+//   float4 loads in both layouts.  The raw weight and x tiles of the
 //   next K tile are loaded into registers while this tile's FMAs run, then
 //   hashed into the other of two shared-memory buffers (one barrier a
 //   tile); every weight element is hashed once per 64-row tile.
@@ -47,6 +48,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "emt_tiled.cuh"
 
 namespace {
 
@@ -58,7 +60,6 @@ constexpr int kGemvBNk = kWarps * 4;      // k-major: 4 columns per warp (32)
 constexpr int kGemvBK = 32;               // n-major slab granularity (rows)
 constexpr int kGemvBKk = 128;             // k-major slab granularity (rows)
 constexpr int kGemvXBytes = 24 * 1024;    // x rows of one slab, at most
-constexpr int kBM = 64, kBN = 64, kBK = 32;   // tiled kernel
 
 // The noisy weight and the weight loads are shared with the bit-serial
 // kernel (common.cuh).
@@ -261,126 +262,6 @@ emt_matmul_gemv_k(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Tiled, M > 16: 64 x 64 output tile per CTA, 32-deep K tiles, register
-// prefetch of the next tile + two shared-memory buffers.  KC: the weight
-// is not n-major (the tied unembed).
-template <bool KC, int NS>
-__global__ void __launch_bounds__(kThreads, 2)
-emt_matmul_tiled(const float* __restrict__ x, const float* __restrict__ w,
-                 float* __restrict__ out, const float* __restrict__ sig_ptr,
-                 int M, int N, int K, int k_slab, long long sxm, long long sxk,
-                 long long swk, long long swn, int vw, int xvec,
-                 uint32_t seed, uint32_t plane, repro::NoiseParams np) {
-  __shared__ __align__(16) float ws[2][kBK][kBN];
-  __shared__ __align__(16) float xs[2][kBK][kBM + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;                  // columns tx*4 .. tx*4+3
-  const int ty = tid / 16;                  // rows ty*4 .. ty*4+3
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int kb = blockIdx.z * k_slab;
-  const int ke = min(K, kb + k_slab);
-  const uint32_t pk = repro::hash_pk(seed, plane);
-  Factors F;
-  make_factors(np, *sig_ptr, F);
-  // loader coordinates: n-major weights by (row, 4-column group); k-major
-  // weights and x by (column or row, 8-deep K run)
-  const int ln = tid & 63, lq = tid >> 6;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  float4 wr[2], xr[2];
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if constexpr (KC) {
-        wr[r] = load_k4(w, k0 + 8 * lq + 4 * r, ke, n0 + ln, N, swk, swn, vw);
-      } else {
-        const int e = tid + kThreads * r, k = k0 + (e >> 4);
-        wr[r] = k < ke ? load_n4(w, k * swk, n0 + 4 * (e & 15), N, vw)
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      const int m = m0 + ln, k = k0 + 8 * lq + 4 * r;
-      if (m >= M) {
-        xr[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-      } else if (xvec && k + 3 < ke) {
-        xr[r] = __ldg(reinterpret_cast<const float4*>(x + m * sxm + k));
-      } else {
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = k + j < ke ? __ldg(x + m * sxm + (k + j) * sxk) : 0.f;
-        xr[r] = make_float4(v[0], v[1], v[2], v[3]);
-      }
-    }
-  };
-  auto store_tile = [&](int buf, int k0) {               // the hash
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if constexpr (KC) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kk = 8 * lq + 4 * r + j;
-          ws[buf][kk][ln] = noisy<NS>(f4(wr[r], j), (uint32_t)(k0 + kk),
-                                      (uint32_t)(n0 + ln), pk, F);
-        }
-      } else {
-        const int e = tid + kThreads * r, kk = e >> 4, c = 4 * (e & 15);
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = noisy<NS>(f4(wr[r], j), (uint32_t)(k0 + kk),
-                           (uint32_t)(n0 + c + j), pk, F);
-        *reinterpret_cast<float4*>(&ws[buf][kk][c]) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) xs[buf][8 * lq + 4 * r + j][ln] = f4(xr[r], j);
-    }
-  };
-
-  const int nt = (ke - kb + kBK - 1) / kBK;
-  load_tile(kb);
-  store_tile(0, kb);
-  __syncthreads();
-  for (int t = 0; t < nt; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < nt) load_tile(kb + (t + 1) * kBK);     // in flight
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[buf][kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[buf][kk][tx * 4]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = f4(a, i);
-        acc[i][0] = fmaf(ai, b.x, acc[i][0]);
-        acc[i][1] = fmaf(ai, b.y, acc[i][1]);
-        acc[i][2] = fmaf(ai, b.z, acc[i][2]);
-        acc[i][3] = fmaf(ai, b.w, acc[i][3]);
-      }
-    }
-    if (t + 1 < nt) store_tile(buf ^ 1, kb + (t + 1) * kBK);
-    __syncthreads();
-  }
-
-  float* o = out + (long long)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) o[(long long)m * N + n] = acc[i][j];
-    }
-  }
-}
-
 struct Args {
   const float* x;
   const float* w;
@@ -412,15 +293,9 @@ void launch_gemv(const Args& a, bool kc, int splits, cudaStream_t s) {
 template <int NS>
 void launch(const Args& a, bool kc, int splits, int xvec, cudaStream_t s) {
   if (a.M > kGemvMaxM) {
-    dim3 grid((a.N + kBN - 1) / kBN, (a.M + kBM - 1) / kBM, splits);
-    if (kc)
-      emt_matmul_tiled<true, NS><<<grid, kThreads, 0, s>>>(
-          a.x, a.w, a.out, a.sig, a.M, a.N, a.K, a.k_slab, a.sxm, a.sxk,
-          a.swk, a.swn, a.vw, xvec, a.seed, a.plane, a.np);
-    else
-      emt_matmul_tiled<false, NS><<<grid, kThreads, 0, s>>>(
-          a.x, a.w, a.out, a.sig, a.M, a.N, a.K, a.k_slab, a.sxm, a.sxk,
-          a.swk, a.swn, a.vw, xvec, a.seed, a.plane, a.np);
+    repro::launch_tiled<NS, false>(a.x, a.w, a.out, a.sig, a.M, a.N, a.K,
+                                   a.k_slab, a.sxm, a.sxk, a.swk, a.swn, a.vw,
+                                   xvec, a.seed, a.plane, a.np, kc, splits, s);
     return;
   }
   switch (a.M) {
@@ -460,7 +335,7 @@ extern "C" int emt_matmul_f32(const float* x, const float* w, float* y,
   const long long sxm = dims[5], sxk = dims[6], swk = dims[7], swn = dims[8];
   const bool kc = swn != 1;
   const bool gemv = M <= kGemvMaxM;
-  const int bk = !gemv ? kBK : kc ? kGemvBKk : kGemvBK;
+  const int bk = !gemv ? repro::kTBK : kc ? kGemvBKk : kGemvBK;
   const int mt = M <= 4 ? M : M <= 8 ? 8 : 16;     // the GEMV row template
   if (M < 1 || N < 1 || !repro::split_plan_ok(K, splits, k_slab, bk) ||
       (gemv && (long long)sizeof(float) * mt * k_slab > kGemvXBytes))

@@ -1,0 +1,168 @@
+// The tiled noisy matmul shared by K3's forward (emt_matmul.cu, M > 16) and
+// its input gradient (emt_matmul_bwd.cu): out (M, C) = a (M, R) @ noisy(v)
+// with v (R, C) of any strides, the RTN noise hashed per element inside the
+// tile.  T = false: v is the weight w (K, N) itself and element (r, c)
+// hashes at (row r, col c), the forward.  T = true: v is the weight's
+// transpose, v[r][c] = w[c][r] (strides swn, swk), and element (r, c) hashes
+// at w's logical (row c, col r), so dx = g @ noisy(w)^T reads w in place
+// and draws the forward's noise.
+//
+// Design: a 64 x 64 output tile per CTA, 32-deep reduction tiles, float4
+// loads along whichever of v's strides is 1.  The raw v and a tiles of the
+// next reduction tile are loaded into registers while this tile's FMAs run,
+// then hashed into the other of two shared-memory buffers (one barrier a
+// tile); every v element is hashed once per 64-row tile.  Split along the
+// reduction by the host's plan (repro_torch/kernels/splitk.py): CTA z
+// writes its partial sums to out + z * M * C.
+#pragma once
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace repro {
+
+constexpr int kTiledThreads = 256;
+constexpr int kTBM = 64, kTBN = 64, kTBK = 32;
+
+// KC: v is not column-contiguous (svc != 1; the load runs along r).
+template <bool KC, int NS, bool T>
+__global__ void __launch_bounds__(kTiledThreads, 2)
+emt_tiled(const float* __restrict__ x, const float* __restrict__ w,
+          float* __restrict__ out, const float* __restrict__ sig_ptr, int M,
+          int N, int K, int k_slab, long long sxm, long long sxk,
+          long long swk, long long swn, int vw, int xvec, uint32_t seed,
+          uint32_t plane, NoiseParams np) {
+  // Names follow the forward: x (M, K) @ w (K, N); for T, "w" is v, K the
+  // reduction (R) and N the output columns (C).
+  __shared__ __align__(16) float ws[2][kTBK][kTBN];
+  __shared__ __align__(16) float xs[2][kTBK][kTBM + 4];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;                  // columns tx*4 .. tx*4+3
+  const int ty = tid / 16;                  // rows ty*4 .. ty*4+3
+  const int m0 = blockIdx.y * kTBM;
+  const int n0 = blockIdx.x * kTBN;
+  const int kb = blockIdx.z * k_slab;
+  const int ke = min(K, kb + k_slab);
+  const uint32_t pk = hash_pk(seed, plane);
+  Factors F;
+  make_factors(np, *sig_ptr, F);
+  // loader coordinates: n-major weights by (row, 4-column group); k-major
+  // weights and x by (column or row, 8-deep K run)
+  const int ln = tid & 63, lq = tid >> 6;
+  // the noisy value of element (k, n): hashed at (k, n), or (n, k) for T
+  auto hashed = [&](float v, int k, int n) {
+    return T ? noisy<NS>(v, (uint32_t)n, (uint32_t)k, pk, F)
+             : noisy<NS>(v, (uint32_t)k, (uint32_t)n, pk, F);
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  float4 wr[2], xr[2];
+  auto load_tile = [&](int k0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if constexpr (KC) {
+        wr[r] = load_k4(w, k0 + 8 * lq + 4 * r, ke, n0 + ln, N, swk, swn, vw);
+      } else {
+        const int e = tid + kTiledThreads * r, k = k0 + (e >> 4);
+        wr[r] = k < ke ? load_n4(w, k * swk, n0 + 4 * (e & 15), N, vw)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      const int m = m0 + ln, k = k0 + 8 * lq + 4 * r;
+      if (m >= M) {
+        xr[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else if (xvec && k + 3 < ke) {
+        xr[r] = __ldg(reinterpret_cast<const float4*>(x + m * sxm + k));
+      } else {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = k + j < ke ? __ldg(x + m * sxm + (k + j) * sxk) : 0.f;
+        xr[r] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  };
+  auto store_tile = [&](int buf, int k0) {               // the hash
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if constexpr (KC) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kk = 8 * lq + 4 * r + j;
+          ws[buf][kk][ln] = hashed(f4(wr[r], j), k0 + kk, n0 + ln);
+        }
+      } else {
+        const int e = tid + kTiledThreads * r, kk = e >> 4, c = 4 * (e & 15);
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = hashed(f4(wr[r], j), k0 + kk, n0 + c + j);
+        *reinterpret_cast<float4*>(&ws[buf][kk][c]) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xs[buf][8 * lq + 4 * r + j][ln] = f4(xr[r], j);
+    }
+  };
+
+  const int nt = (ke - kb + kTBK - 1) / kTBK;
+  load_tile(kb);
+  store_tile(0, kb);
+  __syncthreads();
+  for (int t = 0; t < nt; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nt) load_tile(kb + (t + 1) * kTBK);     // in flight
+#pragma unroll 8
+    for (int kk = 0; kk < kTBK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&xs[buf][kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&ws[buf][kk][tx * 4]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ai = f4(a, i);
+        acc[i][0] = fmaf(ai, b.x, acc[i][0]);
+        acc[i][1] = fmaf(ai, b.y, acc[i][1]);
+        acc[i][2] = fmaf(ai, b.z, acc[i][2]);
+        acc[i][3] = fmaf(ai, b.w, acc[i][3]);
+      }
+    }
+    if (t + 1 < nt) store_tile(buf ^ 1, kb + (t + 1) * kTBK);
+    __syncthreads();
+  }
+
+  float* o = out + (long long)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < N) o[(long long)m * N + n] = acc[i][j];
+    }
+  }
+}
+
+// Launch emt_tiled<KC, NS, T> over an (M, N) output in `splits` slabs of
+// `k_slab` reduction rows.
+template <int NS, bool T>
+void launch_tiled(const float* x, const float* w, float* out, const float* sig,
+                  int M, int N, int K, int k_slab, long long sxm,
+                  long long sxk, long long swk, long long swn, int vw,
+                  int xvec, uint32_t seed, uint32_t plane,
+                  const NoiseParams& np, bool kc, int splits, cudaStream_t s) {
+  dim3 grid((N + kTBN - 1) / kTBN, (M + kTBM - 1) / kTBM, splits);
+  if (kc)
+    emt_tiled<true, NS, T><<<grid, kTiledThreads, 0, s>>>(
+        x, w, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, vw, xvec, seed,
+        plane, np);
+  else
+    emt_tiled<false, NS, T><<<grid, kTiledThreads, 0, s>>>(
+        x, w, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, vw, xvec, seed,
+        plane, np);
+}
+
+}  // namespace repro

@@ -10,6 +10,9 @@ serves on, ``decompose.bitserial_matmul_ref``).  The source and its design
 note: ``csrc/emt_bitserial.cu`` (a GEMV-style kernel for M <= 16, a tiled
 one above; both split K by :func:`plan`).
 
+The wrapper is differentiable with JAX's ideal-matmul VJP
+(``repro/core/decompose.py::_bwd``, :func:`repro_torch.core.decompose.ideal_vjp`):
+plain products, which JAX leaves to XLA and the port to torch.matmul.
 On a CPU tensor the wrapper computes the plain version
 (:func:`repro_torch.kernels.ref.emt_bitserial_ref`); on a CUDA tensor it
 launches the kernel or raises.  ``emt_bitserial.launches`` counts kernel
@@ -22,6 +25,7 @@ import functools
 
 import torch
 
+from repro_torch.core.decompose import ideal_vjp
 from repro_torch.core.device import DeviceModel
 from repro_torch.kernels import _build, splitk
 from repro_torch.kernels.emt_matmul import noise_params
@@ -91,14 +95,8 @@ def _launch(index, M, N, K, sxm, sxk, swk, swn, bits):
     return p, dims, ctypes.addressof(dims)
 
 
-def emt_bitserial(xq: torch.Tensor, w: torch.Tensor, sig: torch.Tensor, *,
-                  device: DeviceModel, bits: int = 7, seed: int = 0,
-                  base_plane: int = 0):
-    """xq (M, K) integer-valued float levels, w (K, N) -> (M, N) float32.
-
-    `w` may have any strides.  `sig` is sigma_rel(rho) as a one-element
-    float32 tensor on xq's device (read by the kernel, no host sync);
-    `seed` the step's noise seed."""
+def _forward(xq, w, sig, *, device: DeviceModel, bits: int = 7,
+             seed: int = 0, base_plane: int = 0):
     if not xq.is_cuda:
         if xq.device.type == "cpu":
             return plain(xq, w, sig, device=device, bits=bits, seed=seed,
@@ -131,6 +129,25 @@ def emt_bitserial(xq: torch.Tensor, w: torch.Tensor, sig: torch.Tensor, *,
     _build.check(err, "emt_bitserial")
     emt_bitserial.launches += 1
     return y
+
+
+def emt_bitserial(xq: torch.Tensor, w: torch.Tensor, sig: torch.Tensor, *,
+                  device: DeviceModel, bits: int = 7, seed: int = 0,
+                  base_plane: int = 0):
+    """xq (M, K) integer-valued float levels, w (K, N) -> (M, N) float32,
+    differentiable in xq and w with the ideal-matmul VJP (sig gets zero).
+
+    `w` may have any strides.  `sig` is sigma_rel(rho) as a one-element
+    float32 tensor on xq's device (read by the kernel, no host sync);
+    `seed` the step's noise seed."""
+    return ideal_vjp(_forward, xq, w, sig, device=device, bits=bits,
+                     seed=seed, base_plane=base_plane)
+
+
+def plain_differentiable(xq, w, sig, **kw):
+    """The plain version on any device with the same VJP (the card's
+    plain training path)."""
+    return ideal_vjp(plain, xq, w, sig, **kw)
 
 
 emt_bitserial.launches = 0

@@ -1,4 +1,5 @@
-"""Technique-A noisy crossbar matmul: CUDA kernel wrapper + plain version.
+"""Technique-A noisy crossbar matmul: CUDA kernel wrappers + plain
+versions, forward and backward.
 
 Replaces ``repro/kernels/emt_matmul.py::emt_matmul_pallas``: computes
 ``y = x @ (w * (1 + a_l * sigma))`` with the RTN offsets hashed inside the
@@ -7,9 +8,18 @@ the layer plane, so no noise tensor reaches device memory.  The source and
 its design note: ``csrc/emt_matmul.cu`` (a GEMV-style kernel for M <= 16,
 a tiled one above; both split K by :func:`plan`).
 
-On a CPU tensor the wrapper computes the plain version
-(:func:`repro_torch.kernels.ref.emt_matmul_ref`); on a CUDA tensor it launches
-the kernel or raises.  ``emt_matmul.launches`` counts kernel launches.
+:func:`emt_matmul` is differentiable with the VJP XLA gives JAX's
+``fluctuate`` + ``@``: ``dx = g @ (w f)^T``, ``dw = (x^T g) f`` and
+``dsigma = sum (x^T g) w a``, with ``f = fl(1 + a sigma)``.  The port's
+forward never materializes the noise, so its backward hashes it again in
+two kernels of ``csrc/emt_matmul_bwd.cu``: :func:`emt_matmul_dx` (K3-dx)
+and :func:`emt_matmul_dw` (K3-dw, after ``x^T g`` by torch.matmul, as JAX
+leaves that product to XLA).
+
+On a CPU tensor each wrapper computes its plain version
+(:mod:`repro_torch.kernels.ref`); on a CUDA tensor it launches its kernel or
+raises.  ``emt_matmul.launches``, ``emt_matmul_dx.launches`` and
+``emt_matmul_dw.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ import torch
 from repro_torch.core import hashrng
 from repro_torch.core.device import DeviceModel
 from repro_torch.kernels import _build, splitk
+from repro_torch.kernels.ref import emt_matmul_dw_ref as plain_dw
+from repro_torch.kernels.ref import emt_matmul_dx_ref as plain_dx
 from repro_torch.kernels.ref import emt_matmul_ref as plain
 
 MAX_STATES = 8
@@ -91,8 +103,8 @@ def _noise_params(offsets: tuple, probs: tuple) -> NoiseParams:
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    fn = _build.library("emt_matmul").emt_matmul_f32
+def _fn(lib: str, entry: str):
+    fn = getattr(_build.library(lib), entry)
     if fn.argtypes is None:
         P, U = ctypes.c_void_p, ctypes.c_uint
         fn.argtypes = [P, P, P, P, P, P, U, U, P, P]
@@ -112,6 +124,12 @@ def plan(M: int, N: int, K: int, sms: int, n_major: bool) -> splitk.Plan:
     return splitk.plan(M, N, K, sms=sms, **TILED)
 
 
+def plan_dx(M: int, K: int, N: int, sms: int) -> splitk.Plan:
+    """K3-dx's cut of g (M, N) @ w^T (N, K): the tiled kernel's 64 x 64
+    output tiles of (M, K), N split as the forward splits K."""
+    return splitk.plan(M, K, N, sms=sms, **TILED)
+
+
 @functools.lru_cache(maxsize=4096)
 def _launch(index, M, N, K, sxm, sxk, swk, swn):
     """(plan, the C entry's int64 dims array, its address) for one call
@@ -122,43 +140,182 @@ def _launch(index, M, N, K, sxm, sxk, swk, swn):
     return p, dims, ctypes.addressof(dims)
 
 
+@functools.lru_cache(maxsize=4096)
+def _launch_dx(index, M, K, N, sgm, sgn, swk, swn):
+    p = plan_dx(M, K, N, splitk.sm_count(index))
+    dims = (ctypes.c_longlong * 9)(M, K, N, p.splits, p.k_slab, sgm, sgn,
+                                   swk, swn)
+    return p, dims, ctypes.addressof(dims)
+
+
+def _check(what: str, a: torch.Tensor, w: torch.Tensor, sig: torch.Tensor,
+           k_w: int):
+    """Raise unless a, w and sig are float32 on one CUDA device, a's
+    columns match w's dim `k_w` and sig is a scalar; returns the device
+    index."""
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[k_w]:
+        raise ValueError(f"{what}: shapes {tuple(a.shape)}, "
+                         f"{tuple(w.shape)}")
+    index = a.get_device()
+    f32 = torch.float32
+    if not (a.dtype is f32 and w.dtype is f32 and sig.dtype is f32
+            and w.get_device() == index and sig.get_device() == index):
+        raise ValueError(f"{what}: inputs, w and sig must be float32 on "
+                         f"{a.device}, got {a.dtype}, {w.dtype}, {sig.dtype} "
+                         f"on {a.device}, {w.device}, {sig.device}")
+    if sig.numel() != 1:
+        raise ValueError(f"{what}: sig must be a scalar tensor")
+    return index
+
+
+def _on_cpu(what: str, t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version runs); False for a CUDA
+    one; raises for any other device."""
+    if t.is_cuda:
+        return False
+    if t.device.type == "cpu":
+        return True
+    raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def _forward(x, w, sig, *, device: DeviceModel, seed: int = 0,
+             plane: int = 0):
+    if _on_cpu("emt_matmul", x):
+        return plain(x, w, sig, device=device, seed=seed, plane=plane)
+    index = _check("emt_matmul", x, w, sig, 0)
+    M, K = x.shape
+    N = w.shape[1]
+    p, _, dims = _launch(index, M, N, K, *x.stride(), *w.stride())
+    y, part = splitk.outputs(p, x)
+    err = _fn("emt_matmul", "emt_matmul_f32")(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), part, sig.data_ptr(), dims,
+        int(seed) & 0xFFFFFFFF, int(plane) & 0xFFFFFFFF,
+        ctypes.addressof(noise_params(device)), _build.stream(index))
+    _build.check(err, "emt_matmul")
+    emt_matmul.launches += 1
+    return y
+
+
+def emt_matmul_dx(g: torch.Tensor, w: torch.Tensor, sig: torch.Tensor, *,
+                  device: DeviceModel, seed: int = 0, plane: int = 0):
+    """K3-dx: g (M, N) @ noisy(w (K, N))^T -> (M, K) float32, the noise
+    hashed at w's logical (k, n) as in the forward; g and w of any
+    strides."""
+    if _on_cpu("emt_matmul_dx", g):
+        return plain_dx(g, w, sig, device=device, seed=seed, plane=plane)
+    index = _check("emt_matmul_dx", g, w, sig, 1)
+    M, N = g.shape
+    K = w.shape[0]
+    p, _, dims = _launch_dx(index, M, K, N, *g.stride(), *w.stride())
+    dx, part = splitk.outputs(p, g)
+    err = _fn("emt_matmul_bwd", "emt_matmul_dx_f32")(
+        g.data_ptr(), w.data_ptr(), dx.data_ptr(), part, sig.data_ptr(),
+        dims, int(seed) & 0xFFFFFFFF, int(plane) & 0xFFFFFFFF,
+        ctypes.addressof(noise_params(device)), _build.stream(index))
+    _build.check(err, "emt_matmul_dx")
+    emt_matmul_dx.launches += 1
+    return dx
+
+
+# csrc/emt_matmul_bwd.cu: the dw pass runs a fixed grid of at most this
+# many CTAs, each writing one partial of dsigma
+DW_BLOCKS = 1024
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_dw(K, N, swk, swn):
+    dims = (ctypes.c_longlong * 4)(K, N, swk, swn)
+    return dims, ctypes.addressof(dims)
+
+
+def emt_matmul_dw(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+                  sig: torch.Tensor, *, device: DeviceModel, seed: int = 0,
+                  plane: int = 0):
+    """K3-dw: (dw, dsigma) of y = x (M, K) @ noisy(w (K, N)) for the
+    cotangent g (M, N): dw = (x^T g) * f (K, N), contiguous, and dsigma =
+    sum (x^T g) * w * a, a float32 scalar summed in a fixed order.  x^T g
+    comes from torch.matmul; the kernel overwrites it with dw."""
+    if _on_cpu("emt_matmul_dw", x):
+        return plain_dw(x, g, w, sig, device=device, seed=seed, plane=plane)
+    index = _check("emt_matmul_dw", x, w, sig, 0)
+    K, N = w.shape
+    if (g.shape != (x.shape[0], N) or g.dtype is not torch.float32
+            or g.get_device() != index):
+        raise ValueError(f"emt_matmul_dw: g {tuple(g.shape)} {g.dtype} on "
+                         f"{g.device} for x {tuple(x.shape)} @ w "
+                         f"{tuple(w.shape)} on {x.device}")
+    gw = torch.matmul(x.T, g).contiguous()
+    buf = torch.empty(DW_BLOCKS + 1, dtype=torch.float32, device=x.device)
+    _, dims = _launch_dw(K, N, *w.stride())
+    err = _fn("emt_matmul_bwd", "emt_matmul_dw_f32")(
+        gw.data_ptr(), w.data_ptr(), sig.data_ptr(), buf.data_ptr(),
+        buf.data_ptr() + 4 * DW_BLOCKS, dims, int(seed) & 0xFFFFFFFF,
+        int(plane) & 0xFFFFFFFF, ctypes.addressof(noise_params(device)),
+        _build.stream(index))
+    _build.check(err, "emt_matmul_dw")
+    emt_matmul_dw.launches += 1
+    return gw, buf[DW_BLOCKS]
+
+
+class _NoisyMatmul(torch.autograd.Function):
+    """y = x @ noisy(w) through `impl` = (forward, dx, dw) functions, with
+    the VJP of JAX's ``fluctuate`` + ``@``; dx and dw run only for the
+    inputs that need them."""
+
+    @staticmethod
+    def forward(ctx, x, w, sig, impl, kw):
+        ctx.save_for_backward(x, w, sig)
+        ctx.impl, ctx.kw = impl, kw
+        return impl[0](x, w, sig, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, sig = ctx.saved_tensors
+        _, fdx, fdw = ctx.impl
+        need_x, need_w, need_sig = ctx.needs_input_grad[:3]
+        g = g.contiguous()
+        dx = fdx(g, w, sig, **ctx.kw) if need_x else None
+        dw = dsig = None
+        if need_w or need_sig:
+            dw, dsig = fdw(x, g, w, sig, **ctx.kw)
+            dsig = dsig.reshape(sig.shape).to(sig.dtype)
+        return (dx, dw if need_w else None, dsig if need_sig else None,
+                None, None)
+
+
+def differentiable(forward, dx, dw):
+    """The product x @ noisy(w) through `forward`, differentiable through
+    `dx` and `dw` when grad mode is on and an input requires it (else the
+    forward alone, with no autograd bookkeeping: the serving path)."""
+    def call(x, w, sig, *, device: DeviceModel, seed: int = 0,
+             plane: int = 0):
+        kw = dict(device=device, seed=seed, plane=plane)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                        or sig.requires_grad):
+            return _NoisyMatmul.apply(x, w, sig, (forward, dx, dw), kw)
+        return forward(x, w, sig, **kw)
+    return call
+
+
+_kernels = differentiable(_forward, emt_matmul_dx, emt_matmul_dw)
+# the plain versions on any device, with the same VJP (the card's plain
+# training path)
+plain_differentiable = differentiable(plain, plain_dx, plain_dw)
+
+
 def emt_matmul(x: torch.Tensor, w: torch.Tensor, sig: torch.Tensor, *,
                device: DeviceModel, seed: int = 0, plane: int = 0):
-    """x (M, K) @ noisy(w (K, N)) -> (M, N) float32.
+    """x (M, K) @ noisy(w (K, N)) -> (M, N) float32, differentiable in x,
+    w and sig.
 
     `w` may have any strides (the tied unembed passes the embedding table's
     transpose without a copy); the noise still hashes the logical
     (row = K index, col = N index).  `sig` is sigma_rel(rho) as a one-element
     float32 tensor on x's device (read by the kernel, no host sync).
     """
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            return plain(x, w, sig, device=device, seed=seed, plane=plane)
-        raise ValueError(f"emt_matmul: unsupported device {x.device}")
-    M, K = x.shape
-    K2, N = w.shape
-    if K != K2:
-        raise ValueError(f"emt_matmul: shapes {tuple(x.shape)} @ "
-                         f"{tuple(w.shape)}")
-    index = x.get_device()
-    f32 = torch.float32
-    if not (x.dtype is f32 and w.dtype is f32 and sig.dtype is f32
-            and w.get_device() == index and sig.get_device() == index):
-        raise ValueError(f"emt_matmul: x, w and sig must be float32 on "
-                         f"{x.device}, got {x.dtype}, {w.dtype}, {sig.dtype} "
-                         f"on {x.device}, {w.device}, {sig.device}")
-    if sig.numel() != 1:
-        raise ValueError("emt_matmul: sig must be a scalar tensor")
-    p, _, dims = _launch(index, M, N, K, *x.stride(), *w.stride())
-    y, part = splitk.outputs(p, x)
-    err = _fn()(x.data_ptr(), w.data_ptr(), y.data_ptr(), part,
-                sig.data_ptr(), dims, int(seed) & 0xFFFFFFFF,
-                int(plane) & 0xFFFFFFFF,
-                ctypes.addressof(noise_params(device)),
-                _build.stream(index))
-    _build.check(err, "emt_matmul")
-    emt_matmul.launches += 1
-    return y
+    return _kernels(x, w, sig, device=device, seed=seed, plane=plane)
 
 
 emt_matmul.launches = 0
+emt_matmul_dx.launches = 0
+emt_matmul_dw.launches = 0

@@ -22,16 +22,41 @@ from repro_torch.core.noise import noise_factor
 NEG_INF = -1e30
 
 
-def emt_matmul_ref(x, w, sig, *, device: DeviceModel, seed=0, plane=0):
-    """x (M, K) @ (w * (1 + a * sig)) with the RTN offsets a hashed from
-    the global (row, col) of every weight element.  Returns (M, N) fp32."""
+def _noise(w, sig, device: DeviceModel, seed, plane):
+    """(a, f): the RTN offsets hashed at every weight element's global
+    (row, col) and the read factor fl(1 + a * sig), weight-shaped."""
     kdim, n = w.shape
     offs = hashrng.tile_state_offsets(seed, 0, 0, (kdim, n),
                                       device.state_offsets,
                                       device.state_probs, plane,
                                       device=w.device)
-    wn = (w.to(torch.float32) * noise_factor(offs, sig)).to(w.dtype)
+    return offs, noise_factor(offs, sig)
+
+
+def emt_matmul_ref(x, w, sig, *, device: DeviceModel, seed=0, plane=0):
+    """x (M, K) @ (w * (1 + a * sig)) with the RTN offsets a hashed from
+    the global (row, col) of every weight element.  Returns (M, N) fp32."""
+    _, f = _noise(w, sig, device, seed, plane)
+    wn = (w.to(torch.float32) * f).to(w.dtype)
     return torch.matmul(x, wn).to(torch.float32)
+
+
+def emt_matmul_dx_ref(g, w, sig, *, device: DeviceModel, seed=0, plane=0):
+    """The input gradient of emt_matmul_ref for the cotangent g (M, N):
+    g @ (w * f)^T through the materialized factor.  Returns (M, K) in g's
+    dtype (float64 in, float64 out)."""
+    _, f = _noise(w, sig, device, seed, plane)
+    return torch.matmul(g, (w * f).to(g.dtype).T)
+
+
+def emt_matmul_dw_ref(x, g, w, sig, *, device: DeviceModel, seed=0,
+                      plane=0):
+    """(dw, dsig) of emt_matmul_ref for the cotangent g: with gw = x^T g,
+    dw = gw * f and dsig = sum (gw * w) * a, the rounding of XLA's VJP of
+    ``w * (1 + a * sig)``."""
+    offs, f = _noise(w, sig, device, seed, plane)
+    gw = torch.matmul(x.T, g)
+    return gw * f, torch.sum((gw * w) * offs)
 
 
 def emt_bitserial_ref(xq, w, sig, *, device: DeviceModel, bits=7, seed=0,

@@ -1,7 +1,8 @@
-"""Decoder-only and encoder-decoder language models for serving (port of
-:mod:`repro.models.lm`: specs, the encoder, the legacy ``prefill`` into a
-contiguous cache, the paged cache, ``chunk_step`` and ``decode_step``) plus
-the port's seeded init and the JAX weight bridge.
+"""Decoder-only and encoder-decoder language models (port of
+:mod:`repro.models.lm`: specs, the training forward and loss
+``train_loss``, the encoder, the legacy ``prefill`` into a contiguous
+cache, the paged cache, ``chunk_step`` and ``decode_step``) plus the port's
+seeded init and the JAX weight bridge.
 
 Paged caches are dicts of per-layer ``{"k", "v"}`` pools of shape
 ``(num_blocks + 1, block_size, kv_heads, head_dim)`` (zero block last; a
@@ -89,6 +90,74 @@ def _logits(params, h, cfg: ModelConfig, ctx: Ctx):
                             cfg.emt_at("unembed"), tied_table=tied,
                             seed=ctx.seed)
     return common.softcap(y.to(cfg.logit_dtype), cfg.final_softcap), aux
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig, ctx: Ctx):
+    """The embedded ``batch["tokens"]`` (B, S).  (JAX's "embeds" input kind
+    belongs to the vision and audio stubs, which come with their
+    architectures, ROADMAP Queue 1 item 9.)"""
+    return common.embed(params["embed"], batch["tokens"], cfg.embed_scale,
+                        cfg.d_model)
+
+
+def train_loss(params, batch, cfg: ModelConfig, ctx: Ctx, lam: float = 0.0):
+    """Training forward and loss of ``batch`` (``tokens`` and ``labels``
+    (B, S); enc-dec adds ``enc_embeds`` or ``enc_tokens``): next-token
+    cross-entropy + ``lam * aux["reg"]`` (technique B) + ``aux["aux_loss"]``.
+    Every layer attends within the sequence under the causal mask, the
+    sliding-window layers under its windowed form.  Returns (loss,
+    metrics), the metrics detached: loss, ce, energy_uj, reg, aux_loss,
+    rho_mean and ``energy_uj/<corner>`` per technology corner.
+
+    JAX's ``cfg.remat`` (a ``jax.checkpoint`` around each block) is not
+    carried over: it trades memory only, gemma3-1b's float32 training step
+    at batch 8 x 128 fits one 80 GB card without it, and a recomputed
+    forward would launch every projection's kernel twice."""
+    x = _embed_inputs(params, batch, cfg, ctx)
+    B, S = x.shape[:2]
+    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    masks = {"global": common.causal_mask(pos, pos),
+             "local": common.causal_mask(pos, pos, cfg.sliding_window)}
+    enc_out = enc_mask = None
+    aux = new_aux()
+    if cfg.is_encdec:
+        enc_out, enc_pos, a = _encode(params, batch, cfg, ctx)
+        aux = add_aux(aux, a)
+        enc_mask = common.full_mask(
+            torch.ones((B, S), dtype=torch.bool, device=x.device),
+            torch.ones(enc_pos.shape, dtype=torch.bool, device=x.device))
+    h, a, _ = stk.apply_stack(
+        params["decoder"], x, cfg, cfg.blocks(), ctx=ctx, tag="dec",
+        positions=pos, mask=masks, enc_out=enc_out, enc_mask=enc_mask)
+    aux = add_aux(aux, a)
+    h = common.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    logits, a = _logits(params, h, cfg, ctx)
+    aux = add_aux(aux, a)
+
+    labels = batch["labels"].long()
+    # the masked-sum form of JAX's cross-entropy (safe on a sharded vocab
+    # there; here the picked logit is the same bits as a gather)
+    logits_f = logits.to(torch.float32)
+    lse = torch.logsumexp(logits_f, dim=-1)
+    vocab = torch.arange(logits_f.shape[-1], device=logits_f.device)
+    picked = torch.sum(torch.where(vocab == labels[..., None], logits_f,
+                                   torch.zeros((), device=logits_f.device)),
+                       dim=-1)
+    ce = torch.mean(lse - picked)
+    loss = ce + lam * aux["reg"] + aux["aux_loss"]
+
+    def d(v):
+        return v.detach() if isinstance(v, torch.Tensor) else v
+
+    metrics = {
+        "loss": d(loss), "ce": d(ce),
+        "energy_uj": d(aux["energy_pj"]) * 1e-6,
+        "reg": d(aux["reg"]), "aux_loss": d(aux["aux_loss"]),
+        "rho_mean": d(aux["rho_sum"]) / max(1, aux["rho_layers"]),
+    }
+    for name, c in aux["corners"].items():
+        metrics[f"energy_uj/{name}"] = d(c["energy_pj"]) * 1e-6
+    return loss, metrics
 
 
 def paged_lens(cfg: ModelConfig, max_len: int) -> dict:

@@ -1,6 +1,6 @@
 """Layer stack of attention + GLU blocks, with cross attention in an
 encoder-decoder's decoder (port of :mod:`repro.models.stack` for the
-serving paths)."""
+serving and training paths)."""
 from __future__ import annotations
 
 import torch
@@ -84,7 +84,7 @@ def apply_block(params, x, cfg: ModelConfig, *, kind: str, tag: str,
             ctx=ctx, tag=f"{tag}/xattn", cache=cache, page_table=xpt,
             page_len=xpl)
         aux = add_aux(aux, a)
-        if ckv:
+        if ckv and cache is not None:
             cache = {**cache, **ckv}
         x = x + y
     if "ffn" in params:

@@ -81,6 +81,91 @@ def test_k3_matches_plain_and_noise_bit_exact(cuda, M, K, N, transposed, dev):
     assert torch.equal(k3.emt_matmul(eye, w, sig, **kw), ref)
 
 
+# (M, K, N, transposed) for K3's backward: the tiled template in both
+# weight layouts (the tied unembed's transpose), ragged M, K and N, the
+# CNN's K = 27, dx split along N (few output tiles, long N), one row.
+K3_BWD_CASES = [(64, 96, 200, False), (100, 27, 64, False),
+                (33, 130, 1001, True), (17, 40, 3000, False),
+                (8, 300, 4100, True), (1, 64, 96, False), (70, 256, 10, False)]
+
+
+@pytest.mark.parametrize("M,K,N,transposed", K3_BWD_CASES)
+@pytest.mark.parametrize("dev", [DeviceModel(), four_state_device()],
+                         ids=["two", "four"])
+def test_k3_backward_matches_plain(cuda, M, K, N, transposed, dev):
+    """K3-dx and K3-dw within 1e-5 of their plain versions in float64 (dx,
+    dw, dsigma); dw bit for bit against the plain pass on the same x^T g;
+    two calls bit-identical; one launch each; and autograd through
+    emt_matmul gives them."""
+    g_ = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g_, device=cuda)
+    g = torch.randn((M, N), generator=g_, device=cuda)
+    w = torch.randn((N, K) if transposed else (K, N), generator=g_,
+                    device=cuda)
+    w = w.T if transposed else w
+    sig = dev.sigma_rel(torch.tensor(3.5, device=cuda))
+    kw = dict(device=dev, seed=99, plane=1234)
+    before = (k3.emt_matmul_dx.launches, k3.emt_matmul_dw.launches)
+    dx = k3.emt_matmul_dx(g, w, sig, **kw)
+    dw, dsig = k3.emt_matmul_dw(x, g, w, sig, **kw)
+    assert (k3.emt_matmul_dx.launches, k3.emt_matmul_dw.launches) == (
+        before[0] + 1, before[1] + 1)
+    dx64 = k3.plain_dx(g.double(), w, sig, **kw)
+    dw64, dsig64 = k3.plain_dw(x.double(), g.double(), w, sig, **kw)
+    assert _rel(dx.double(), dx64) <= 1e-5
+    assert _rel(dw.double(), dw64) <= 1e-5
+    assert abs(dsig.item() - dsig64.item()) <= 1e-5 * dw64.abs().sum().item()
+    pdw, _ = k3.plain_dw(x, g, w, sig, **kw)
+    assert torch.equal(dw, pdw)
+    assert torch.equal(dx, k3.emt_matmul_dx(g, w, sig, **kw))
+    dw2, dsig2 = k3.emt_matmul_dw(x, g, w, sig, **kw)
+    assert torch.equal(dw, dw2) and torch.equal(dsig, dsig2)
+    xr = x.clone().requires_grad_(True)
+    wr = w.clone().requires_grad_(True)
+    sr = sig.clone().requires_grad_(True)
+    (k3.emt_matmul(xr, wr, sr, **kw) * g).sum().backward()
+    assert torch.equal(xr.grad, dx) and torch.equal(wr.grad, dw)
+    assert torch.equal(sr.grad, dsig.reshape(sr.shape))
+
+
+def test_train_step_on_card_launches_k3_and_its_backward(cuda):
+    """One train step of the 2-layer gemma3 smoke stack (analog) on the
+    card: one K3, K3-dx and K3-dw launch per projection (14 + the unembed),
+    and the loss and every gradient leaf within 1e-4 of the plain path on
+    the card at a 24-bit DAC (no level sits at a rounding tie there)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement import map_corners
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import ops as kops
+    from repro_torch.train.step import init_state, make_grad_fn
+    from repro_torch.train.optimizer import Optimizer, OptimizerConfig
+    cfg = get_config("gemma3-1b", smoke=True).replace(num_layers=2)
+    cfg = cfg.replace(emt=map_corners(cfg.emt, lambda e: e.replace(
+        quant=dataclasses.replace(e.quant, a_bits=24))))
+    state = init_state(cfg, Optimizer(OptimizerConfig()), 0, device=cuda)
+    batch = SyntheticLM(cfg.vocab_size, 16, 2, device=cuda).batch_at(0)
+    grad_fn = make_grad_fn(cfg, 1e-6)
+    counters = (k3.emt_matmul, k3.emt_matmul_dx, k3.emt_matmul_dw)
+    before = [c.launches for c in counters]
+    loss, _, grads = grad_fn(state["params"], batch, 0)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [15] * 3
+    orig = kops._emt_matmul
+    kops._emt_matmul = k3.plain_differentiable
+    try:
+        ploss, _, pgrads = grad_fn(state["params"], batch, 0)
+    finally:
+        kops._emt_matmul = orig
+    assert abs(loss.item() - ploss.item()) <= 1e-4 * abs(ploss.item())
+    from repro_torch.utils.pytrees import flatten_with_paths
+    for (path, a), (_, b) in zip(flatten_with_paths(grads),
+                                 flatten_with_paths(pgrads)):
+        assert torch.isfinite(a).all(), path
+        assert _rel(a, b) <= 1e-4, path
+
+
 # (M, K, N, transposed): every GEMV row template (1-4, 8, 16) and the tiled
 # kernel (17, 64); both weight layouts; ragged N; K split into slabs (1024
 # with N = 130 on the tiled path, 4100 on the GEMV path).
