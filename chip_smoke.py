@@ -85,8 +85,9 @@ Phases (any failure exits non-zero and prints no result line):
 8. training (float32): K3's backward kernels K3-dx and K3-dw at
    gemma3-1b's training shapes (M = 8 x 128; the tied unembed's table.T)
    and the CNN's K = 27 and 576, against float64 plain versions, dw bit
-   for bit against the plain pass, two calls bit-identical, timed beside
-   K3's forward, torch.matmul yardsticks and bounds; then
+   for bit against the plain pass on integer x and g (x^T g exact in
+   either precision), two calls bit-identical, timed beside K3's forward,
+   torch.matmul yardsticks and bounds (FP32 pipe and 3xTF32); then
    ``launch.train``'s path at full width (gemma3-1b as published, analog,
    AdamW, lam 1e-6, batch 8 x 128): a gradient step (finite nonzero
    gradients on every w and rho_raw; K3, K3-dx, K3-dw 183 launches each),
@@ -128,7 +129,10 @@ hash's integer multiplies and the noise factor's FMULs as two each) over
 its 67 TFLOP/s (no tensor cores) and, for the noisy matmuls, the integer
 ALU pipe's operations of the noise hash and the state select over 64 lanes
 per SM x 132 SMs x 1.98 GHz (16.7 TOP/s).  Those counts are the kernels'
-own (HASH_OPS), matched against their SASS by scripts/sass_ops.py.
+own (HASH_OPS), matched against their SASS by scripts/sass_ops.py.  K3-dx
+and K3-dw compute their products on the tensor cores in 3xTF32: their
+bound's product term is 3 x 2 MKN TF32 FLOPs over the 495 TFLOP/s TF32
+rate (the FP32-pipe bound of the same product is printed beside it).
 """
 from __future__ import annotations
 
@@ -145,6 +149,9 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+# the tensor cores' dense TF32 rate (NVIDIA's H100 SXM data sheet, 700 W);
+# a 3xTF32 product does 3 x 2 MKN TF32 FLOPs
+TF32_FLOPS = 495e12
 # 32-bit integer operations on the ALU pipe (bit logic, shifts, compares,
 # selects): 64 INT32 lanes per SM x 132 SMs x 1.98 GHz (the H100 SXM's
 # boost clock).  Integer multiplies (IMAD) issue to the FP32 (FMA) pipe.
@@ -216,16 +223,18 @@ TRAIN_PLAIN_TOL = 1e-3
 CNN_PLAIN_TOL = 1e-2
 
 
-def bound(nbytes: float, flops: float, alu: float = 0.0, fma: float = 0.0):
+def bound(nbytes: float, flops: float, alu: float = 0.0, fma: float = 0.0,
+          tc: float = 0.0):
     """(ms, "bytes" or "operations", the term that bounds): the largest of
     the bytes over the memory rate, the FP32 pipe's operations (the FLOPs
     and `fma` other operations there, IMAD and FMUL, two FLOPs' worth
-    each) and the integer ALU pipe's `alu` operations over their peak
-    rates."""
+    each), the integer ALU pipe's `alu` operations and, for a kernel on
+    the tensor cores, its `tc` TF32 FLOPs, over their peak rates."""
     terms = [(nbytes / HBM_BPS * 1e3, "bytes", "bytes"),
              ((flops + 2 * fma) / FP32_FLOPS * 1e3, "operations",
               "FP32 pipe" if fma else "FP32 FLOPs"),
-             (alu / INT32_OPS * 1e3, "operations", "INT32 ALU pipe")]
+             (alu / INT32_OPS * 1e3, "operations", "INT32 ALU pipe"),
+             (tc / TF32_FLOPS * 1e3, "operations", "3xTF32 tensor cores")]
     return max(terms, key=lambda t: t[0])
 
 
@@ -273,13 +282,15 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, key, tries: int = 3):
+def device_ms(fn, key, tries: int = 3, need: str = ""):
     """Device time (ms) of the kernels whose name contains `key` (a string
     or a tuple of them) in one run of fn, from torch.profiler: the kernels
     alone, without the host's dispatch gaps that a CUDA-event time of short
-    launches includes.  A trace that holds none of them (the profiler on
-    the card has dropped a run's device events) is taken again, up to
-    `tries` times; None (not measured, null in the record) if none does."""
+    launches includes.  A trace that holds none of them, or none named
+    `need` where given (the profiler on the card has dropped a run's
+    device events, once only the large product's of three kernels), is
+    taken again, up to `tries` times; None (not measured, null in the
+    record) if none does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     keys = (key,) if isinstance(key, str) else key
@@ -290,9 +301,12 @@ def device_ms(fn, key, tries: int = 3):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        ms = sum(e.self_device_time_total for e in prof.key_averages()
+        events = prof.key_averages()
+        ms = sum(e.self_device_time_total for e in events
                  if any(k in e.key for k in keys)) / 1e3
-        if ms > 0:
+        needed = sum(e.self_device_time_total for e in events
+                     if need in e.key)
+        if ms > 0 and needed > 0:
             return ms
     print(f"  (torch.profiler recorded no device time for {keys} in "
           f"{tries} traces: not measured)")
@@ -505,7 +519,7 @@ class Smoke:
 
         # event times first, the kernel beside its yardstick, then the
         # profiler's device times
-        keys = ("emt_matmul", "split_sum")
+        keys = ("emt_matmul", "emt_tiled", "split_sum")
         ms = cuda_time(lambda: run(k.emt_matmul, xs), 5)
         lib_ms = cuda_time(run_library, 5)
         chunk_ms = cuda_time(lambda: run(k.emt_matmul, xc), 3)
@@ -2398,8 +2412,10 @@ class Smoke:
         tokens; the five distinct projection shapes and the tied unembed's
         table.T) and at the CNN's odd K = 27 and K = 576 (M = 32 x 32 x 32):
         held to their float64 plain versions, dw bit for bit to the float32
-        plain pass on the same x^T g, two calls bit-identical; K3's forward
-        at the same M beside them; times per gemma3 training step."""
+        plain pass on integer x and g in [-4, 4] (x^T g exact in float32
+        and in 3xTF32, whatever the order), two calls bit-identical; K3's
+        forward at the same M beside them; times per gemma3 training step
+        beside the FP32-pipe bound and the 3xTF32 tensor-core bound."""
         from repro_torch.core import hashrng, quant, regularizer
         from repro_torch.core.emt_linear import _tag_plane
         from repro_torch.core.noise import noise_factor
@@ -2425,8 +2441,9 @@ class Smoke:
             w = torch.randn((K, 64), generator=gen, device=self.dev) / K ** .5
             cases.append((f"CNN {tag}", w, raw, tag,
                           CNN_BATCH * 32 * 32, 0))
-        keys_dx = ("emt_tiled", "split_sum")
-        keys_dw = ("gemm", "emt_dw_pass", "partial_sum")
+        keys_dx = ("gemm_3xtf32", "noise_bits", "split_sum")
+        keys_dw = ("gemm_3xtf32", "dw_slab_epilogue", "partial_sum")
+        need = "gemm_3xtf32"
         tot = {}
 
         def add(key, v, n):
@@ -2451,9 +2468,13 @@ class Smoke:
             same = (torch.equal(dx, k.emt_matmul_dx(g, wq, sig, **kw))
                     and torch.equal(dw, dw2) and torch.equal(dsig, dsig2))
             del dw2
-            pdw, _ = k.plain_dw(x, g, wq, sig, **kw)
-            exact = torch.equal(dw, pdw)
-            del pdw
+            xi = torch.randint(-4, 5, x.shape, generator=gen,
+                               device=self.dev).float()
+            gi = torch.randint(-4, 5, g.shape, generator=gen,
+                               device=self.dev).float()
+            exact = torch.equal(k.emt_matmul_dw(xi, gi, wq, sig, **kw)[0],
+                                k.plain_dw(xi, gi, wq, sig, **kw)[0])
+            del xi, gi
             dx64 = k.plain_dx(g.double(), wq, sig, **kw)
             d_dx, r_dx = rel_err(dx.double(), dx64)
             del dx64
@@ -2468,10 +2489,12 @@ class Smoke:
             worst["dw"] = max(worst["dw"], d_dw)
             layout = "transposed" if wq.stride(0) == 1 else "n-major"
             p = k.plan_dx(Mc, K, N, self.sms)
+            q = k.plan_dw(Mc, K, N, self.sms)
             print(f"  K3 backward {label} {K}x{N} ({layout}) at M={Mc}: dx "
                   f"rel {r_dx:.3e} ({p.splits} N slab(s), {p.ctas} CTAs), "
-                  f"dw rel {r_dw:.3e}, dsigma {dsig.item():.6e} vs "
-                  f"{dsig64.item():.6e} (rel to sum|terms| {r_sig:.3e}); dw "
+                  f"dw rel {r_dw:.3e} ({q.splits} M slab(s), {q.ctas} "
+                  f"CTAs), dsigma {dsig.item():.6e} vs {dsig64.item():.6e} "
+                  f"(rel to sum|terms| {r_sig:.3e}); dw on integer x, g "
                   f"bit-identical to the float32 plain pass: {exact}; two "
                   f"calls bit-identical: {same}")
             self.check(r_dx <= K3_BWD_TOL and r_dw <= K3_BWD_TOL
@@ -2501,32 +2524,39 @@ class Smoke:
                                    1, warmup=1))
             del wn, f
             t["dx_dev"] = device_ms(
-                lambda: k.emt_matmul_dx(g, wq, sig, **kw), keys_dx)
+                lambda: k.emt_matmul_dx(g, wq, sig, **kw), keys_dx,
+                need=need)
             t["dw_dev"] = device_ms(
-                lambda: k.emt_matmul_dw(x, g, wq, sig, **kw), keys_dw)
-            t["pass_dev"] = device_ms(
-                lambda: k.emt_matmul_dw(x, g, wq, sig, **kw),
-                ("emt_dw_pass", "partial_sum"))
+                lambda: k.emt_matmul_dw(x, g, wq, sig, **kw), keys_dw,
+                need=need)
             alu, fma = hash_ops("K3", K * N)
             mkn = 2 * Mc * K * N
+            # (bytes, FP32 FLOPs, ALU ops, other FP32-pipe ops, TF32
+            # FLOPs): the forward's product on the FP32 pipe; dx's and
+            # dw's on the tensor cores (3xTF32), and "_fp32" the same work
+            # with the product on the FP32 pipe
             b = dict(
-                fwd=(4 * (Mc * K + K * N + Mc * N), mkn, alu, fma),
-                dx=(4 * (Mc * N + K * N + Mc * K), mkn, alu, fma),
-                dw=(4 * (Mc * K + Mc * N + 2 * K * N), mkn + 3 * K * N, alu,
-                    fma),
-                pass_=(4 * 3 * K * N, 3 * K * N, alu, fma))
+                fwd=(4 * (Mc * K + K * N + Mc * N), mkn, alu, fma, 0),
+                dx=(4 * (Mc * N + K * N + Mc * K), 0, alu, fma, 3 * mkn),
+                dw=(4 * (Mc * K + Mc * N + 2 * K * N), 3 * K * N, alu, fma,
+                    3 * mkn),
+                dx_fp32=(4 * (Mc * N + K * N + Mc * K), mkn, alu, fma, 0),
+                dw_fp32=(4 * (Mc * K + Mc * N + 2 * K * N),
+                         mkn + 3 * K * N, alu, fma, 0))
             bms = {n: bound(*v) for n, v in b.items()}
             print(f"    per call: forward {t['fwd']:.3f} ms (torch.matmul "
                   f"on the pre-noised weight {t['fwd_lib']:.3f}, bound "
                   f"{bms['fwd'][0]:.3f} {bms['fwd'][2]}); dx {t['dx']:.3f} "
                   f"ms, device {fmt(t['dx_dev'])} (yardstick "
                   f"{t['dx_lib']:.3f}, plain {t['dx_plain']:.3f}, bound "
-                  f"{bms['dx'][0]:.3f} {bms['dx'][2]}); dw {t['dw']:.3f} ms, "
-                  f"device {fmt(t['dw_dev'])}, of which the pass "
-                  f"{fmt(t['pass_dev'])} (pass bound {bms['pass_'][0]:.4f} "
-                  f"{bms['pass_'][2]}; yardstick {t['dw_lib']:.3f}, plain "
-                  f"{t['dw_plain']:.3f}, bound {bms['dw'][0]:.3f} "
-                  f"{bms['dw'][2]})")
+                  f"{bms['dx'][0]:.3f} {bms['dx'][2]}, "
+                  f"{share(bms['dx'][0], t['dx_dev'])} of it; FP32-pipe "
+                  f"bound {bms['dx_fp32'][0]:.3f}); dw {t['dw']:.3f} ms, "
+                  f"device {fmt(t['dw_dev'])} (yardstick "
+                  f"{t['dw_lib']:.3f}, plain {t['dw_plain']:.3f}, bound "
+                  f"{bms['dw'][0]:.3f} {bms['dw'][2]}, "
+                  f"{share(bms['dw'][0], t['dw_dev'])} of it; FP32-pipe "
+                  f"bound {bms['dw_fp32'][0]:.3f})")
             if per_step:
                 for n, v in t.items():
                     add(n, v, per_step)
@@ -2534,19 +2564,20 @@ class Smoke:
                     for i, part in enumerate(v):
                         add(f"{n}_b{i}", part, per_step)
             del x, g, dx, dw
-        bnd = {n: bound(*(tot[f"{n}_b{i}"] for i in range(4)))
-               for n in ("fwd", "dx", "dw", "pass_")}
+        bnd = {n: bound(*(tot[f"{n}_b{i}"] for i in range(5)))
+               for n in ("fwd", "dx", "dw", "dx_fp32", "dw_fp32")}
         print(f"  per gemma3-1b training step ({7 * L + 1} calls each, "
               f"M={M}): forward {tot['fwd']:.2f} ms (yardstick "
               f"{tot['fwd_lib']:.2f}, bound {bnd['fwd'][0]:.2f} "
               f"{bnd['fwd'][2]}); dx {tot['dx']:.2f} ms, device "
               f"{fmt(tot['dx_dev'], 2)} (yardstick {tot['dx_lib']:.2f}, bound "
-              f"{bnd['dx'][0]:.2f} {bnd['dx'][2]}); dw {tot['dw']:.2f} ms, "
-              f"device {fmt(tot['dw_dev'], 2)}, the pass "
-              f"{fmt(tot['pass_dev'], 2)} "
-              f"(pass bound {bnd['pass_'][0]:.2f} {bnd['pass_'][2]}; "
-              f"yardstick {tot['dw_lib']:.2f}, bound {bnd['dw'][0]:.2f} "
-              f"{bnd['dw'][2]})")
+              f"{bnd['dx'][0]:.2f} {bnd['dx'][2]}, "
+              f"{share(bnd['dx'][0], tot['dx_dev'])} of it; FP32-pipe bound "
+              f"{bnd['dx_fp32'][0]:.2f}); dw {tot['dw']:.2f} ms, device "
+              f"{fmt(tot['dw_dev'], 2)} (yardstick {tot['dw_lib']:.2f}, bound "
+              f"{bnd['dw'][0]:.2f} {bnd['dw'][2]}, "
+              f"{share(bnd['dw'][0], tot['dw_dev'])} of it; FP32-pipe bound "
+              f"{bnd['dw_fp32'][0]:.2f})")
         src = "src/repro_torch/kernels/csrc/emt_matmul_bwd.cu"
         replaces = ("src/repro/kernels/emt_matmul.py:57 (no TPU backward "
                     "kernel: XLA's VJP of src/repro/core/noise.py:102)")
@@ -2556,9 +2587,8 @@ class Smoke:
                 launches=None, max_abs_err=worst[key], ms=tot[key],
                 device_ms=tot[f"{key}_dev"], plain_ms=tot[f"{key}_plain"],
                 bound_ms=bnd[key][0], bound_by=bnd[key][1],
-                library_ms=tot[f"{key}_lib"])
-        self.records["emt_matmul_dw"].update(
-            pass_device_ms=tot["pass_dev"], pass_bound_ms=bnd["pass_"][0])
+                library_ms=tot[f"{key}_lib"],
+                fp32_bound_ms=bnd[f"{key}_fp32"][0])
         self.records.setdefault("emt_matmul", {}).update(
             train_ms=tot["fwd"], train_bound_ms=bnd["fwd"][0],
             train_library_ms=tot["fwd_lib"])

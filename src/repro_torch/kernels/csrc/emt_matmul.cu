@@ -31,7 +31,7 @@
 //   end of the slab (shared memory in warp order for n-major, a shuffle
 //   butterfly for k-major).
 // * M > 16 (chunk and prefill steps): a 64 x 64 tiled kernel
-//   (emt_tiled.cuh, shared with the input gradient), 32-deep K tiles,
+//   (emt_tiled.cuh), 32-deep K tiles,
 //   float4 loads in both layouts.  The raw weight and x tiles of the
 //   next K tile are loaded into registers while this tile's FMAs run, then
 //   hashed into the other of two shared-memory buffers (one barrier a
@@ -293,9 +293,9 @@ void launch_gemv(const Args& a, bool kc, int splits, cudaStream_t s) {
 template <int NS>
 void launch(const Args& a, bool kc, int splits, int xvec, cudaStream_t s) {
   if (a.M > kGemvMaxM) {
-    repro::launch_tiled<NS, false>(a.x, a.w, a.out, a.sig, a.M, a.N, a.K,
-                                   a.k_slab, a.sxm, a.sxk, a.swk, a.swn, a.vw,
-                                   xvec, a.seed, a.plane, a.np, kc, splits, s);
+    repro::launch_tiled<NS>(a.x, a.w, a.out, a.sig, a.M, a.N, a.K, a.k_slab,
+                            a.sxm, a.sxk, a.swk, a.swn, a.vw, xvec, a.seed,
+                            a.plane, a.np, kc, splits, s);
     return;
   }
   switch (a.M) {

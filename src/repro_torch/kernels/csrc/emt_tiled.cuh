@@ -1,19 +1,15 @@
-// The tiled noisy matmul shared by K3's forward (emt_matmul.cu, M > 16) and
-// its input gradient (emt_matmul_bwd.cu): out (M, C) = a (M, R) @ noisy(v)
-// with v (R, C) of any strides, the RTN noise hashed per element inside the
-// tile.  T = false: v is the weight w (K, N) itself and element (r, c)
-// hashes at (row r, col c), the forward.  T = true: v is the weight's
-// transpose, v[r][c] = w[c][r] (strides swn, swk), and element (r, c) hashes
-// at w's logical (row c, col r), so dx = g @ noisy(w)^T reads w in place
-// and draws the forward's noise.
+// K3's tiled noisy matmul (emt_matmul.cu, M > 16): out (M, N) = x (M, K) @
+// noisy(w) with w (K, N) of any strides, the RTN noise hashed per element
+// at (row k, col n) inside the tile.  (K3's backward runs on the 3xTF32
+// tensor-core template, emt_tc.cuh.)
 //
 // Design: a 64 x 64 output tile per CTA, 32-deep reduction tiles, float4
-// loads along whichever of v's strides is 1.  The raw v and a tiles of the
-// next reduction tile are loaded into registers while this tile's FMAs run,
-// then hashed into the other of two shared-memory buffers (one barrier a
-// tile); every v element is hashed once per 64-row tile.  Split along the
-// reduction by the host's plan (repro_torch/kernels/splitk.py): CTA z
-// writes its partial sums to out + z * M * C.
+// loads along whichever of w's strides is 1.  The raw w and x tiles of the
+// next reduction tile are loaded into registers while this tile's FMAs
+// run, then hashed into the other of two shared-memory buffers (one
+// barrier a tile); every w element is hashed once per 64-row tile.  Split
+// along K by the host's plan (repro_torch/kernels/splitk.py): CTA z writes
+// its partial sums to out + z * M * N.
 #pragma once
 #include <cstdint>
 
@@ -24,16 +20,14 @@ namespace repro {
 constexpr int kTiledThreads = 256;
 constexpr int kTBM = 64, kTBN = 64, kTBK = 32;
 
-// KC: v is not column-contiguous (svc != 1; the load runs along r).
-template <bool KC, int NS, bool T>
+// KC: w is not n-contiguous (swn != 1; the load runs along k).
+template <bool KC, int NS>
 __global__ void __launch_bounds__(kTiledThreads, 2)
 emt_tiled(const float* __restrict__ x, const float* __restrict__ w,
           float* __restrict__ out, const float* __restrict__ sig_ptr, int M,
           int N, int K, int k_slab, long long sxm, long long sxk,
           long long swk, long long swn, int vw, int xvec, uint32_t seed,
           uint32_t plane, NoiseParams np) {
-  // Names follow the forward: x (M, K) @ w (K, N); for T, "w" is v, K the
-  // reduction (R) and N the output columns (C).
   __shared__ __align__(16) float ws[2][kTBK][kTBN];
   __shared__ __align__(16) float xs[2][kTBK][kTBM + 4];
   const int tid = threadIdx.x;
@@ -49,10 +43,9 @@ emt_tiled(const float* __restrict__ x, const float* __restrict__ w,
   // loader coordinates: n-major weights by (row, 4-column group); k-major
   // weights and x by (column or row, 8-deep K run)
   const int ln = tid & 63, lq = tid >> 6;
-  // the noisy value of element (k, n): hashed at (k, n), or (n, k) for T
+  // the noisy value of element (k, n), hashed at (k, n)
   auto hashed = [&](float v, int k, int n) {
-    return T ? noisy<NS>(v, (uint32_t)n, (uint32_t)k, pk, F)
-             : noisy<NS>(v, (uint32_t)k, (uint32_t)n, pk, F);
+    return noisy<NS>(v, (uint32_t)k, (uint32_t)n, pk, F);
   };
 
   float acc[4][4];
@@ -146,9 +139,9 @@ emt_tiled(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Launch emt_tiled<KC, NS, T> over an (M, N) output in `splits` slabs of
+// Launch emt_tiled<KC, NS> over an (M, N) output in `splits` slabs of
 // `k_slab` reduction rows.
-template <int NS, bool T>
+template <int NS>
 void launch_tiled(const float* x, const float* w, float* out, const float* sig,
                   int M, int N, int K, int k_slab, long long sxm,
                   long long sxk, long long swk, long long swn, int vw,
@@ -156,11 +149,11 @@ void launch_tiled(const float* x, const float* w, float* out, const float* sig,
                   const NoiseParams& np, bool kc, int splits, cudaStream_t s) {
   dim3 grid((N + kTBN - 1) / kTBN, (M + kTBM - 1) / kTBM, splits);
   if (kc)
-    emt_tiled<true, NS, T><<<grid, kTiledThreads, 0, s>>>(
+    emt_tiled<true, NS><<<grid, kTiledThreads, 0, s>>>(
         x, w, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, vw, xvec, seed,
         plane, np);
   else
-    emt_tiled<false, NS, T><<<grid, kTiledThreads, 0, s>>>(
+    emt_tiled<false, NS><<<grid, kTiledThreads, 0, s>>>(
         x, w, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, vw, xvec, seed,
         plane, np);
 }

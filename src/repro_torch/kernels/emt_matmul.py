@@ -12,9 +12,10 @@ a tiled one above; both split K by :func:`plan`).
 ``fluctuate`` + ``@``: ``dx = g @ (w f)^T``, ``dw = (x^T g) f`` and
 ``dsigma = sum (x^T g) w a``, with ``f = fl(1 + a sigma)``.  The port's
 forward never materializes the noise, so its backward hashes it again in
-two kernels of ``csrc/emt_matmul_bwd.cu``: :func:`emt_matmul_dx` (K3-dx)
-and :func:`emt_matmul_dw` (K3-dw, after ``x^T g`` by torch.matmul, as JAX
-leaves that product to XLA).
+two kernels of ``csrc/emt_matmul_bwd.cu``, both on the 3xTF32 tensor-core
+template ``csrc/emt_tc.cuh``: :func:`emt_matmul_dx` (K3-dx, the noise in
+the weight operand's transform) and :func:`emt_matmul_dw` (K3-dw, x^T g
+with the noise in its epilogue).
 
 On a CPU tensor each wrapper computes its plain version
 (:mod:`repro_torch.kernels.ref`); on a CUDA tensor it launches its kernel or
@@ -42,11 +43,14 @@ MAX_STATES = 8
 # in multiples of 32 rows), or 32 columns of any other weight (multiples of
 # 128), and stages its slab's x rows, at most GEMV_X_BYTES, in shared
 # memory; the tiled kernel covers 64 x 64 outputs in 32-row K tiles.
+# K3's backward (csrc/emt_tc.cuh) covers 128 x 128 outputs in 32-deep
+# reduction tiles, one CTA per SM.
 GEMV_MAX_M = 16
 GEMV_X_BYTES = 24 * 1024
 GEMV_N = dict(bn=128, bk=32, min_slab=64)
 GEMV_K = dict(bn=32, bk=128, min_slab=256)
 TILED = dict(bm=64, bn=64, bk=32, min_slab=64)
+TC = dict(bm=128, bn=128, bk=32)
 
 
 class NoiseParams(ctypes.Structure):
@@ -103,11 +107,13 @@ def _noise_params(offsets: tuple, probs: tuple) -> NoiseParams:
 
 
 @functools.lru_cache(maxsize=None)
-def _fn(lib: str, entry: str):
+def _fn(lib: str, entry: str, pointers: int = 6):
+    """The C entry `entry` of `lib`: `pointers` pointer arguments, then the
+    seed and the plane, the noise table and the stream."""
     fn = getattr(_build.library(lib), entry)
     if fn.argtypes is None:
         P, U = ctypes.c_void_p, ctypes.c_uint
-        fn.argtypes = [P, P, P, P, P, P, U, U, P, P]
+        fn.argtypes = [P] * pointers + [U, U, P, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -125,9 +131,23 @@ def plan(M: int, N: int, K: int, sms: int, n_major: bool) -> splitk.Plan:
 
 
 def plan_dx(M: int, K: int, N: int, sms: int) -> splitk.Plan:
-    """K3-dx's cut of g (M, N) @ w^T (N, K): the tiled kernel's 64 x 64
-    output tiles of (M, K), N split as the forward splits K."""
-    return splitk.plan(M, K, N, sms=sms, **TILED)
+    """K3-dx's cut of g (M, N) @ w^T (N, K): 128 x 128 output tiles of
+    (M, K), N split into whole 32-column tiles by splitk.plan_waves."""
+    return splitk.plan_waves(M, K, N, sms=sms, **TC)
+
+
+def plan_dw(M: int, K: int, N: int, sms: int) -> splitk.Plan:
+    """K3-dw's cut of x^T (K, M) @ g (M, N): 128 x 128 output tiles of
+    (K, N), M split into whole 32-row tiles by splitk.plan_waves."""
+    return splitk.plan_waves(K, N, M, sms=sms, **TC)
+
+
+def dw_buffer_floats(p: splitk.Plan) -> tuple:
+    """(workspace, partials) floats of K3-dw's two buffers under plan_dw's
+    plan `p`, as the C entry reads them: the slabs' partial x^T g
+    (p.splits * K * N, none without a split), and four partials of dsigma
+    per output tile (its 32-row quarters) then dsigma itself."""
+    return (p.splits * p.M * p.N if p.splits > 1 else 0), 4 * p.tiles + 1
 
 
 @functools.lru_cache(maxsize=4096)
@@ -208,24 +228,27 @@ def emt_matmul_dx(g: torch.Tensor, w: torch.Tensor, sig: torch.Tensor, *,
     K = w.shape[0]
     p, _, dims = _launch_dx(index, M, K, N, *g.stride(), *w.stride())
     dx, part = splitk.outputs(p, g)
-    err = _fn("emt_matmul_bwd", "emt_matmul_dx_f32")(
-        g.data_ptr(), w.data_ptr(), dx.data_ptr(), part, sig.data_ptr(),
-        dims, int(seed) & 0xFFFFFFFF, int(plane) & 0xFFFFFFFF,
-        ctypes.addressof(noise_params(device)), _build.stream(index))
+    npar = noise_params(device)
+    # a two-state table's noise-state bits, one per weight element (freed
+    # on return)
+    bits = (torch.empty(K * splitk.cdiv(N, 32), dtype=torch.int32,
+                        device=g.device) if npar.n_states == 2 else None)
+    err = _fn("emt_matmul_bwd", "emt_matmul_dx_f32", 7)(
+        g.data_ptr(), w.data_ptr(), dx.data_ptr(), part,
+        None if bits is None else bits.data_ptr(), sig.data_ptr(), dims,
+        int(seed) & 0xFFFFFFFF, int(plane) & 0xFFFFFFFF,
+        ctypes.addressof(npar), _build.stream(index))
     _build.check(err, "emt_matmul_dx")
     emt_matmul_dx.launches += 1
     return dx
 
 
-# csrc/emt_matmul_bwd.cu: the dw pass runs a fixed grid of at most this
-# many CTAs, each writing one partial of dsigma
-DW_BLOCKS = 1024
-
-
 @functools.lru_cache(maxsize=4096)
-def _launch_dw(K, N, swk, swn):
-    dims = (ctypes.c_longlong * 4)(K, N, swk, swn)
-    return dims, ctypes.addressof(dims)
+def _launch_dw(index, M, K, N, sxm, sxk, sgm, sgn, swk, swn):
+    p = plan_dw(M, K, N, splitk.sm_count(index))
+    dims = (ctypes.c_longlong * 11)(M, K, N, p.splits, p.k_slab, sxm, sxk,
+                                    sgm, sgn, swk, swn)
+    return p, dims, ctypes.addressof(dims)
 
 
 def emt_matmul_dw(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
@@ -233,8 +256,9 @@ def emt_matmul_dw(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
                   plane: int = 0):
     """K3-dw: (dw, dsigma) of y = x (M, K) @ noisy(w (K, N)) for the
     cotangent g (M, N): dw = (x^T g) * f (K, N), contiguous, and dsigma =
-    sum (x^T g) * w * a, a float32 scalar summed in a fixed order.  x^T g
-    comes from torch.matmul; the kernel overwrites it with dw."""
+    sum (x^T g) * w * a, a float32 scalar summed in a fixed order (one
+    partial per 32-row quarter of each 128 x 128 tile of dw, then those in
+    order); x, g and w of any strides."""
     if _on_cpu("emt_matmul_dw", x):
         return plain_dw(x, g, w, sig, device=device, seed=seed, plane=plane)
     index = _check("emt_matmul_dw", x, w, sig, 0)
@@ -244,17 +268,23 @@ def emt_matmul_dw(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"emt_matmul_dw: g {tuple(g.shape)} {g.dtype} on "
                          f"{g.device} for x {tuple(x.shape)} @ w "
                          f"{tuple(w.shape)} on {x.device}")
-    gw = torch.matmul(x.T, g).contiguous()
-    buf = torch.empty(DW_BLOCKS + 1, dtype=torch.float32, device=x.device)
-    _, dims = _launch_dw(K, N, *w.stride())
-    err = _fn("emt_matmul_bwd", "emt_matmul_dw_f32")(
-        gw.data_ptr(), w.data_ptr(), sig.data_ptr(), buf.data_ptr(),
-        buf.data_ptr() + 4 * DW_BLOCKS, dims, int(seed) & 0xFFFFFFFF,
+    p, _, dims = _launch_dw(index, x.shape[0], K, N, *x.stride(),
+                            *g.stride(), *w.stride())
+    n_ws, n_part = dw_buffer_floats(p)
+    dw = torch.empty((K, N), dtype=torch.float32, device=x.device)
+    part = torch.empty(n_part, dtype=torch.float32, device=x.device)
+    # the slabs' workspace, freed on return (the returned dsigma, a view of
+    # `part`, holds none of it)
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=x.device)
+          if n_ws else None)
+    err = _fn("emt_matmul_bwd", "emt_matmul_dw_f32", 8)(
+        x.data_ptr(), g.data_ptr(), w.data_ptr(), dw.data_ptr(),
+        None if ws is None else ws.data_ptr(), part.data_ptr(), sig.data_ptr(), dims, int(seed) & 0xFFFFFFFF,
         int(plane) & 0xFFFFFFFF, ctypes.addressof(noise_params(device)),
         _build.stream(index))
     _build.check(err, "emt_matmul_dw")
     emt_matmul_dw.launches += 1
-    return gw, buf[DW_BLOCKS]
+    return dw, part[n_part - 1]
 
 
 class _NoisyMatmul(torch.autograd.Function):

@@ -1,5 +1,5 @@
 """Split-K planning shared by the noisy matmul kernels (K3 ``emt_matmul``,
-K5 ``emt_bitserial``).
+K5 ``emt_bitserial``, and K3's backward through :func:`plan_waves`).
 
 A kernel whose output tiles alone give fewer than ``CTAS_PER_SM`` CTAs per
 SM splits K into slabs of whole ``bk``-row tiles, one CTA per (output tile,
@@ -21,6 +21,14 @@ import torch
 # register counts (up to 128 a thread, 256 threads a CTA) let an SM hold at
 # once.
 CTAS_PER_SM = 2
+# plan_waves' cost model, in k-tiles of one CTA: the pipeline's fill (two
+# tiles in flight before the first product), and the write and read-back
+# of one 64 KB partial tile over the card's memory rate (~2.8 k-tiles of
+# a 3xTF32 CTA at 132 SMs; estimated from the shapes, and within a few
+# percent of the best of 1-128 slabs at gemma3-1b's and the CNN's shapes
+# in timed sweeps on an H100 80GB HBM3 at 700 W).
+WAVE_FILL = 2
+WAVE_IO = 3.0
 
 
 def cdiv(a: int, b: int) -> int:
@@ -61,6 +69,35 @@ def plan(M: int, N: int, K: int, *, bm: int, bn: int, bk: int, sms: int,
         want = max(want, cdiv(K, max_slab))
     k_slab = max(bk, cdiv(cdiv(max(K, 1), want), bk) * bk)
     return Plan(M, N, K, bm, bn, bk, max(1, cdiv(K, k_slab)), k_slab)
+
+
+def plan_waves(M: int, N: int, K: int, *, bm: int, bn: int, bk: int,
+               sms: int) -> Plan:
+    """The split of K for a kernel that holds one CTA per SM (K3's
+    backward, 225 KB of shared memory a CTA): the slab count s that
+    minimizes the modelled time, in units of one bk-deep tile of one CTA,
+
+        ceil(tiles * s / sms) * (ceil(K / bk / s) + WAVE_FILL)
+            + WAVE_IO * s * tiles / sms
+
+    that is, the waves of CTAs times each CTA's k-tiles plus its pipeline
+    fill, and the partial tiles' write and read-back by the slab sum
+    (split_sum, or K3-dw's slab epilogue) spread over the card (none
+    without a split).  Ties go to fewer slabs.  Slabs
+    are whole bk tiles; the last may be shorter, none is empty."""
+    tiles = cdiv(N, bn) * cdiv(M, bm)
+    kt = max(1, cdiv(K, bk))
+    best = None
+    for s in range(1, kt + 1):
+        per = cdiv(kt, s)
+        if cdiv(kt, per) != s:          # the same cut as fewer slabs
+            continue
+        cost = cdiv(tiles * s, sms) * (per + WAVE_FILL) + (
+            WAVE_IO * s * tiles / sms if s > 1 else 0.0)
+        if best is None or cost < best[0]:
+            best = (cost, s, per)
+    _, s, per = best
+    return Plan(M, N, K, bm, bn, bk, s, per * bk)
 
 
 def outputs(p: Plan, like: torch.Tensor):

@@ -81,12 +81,43 @@ def test_k3_matches_plain_and_noise_bit_exact(cuda, M, K, N, transposed, dev):
     assert torch.equal(k3.emt_matmul(eye, w, sig, **kw), ref)
 
 
-# (M, K, N, transposed) for K3's backward: the tiled template in both
-# weight layouts (the tied unembed's transpose), ragged M, K and N, the
-# CNN's K = 27, dx split along N (few output tiles, long N), one row.
+# (M, K, N, transposed) for K3's backward: the 3xTF32 template in both
+# weight layouts (the tied unembed's transpose); ragged M, K and N, below,
+# at and past the 128 x 128 tile's edges and the 32-deep k-tile's, rows not
+# 16-byte aligned (the 4-byte loads); the CNN's K = 27 as dx's width and
+# dw's row count; a reduction of one row, of 10, and of N = 64 (8
+# k-steps); dx split along N (few output tiles over a long N) and dw along
+# M (few output tiles over a long M): K3_BWD_SPLIT names which.
 K3_BWD_CASES = [(64, 96, 200, False), (100, 27, 64, False),
                 (33, 130, 1001, True), (17, 40, 3000, False),
-                (8, 300, 4100, True), (1, 64, 96, False), (70, 256, 10, False)]
+                (8, 300, 4100, True), (1, 64, 96, False), (70, 256, 10, False),
+                (129, 129, 257, False), (255, 127, 384, True),
+                (128, 256, 128, False), (130, 200, 5000, True),
+                (4096, 27, 64, False), (3000, 130, 200, True),
+                (2049, 576, 64, False)]
+# case: (dx splits > 1, dw splits > 1) at the H100's 132 SMs (most other
+# cases split too; (70, 256, 10) leaves dx unsplit)
+K3_BWD_SPLIT = {(17, 40, 3000, False): (True, False),
+                (130, 200, 5000, True): (True, False),
+                (4096, 27, 64, False): (False, True),
+                (3000, 130, 200, True): (True, True),
+                (2049, 576, 64, False): (False, True)}
+
+
+def _k3_bwd_inputs(cuda, M, K, N, transposed, integer=False):
+    """x (M, K), g (M, N) and w (K, N) (w the transpose of an (N, K)
+    tensor if `transposed`) from a seed; with `integer`, x and g integers
+    in [-4, 4], so that x^T g is exact in float32 and in 3xTF32 alike."""
+    g_ = torch.Generator(device=cuda).manual_seed(M + K + N)
+    if integer:
+        x = torch.randint(-4, 5, (M, K), generator=g_, device=cuda).float()
+        g = torch.randint(-4, 5, (M, N), generator=g_, device=cuda).float()
+    else:
+        x = torch.randn((M, K), generator=g_, device=cuda)
+        g = torch.randn((M, N), generator=g_, device=cuda)
+    w = torch.randn((N, K) if transposed else (K, N), generator=g_,
+                    device=cuda)
+    return x, g, w.T if transposed else w
 
 
 @pytest.mark.parametrize("M,K,N,transposed", K3_BWD_CASES)
@@ -94,15 +125,17 @@ K3_BWD_CASES = [(64, 96, 200, False), (100, 27, 64, False),
                          ids=["two", "four"])
 def test_k3_backward_matches_plain(cuda, M, K, N, transposed, dev):
     """K3-dx and K3-dw within 1e-5 of their plain versions in float64 (dx,
-    dw, dsigma); dw bit for bit against the plain pass on the same x^T g;
-    two calls bit-identical; one launch each; and autograd through
-    emt_matmul gives them."""
-    g_ = torch.Generator(device=cuda).manual_seed(M + K + N)
-    x = torch.randn((M, K), generator=g_, device=cuda)
-    g = torch.randn((M, N), generator=g_, device=cuda)
-    w = torch.randn((N, K) if transposed else (K, N), generator=g_,
-                    device=cuda)
-    w = w.T if transposed else w
+    dw, dsigma); on integer x and g in [-4, 4] (x^T g exact in either
+    precision and any order) dw bit for bit against the float32 plain
+    pass; two calls bit-identical; one launch each; the split counts
+    K3_BWD_SPLIT names; and autograd through emt_matmul gives them."""
+    x, g, w = _k3_bwd_inputs(cuda, M, K, N, transposed)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pdx, pdw = k3.plan_dx(M, K, N, sms), k3.plan_dw(M, K, N, sms)
+    plans = f"dx {pdx}, dw {pdw}"
+    if sms == 132 and (M, K, N, transposed) in K3_BWD_SPLIT:
+        assert K3_BWD_SPLIT[M, K, N, transposed] == (
+            pdx.splits > 1, pdw.splits > 1), plans
     sig = dev.sigma_rel(torch.tensor(3.5, device=cuda))
     kw = dict(device=dev, seed=99, plane=1234)
     before = (k3.emt_matmul_dx.launches, k3.emt_matmul_dw.launches)
@@ -112,14 +145,17 @@ def test_k3_backward_matches_plain(cuda, M, K, N, transposed, dev):
         before[0] + 1, before[1] + 1)
     dx64 = k3.plain_dx(g.double(), w, sig, **kw)
     dw64, dsig64 = k3.plain_dw(x.double(), g.double(), w, sig, **kw)
-    assert _rel(dx.double(), dx64) <= 1e-5
-    assert _rel(dw.double(), dw64) <= 1e-5
-    assert abs(dsig.item() - dsig64.item()) <= 1e-5 * dw64.abs().sum().item()
-    pdw, _ = k3.plain_dw(x, g, w, sig, **kw)
-    assert torch.equal(dw, pdw)
+    assert _rel(dx.double(), dx64) <= 1e-5, plans
+    assert _rel(dw.double(), dw64) <= 1e-5, plans
+    assert abs(dsig.item() - dsig64.item()) <= (
+        1e-5 * dw64.abs().sum().item()), plans
     assert torch.equal(dx, k3.emt_matmul_dx(g, w, sig, **kw))
     dw2, dsig2 = k3.emt_matmul_dw(x, g, w, sig, **kw)
     assert torch.equal(dw, dw2) and torch.equal(dsig, dsig2)
+    xi, gi, _ = _k3_bwd_inputs(cuda, M, K, N, transposed, integer=True)
+    dwi, _ = k3.emt_matmul_dw(xi, gi, w, sig, **kw)
+    pdwi, _ = k3.plain_dw(xi, gi, w, sig, **kw)
+    assert torch.equal(dwi, pdwi), plans
     xr = x.clone().requires_grad_(True)
     wr = w.clone().requires_grad_(True)
     sr = sig.clone().requires_grad_(True)

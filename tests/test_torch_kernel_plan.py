@@ -302,3 +302,92 @@ def test_k2_splits_fill_the_card():
         B, KV, R, T, bs, hd = shape
         assert s & (s - 1) == 0 and 1 <= s <= k2.MAX_SPLITS
         assert s <= splitk.cdiv(T * bs, k2.chunk_positions(hd))
+
+
+def _cnn_shapes():
+    """{(M, K, N)} of vgg16_cifar's K3 calls at batch 32: each conv's
+    im2col rows (32 images x its stage's H x W), 9 x C_in and C_out, and
+    the head."""
+    from repro_torch.configs import paper_cnn
+    cfg = paper_cnn.vgg16_cifar()
+    shapes, cin, side = set(), cfg.in_channels, cfg.image_size
+    for c in cfg.channels:
+        for b in range(cfg.blocks_per_stage):
+            shapes.add((32 * side * side, 9 * (cin if b == 0 else c), c))
+            shapes.add((32 * side * side, 9 * c, c))
+        cin, side = c, side // 2
+    shapes.add((32, cfg.channels[-1], cfg.num_classes))
+    return sorted(shapes)
+
+
+CNN = _cnn_shapes()
+# K3's backward at every main-path shape: (M, K, N) with M the rows of x
+# and g, w (K, N); gemma3-1b's six at a training step's M = 8 x 128 (the
+# unembed is table.T), and the CNN's
+K3_BWD_SHAPES = ([(1024, K, N) for K, N, _ in GEMMA] + CNN)
+
+
+def test_k3_backward_main_path_shapes():
+    assert (32768, 27, 64) in CNN and (32768, 576, 64) in CNN
+    assert (2048, 2304, 256) in CNN and len(CNN) == 7
+    assert (1024, 1152, 262144) in K3_BWD_SHAPES
+
+
+def _next_cut(p: splitk.Plan):
+    """The slab count of the next finer cut of p's reduction into whole
+    bk tiles (more slabs than p's), None when p's slabs are one tile."""
+    kt = splitk.cdiv(max(p.K, 1), p.bk)
+    per = p.k_slab // p.bk
+    return splitk.cdiv(kt, per - 1) if per > 1 else None
+
+
+@pytest.mark.parametrize("which", ["dx", "dw"])
+@pytest.mark.parametrize("M,K,N", K3_BWD_SHAPES,
+                         ids=[f"M{M}-{K}x{N}" for M, K, N in K3_BWD_SHAPES])
+def test_k3_backward_plan(which, M, K, N):
+    """K3-dx's and K3-dw's cut (128 x 128 output tiles, one CTA per SM):
+    slabs of whole 32-deep k-steps covering the reduction (dx: N, dw: M);
+    the grid fills at least one wave of 132 SMs, or holds as many CTAs
+    as fit in one wave whole slabs allow (the next finer cut would pass
+    it, or there is none); the plan is the argmin of plan_waves' cost model; the buffers
+    have the sizes the C entries read; dw's partials of dsigma are four
+    per output tile (its 32-row quarters), whatever the SM count."""
+    plan = k3.plan_dx if which == "dx" else k3.plan_dw
+    p = plan(M, K, N, SMS)
+    assert p == plan(M, K, N, SMS)
+    _check_cover(p)
+    assert (p.bm, p.bn, p.bk) == (128, 128, 32)
+    out, red = ((M, K), N) if which == "dx" else ((K, N), M)
+    assert (p.M, p.N, p.K) == (*out, red)
+    assert p.tiles == splitk.cdiv(out[0], 128) * splitk.cdiv(out[1], 128)
+    finer = _next_cut(p)
+    assert p.ctas >= SMS or finer is None or p.tiles * finer > SMS
+
+    kt = splitk.cdiv(red, 32)
+
+    def cost(s):
+        per = splitk.cdiv(kt, s)
+        return (splitk.cdiv(p.tiles * s, SMS) * (per + splitk.WAVE_FILL)
+                + (splitk.WAVE_IO * s * p.tiles / SMS if s > 1 else 0.0))
+    assert all(cost(p.splits) <= cost(s) for s in range(1, kt + 1))
+    if which == "dx":
+        _check_workspace(p)
+        return
+    ws, part = k3.dw_buffer_floats(p)
+    assert ws == (p.splits * K * N if p.splits > 1 else 0)
+    for sms in (78, 114, 132, 144):
+        q = k3.plan_dw(M, K, N, sms)
+        assert k3.dw_buffer_floats(q)[1] == part == 4 * p.tiles + 1
+
+
+def test_k3_backward_main_path_grids():
+    """The thin gemma3-1b outputs split their reduction: dx of the
+    (1152, 6912) and unembed weights (72 tiles of (1024, 1152)) into 7 and
+    11 slabs; dw of the CNN's first conv (one (27, 64) tile over M =
+    32,768) into 128 slabs of 256 rows; the wide ones do not."""
+    assert k3.plan_dx(1024, 1152, 6912, SMS).splits == 7
+    assert k3.plan_dx(1024, 1152, 262144, SMS).splits == 11
+    first = k3.plan_dw(32768, 27, 64, SMS)
+    assert (first.tiles, first.splits, first.k_slab) == (1, 128, 256)
+    assert k3.plan_dw(1024, 1152, 262144, SMS).splits == 1
+    assert k3.plan_dx(1024, 6912, 1152, SMS).splits == 1
