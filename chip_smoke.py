@@ -48,13 +48,13 @@ Phases (any failure exits non-zero and prints no result line):
    kernel call held to its plain version, and the logits to the plain
    path's as in phase 4;
 6. serve 6 staggered requests with prompts of 520-600 tokens (max_len
-   640) through gemma3-1b as published: 22 sliding-window layers (window
-   512, every ring wraps) and 4 global, analog, per-row DAC scale, frozen
-   noise, chunked prefill; on the paged layout (per-slot rings of blocks
-   for the local layers) with exact launch counts, K1 26 per decode step,
-   K2 4 per chunk step (the global layers), K3 183 per step, and on the
-   contiguous layout (JAX's default engine; K3 183 per step, no K1 or
-   K2).  Then, on a history chunk step that wraps the rings, a chunk step
+   640) through gemma3-1b's published 5:1 stack cut to RING_LAYERS = 12
+   deep: 10 sliding-window layers (window 512, every ring wraps) and 2
+   global, analog, per-row DAC scale, frozen noise, chunked prefill; on
+   the paged layout (per-slot rings of blocks for the local layers) with
+   exact launch counts, K1 12 per decode step, K2 2 per chunk step (the
+   global layers), K3 85 per step, and on the contiguous layout (JAX's
+   default engine; K3 85 per step, no K1 or K2).  Then, on a history chunk step that wraps the rings, a chunk step
    and a decode step: every paged kernel call held to its plain version
    (K1 on the ring tables to its float64 plain version), and the logits
    of the paged and contiguous paths against each other and each against
@@ -100,7 +100,34 @@ Phases (any failure exits non-zero and prints no result line):
    SyntheticImages) under A+B (K3, K3-dx, K3-dw) and A+B+C (K5, the
    ideal-matmul VJP): gradients against the plain versions
    (CNN_PLAIN_TOL, ReLU gate flips counted), three steps with exact
-   launch counts, finite losses and every rho moved by technique B.
+   launch counts, finite losses and every rho moved by technique B;
+9. (run between phases 7 and 8) speculative decoding and int8 weight
+   streaming at full gemma3-1b width
+   (all-global, analog, per-row DAC scale, frozen noise, batch 4): in
+   phase 3 K3 with the int8 weight operand (the 182 projections of
+   ``quantize_tree_for_serving(params)``; the tied unembed stays float32)
+   at M = 4 and 64 against its plain version, bit-exact noisy weights,
+   timed per step and per weight shape beside torch.matmul on the
+   dequantized pre-noised weights and beside dequantizing in PyTorch
+   before the float32 kernel; then the speculative engine
+   (``ServeSpec(draft_placement="sram_digital", spec_k=4,
+   temperature=0)``) on the paged and on the contiguous layout against the
+   plain engine of the same spec on 6 staggered requests of 20-96 prompt
+   tokens, max_new 32: launches exact from the engine's round log (K3 183
+   a model step, K2 26 a verify step on the paged layout, no K1), the
+   three ledger invariants at rtol 1e-6, tokens equal up to each
+   request's first differing one and the logits up to it within
+   POISSON_LOGIT_TOL (margins and DAC flips printed at each difference),
+   accept rate, tokens/s and analog uJ/token with and without
+   speculation, one full round timed and its verify step profiled
+   (paged), then every kernel call
+   of a round against its plain version (a draft decode, K3's GEMV at
+   sigma 0; the verify, K3 tiled at M = 20 and K2 at C = 5); then the
+   int8 engine on phase 4's requests
+   (182 int8 and 1 float32 K3 launches a step; its device busy a step and
+   peak memory against phase 4's), its kernel calls against
+   their plain versions and its logits against the float32 engine's
+   (1e-3 at the 24-bit DAC, the 8-bit gap reported).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Every "ms" is the kernel's time in one
@@ -109,7 +136,10 @@ step, K2 = the 26 prefill launches of a chunk step, K3 = the 183 noisy
 matmuls of an analog decode step, K4 = the 12 cross-attention launches of
 a seamless decode step, K5 = the 78 bit-serial MLP matmuls of a mixed
 decode step, K3-dx and K3-dw (``emt_matmul_dx``, ``emt_matmul_dw``) = the
-183 calls each of a gemma3-1b training step at M = 1,024; K3's and K5's records also carry ``chunk_ms``,
+183 calls each of a gemma3-1b training step at M = 1,024, K3 int8
+(``emt_matmul_int8``) = the 182 int8 calls and the float32 unembed of a
+decode step (its launches: the int8 engine's run); K3's and K5's
+records also carry ``chunk_ms``,
 ``chunk_bound_ms`` and ``chunk_library_ms``, the same matmuls and their
 yardstick at M = 64, and K1's, K4's and K5's
 ``device_ms`` (K5's also ``chunk_device_ms``), the kernels' device time in
@@ -119,7 +149,9 @@ K1-K3 in the analog run, K4 in the seamless run and K5 in the mixed run;
 K1-K3 also carry ``ring_paged_launches`` and ``ring_contiguous_launches``,
 their counts in the two ring runs, and ``prefix_launches`` and
 ``poisson_launches``, their counts in the prefix cache's cache-on run and
-in the Poisson stream; K3's ``train_launches``, ``train_ms``,
+in the Poisson stream; K2's and K3's ``spec_paged_launches`` and
+``spec_contiguous_launches`` are their counts in the two speculative
+runs; K3's ``train_launches``, ``train_ms``,
 ``train_bound_ms`` and ``train_library_ms`` are its forward's in the
 training run; K3-dx's and K3-dw's "launches" count the training run's
 three uninterrupted steps and ``cnn_launches`` the two CNN runs'.
@@ -182,10 +214,18 @@ SEED = 0
 # the ring paths: prompts past gemma3-1b's 512-position window, so that
 # every ring wraps
 RING_MAX_LEN, RING_PROMPTS = 640, (520, 600)
+# the ring paths' depth, cut from the published 26 layers to 12 (the 5:1
+# pattern twice: 10 ring layers, 2 global) to keep the whole smoke well
+# within its 1200 s limit (each 6 layers cost about 40 s of it); the
+# widths, window and lengths are the published ones
+RING_LAYERS = 12
 # the prefix path: prompts of 128 tokens and a continuation of 145 (request
 # 0's prompt and its first 17 generated tokens, so that block 8, written by
 # decode, is hit); the cache-on run's pool evicts registered blocks
 PREFIX_MAX_LEN, PREFIX_CONT_AT, PREFIX_ON_BLOCKS = 192, 17, 40
+# the speculative paths: 6 staggered greedy requests of 20-96 prompt
+# tokens, max_new 32, drafting SPEC_K tokens a round on sram_digital
+SPEC_K, SPEC_MAX_NEW, SPEC_PROMPTS = 4, 32, (20, 96)
 # the request the Poisson path cancels after its first token
 POISSON_CANCEL = 3
 # The Poisson stream against engine.serve of the same requests: a token may
@@ -286,14 +326,18 @@ def device_ms(fn, key, tries: int = 3, need: str = ""):
     """Device time (ms) of the kernels whose name contains `key` (a string
     or a tuple of them) in one run of fn, from torch.profiler: the kernels
     alone, without the host's dispatch gaps that a CUDA-event time of short
-    launches includes.  A trace that holds none of them, or none named
+    launches includes ("" matches every kernel: the device busy time).
+    `key` may be a dict of such keys by name: then a dict of their times
+    from the same trace.  A trace that holds none of them, or none named
     `need` where given (the profiler on the card has dropped a run's
     device events, once only the large product's of three kernels), is
     taken again, up to `tries` times; None (not measured, null in the
     record) if none does."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    keys = (key,) if isinstance(key, str) else key
+    groups = key if isinstance(key, dict) else {None: key}
+    groups = {n: (k,) if isinstance(k, str) else k for n, k in groups.items()}
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -301,16 +345,20 @@ def device_ms(fn, key, tries: int = 3, need: str = ""):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        events = prof.key_averages()
-        ms = sum(e.self_device_time_total for e in events
-                 if any(k in e.key for k in keys)) / 1e3
+        # device events only: an aten op's entry carries the device time
+        # of the kernels it launched, which are entries too
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        ms = {n: sum(e.self_device_time_total for e in events
+                     if any(k in e.key for k in keys)) / 1e3
+              for n, keys in groups.items()}
         needed = sum(e.self_device_time_total for e in events
                      if need in e.key)
-        if ms > 0 and needed > 0:
-            return ms
-    print(f"  (torch.profiler recorded no device time for {keys} in "
-          f"{tries} traces: not measured)")
-    return None
+        if min(ms.values()) > 0 and needed > 0:
+            return ms if isinstance(key, dict) else ms[None]
+    print(f"  (torch.profiler recorded no device time for "
+          f"{list(groups.values())} in {tries} traces: not measured)")
+    return dict.fromkeys(key) if isinstance(key, dict) else None
 
 
 def rel_err(a, b) -> tuple:
@@ -328,6 +376,7 @@ class Smoke:
         self.failures = []
         self.records = {}
         self.ring_summaries = {}
+        self.spec_summaries = {}
 
     def sync(self):
         self.torch.cuda.synchronize()
@@ -377,17 +426,20 @@ class Smoke:
                                 a_per_row=True)
         self.mixed = build_config(ARCH, smoke=False, placement="mixed",
                                   all_global=True, a_per_row=True)
-        # the published stack: 5 sliding-window (ring) layers to 1 global
-        self.ring = build_config(ARCH, "analog", smoke=False, a_per_row=True)
-        self.check(self.ring.blocks().count("global") == 4
+        # the published stack, 5 sliding-window (ring) layers to 1 global,
+        # cut to RING_LAYERS deep
+        self.ring = build_config(ARCH, "analog", smoke=False, a_per_row=True,
+                                 model_overrides={"num_layers": RING_LAYERS})
+        self.check(self.ring.blocks().count("global") == RING_LAYERS // 6
                    and self.ring.sliding_window == 512,
                    f"ring stack {self.ring.blocks()}")
         # every projection of the three paths is active (it has a rho_raw)
         # and a local layer has a global one's weights: one parameter tree
-        # serves all three
+        # serves all three (the ring stack reads its first RING_LAYERS
+        # layers)
         shapes = [[(k, tuple(v.shape)) for k, v in _flat(lm.specs(c))]
                   for c in (self.cfg, self.mixed, self.ring)]
-        self.check(shapes[0] == shapes[1] == shapes[2],
+        self.check(shapes[0] == shapes[1] and set(shapes[2]) <= set(shapes[0]),
                    "analog, mixed and ring parameter trees differ")
         t0 = time.perf_counter()
         self.params = lm.init_model_params(self.cfg, SEED, device=self.dev)
@@ -565,6 +617,185 @@ class Smoke:
                   f"(device time {fmt(g_dev, 4)}), bound {g_b:.4f} ms "
                   f"({g_term}; {g_bytes / 1e9:.3f} GB), share of the device "
                   f"time {share(g_b, g_dev)}")
+
+    def k3_int8(self):
+        """K3 with the int8 weight operand (store_int8 serving): the 182
+        projections of quantize_tree_for_serving(params) as int8 levels and
+        per-column scales, the tied unembed float32 (its dict holds no
+        w), at a decode step (M = 4) and a chunk step (M = 64).  Every
+        distinct weight shape within 1e-5 of the plain version (dequantize,
+        then K3's plain path), two calls bit-identical, x = I bit-exact
+        with fluctuate of the dequantized weight; timed with its plain
+        version and torch.matmul on the dequantized, pre-noised float32
+        weights; bound: the int8 bytes against the hash's ALU-pipe
+        operations (HASH_OPS["K3"]) and the FP32 pipe's (plus one FMUL an
+        element for the dequantization)."""
+        from repro_torch.core import noise, regularizer
+        from repro_torch.core.emt_linear import (_tag_plane,
+                                                 quantize_tree_for_serving)
+        from repro_torch.kernels import emt_matmul as k
+        from repro_torch.kernels.ref import dequantize
+        torch = self.torch
+        emt = self.cfg.emt
+        self.params_q = quantize_tree_for_serving(self.params)
+        layers = self.params_q["decoder"]
+        prepared = []                   # (w operand, rho, sig, plane)
+        for name in sorted(layers):
+            blk = layers[name]
+            for grp, w in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                           ("attn", "wo"), ("ffn", "wg"), ("ffn", "wu"),
+                           ("ffn", "wd")):
+                p = blk[grp][w]
+                tag = f"dec/{name}/{'mlp' if grp == 'ffn' else grp}/{w}"
+                rho = regularizer.rho_from_raw(p["rho_raw"])
+                prepared.append(((p["w_int8"], p["w_scale"]), rho,
+                                 emt.device.sigma_rel(rho), _tag_plane(tag)))
+        from repro_torch.core import quant
+        table_q, _ = quant.quantize_weights(self.params["embed"]["table"].T,
+                                            emt.quant)
+        rho = regularizer.rho_from_raw(self.params_q["lm_head"]["rho_raw"])
+        prepared.append((table_q, rho, emt.device.sigma_rel(rho),
+                         _tag_plane("unembed")))
+        gen = torch.Generator(device=self.dev).manual_seed(3)
+        seen, worst = set(), 0.0
+        for w, rho, sig, plane in prepared:
+            if not isinstance(w, tuple):
+                continue                # the float unembed: the K3 phase's
+            shape = tuple(w[0].shape)
+            if shape in seen:
+                continue
+            seen.add(shape)
+            K, N = shape
+            for M in (BATCH, BATCH * CHUNK):
+                x = torch.randn((M, K), generator=gen, device=self.dev)
+                y = k.emt_matmul(x, w, sig, device=emt.device, seed=SEED,
+                                 plane=plane)
+                y2 = k.emt_matmul(x, w, sig, device=emt.device, seed=SEED,
+                                  plane=plane)
+                yp = k.plain(x, w, sig, device=emt.device, seed=SEED,
+                             plane=plane)
+                self.sync()
+                d, r = rel_err(y, yp)
+                same = torch.equal(y, y2)
+                worst = max(worst, d)
+                p = k.plan(M, N, K, self.sms, True)
+                print(f"  K3 int8 {M}x{K} @ {K}x{N}: max|diff| {d:.3e} rel "
+                      f"{r:.3e}; {p.splits} K slab(s) of {p.k_slab}, "
+                      f"{p.ctas} CTAs; two calls bit-identical: {same}")
+                self.check(r <= 1e-5, f"K3 int8 {M}x{K}x{N} rel {r:.3e}")
+                self.check(same, f"K3 int8 {M}x{K}x{N}: two calls differ")
+            eye = torch.eye(K, device=self.dev)
+            wn = k.emt_matmul(eye, w, sig, device=emt.device, seed=SEED,
+                              plane=plane)
+            ref = noise.fluctuate(dequantize(*w), rho, emt.device, emt.noise,
+                                  seed=SEED, plane=plane)
+            same = torch.equal(wn, ref)
+            print(f"  K3 int8 noisy weight {K}x{N} bit-exact with fluctuate "
+                  f"of the dequantized weight: {same}")
+            self.check(same, f"K3 int8 noisy weight {K}x{N} differs")
+            del eye, wn, ref
+        xs = [torch.randn((BATCH, (w[0] if isinstance(w, tuple) else w)
+                           .shape[0]), generator=gen, device=self.dev)
+              for w, *_ in prepared]
+        xc = [torch.randn((BATCH * CHUNK, x.shape[1]), generator=gen,
+                          device=self.dev) for x in xs]
+
+        def run(fn, inputs):
+            for x, (w, rho, sig, plane) in zip(inputs, prepared):
+                fn(x, w, sig, device=emt.device, seed=SEED, plane=plane)
+
+        noisy = [noise.fluctuate(dequantize(*w) if isinstance(w, tuple)
+                                 else w, rho, emt.device, emt.noise,
+                                 seed=SEED, plane=plane)
+                 for w, rho, sig, plane in prepared]
+
+        def run_library(inputs=xs):
+            for x, wn in zip(inputs, noisy):
+                torch.matmul(x, wn)
+
+        def step_bound(M):
+            """Bytes (x, the weight as stored: int8 levels + the float32
+            scale, or float32, and y), FP32 FLOPs, and the hash's, the
+            select's and the dequantization's operations per element."""
+            nbytes = flops = elements = deq = 0
+            for w, *_ in prepared:
+                q8 = isinstance(w, tuple)
+                K, N = (w[0] if q8 else w).shape
+                nbytes += 4 * M * K + 4 * M * N + (K * N + 4 * N if q8
+                                                   else 4 * K * N)
+                flops += 2 * M * K * N
+                elements += K * N
+                deq += K * N if q8 else 0
+            alu, fma = hash_ops("K3", elements)
+            return bound(nbytes, flops, alu, fma + deq), nbytes, flops, alu
+
+        keys = ("emt_matmul", "emt_tiled", "split_sum")
+        ms = cuda_time(lambda: run(k.emt_matmul, xs), 5)
+        lib_ms = cuda_time(run_library, 5)
+        chunk_ms = cuda_time(lambda: run(k.emt_matmul, xc), 3)
+        chunk_lib_ms = cuda_time(lambda: run_library(xc), 3)
+        dev_ms = device_ms(lambda: run(k.emt_matmul, xs), keys)
+        chunk_dev_ms = device_ms(lambda: run(k.emt_matmul, xc), keys)
+        del noisy
+
+        def dequantized(x, w, sig, **kw):
+            """The alternative to the int8 operand: dequantize in PyTorch,
+            then the float32 kernel."""
+            return k.emt_matmul(x, dequantize(*w) if isinstance(w, tuple)
+                                else w, sig, **kw)
+
+        # every kernel of the step: the dequantization's and K3's
+        deq_dev_ms = device_ms(lambda: run(dequantized, xs), "")
+        plain_ms = cuda_time(lambda: run(k.plain, xs), 2, warmup=1)
+        (b_ms, by, bterm), nbytes, flops, alu = step_bound(BATCH)
+        (cb_ms, _, cterm), _, cflops, _ = step_bound(BATCH * CHUNK)
+        self.records["emt_matmul_int8"] = dict(
+            name="emt_matmul_int8", route="cuda",
+            source="src/repro_torch/kernels/csrc/emt_matmul.cu",
+            replaces="src/repro/kernels/emt_matmul.py:57",
+            max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
+            chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
+            chunk_bound_ms=cb_ms, chunk_library_ms=chunk_lib_ms,
+            dequantized_device_ms=deq_dev_ms)
+        print(f"  K3 int8 per decode step: dequantizing in PyTorch and "
+              f"running the float32 kernel instead takes {fmt(deq_dev_ms)} "
+              f"of device time against the int8 operand's {fmt(dev_ms)}")
+        print(f"  K3 int8 per decode step ({len(prepared) - 1} int8 calls + "
+              f"the float32 unembed, M={BATCH}): kernel {ms:.3f} ms (device "
+              f"time {fmt(dev_ms)}), plain {plain_ms:.3f} ms, torch.matmul "
+              f"on dequantized pre-noised weights {lib_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({bterm}; {nbytes / 1e9:.3f} GB over the "
+              f"memory rate {nbytes / HBM_BPS * 1e3:.3f} ms, {alu / 1e9:.2f} "
+              f"G ALU-pipe operations {alu / INT32_OPS * 1e3:.3f} ms), "
+              f"share of the device time {share(b_ms, dev_ms)}")
+        print(f"  K3 int8 per chunk step (M={BATCH * CHUNK}): kernel "
+              f"{chunk_ms:.3f} ms (device time {fmt(chunk_dev_ms)}), "
+              f"torch.matmul {chunk_lib_ms:.3f} ms, bound {cb_ms:.3f} ms "
+              f"({cterm}; {cflops / 1e9:.3f} GFLOP), share of the device "
+              f"time {share(cb_ms, chunk_dev_ms)}")
+        # per distinct int8 weight shape, at both row counts
+        groups = {}
+        for i, (w, *_) in enumerate(prepared):
+            if isinstance(w, tuple):
+                groups.setdefault(tuple(w[0].shape), []).append(i)
+        for (K, N), idx in groups.items():
+            for M, inputs in ((BATCH, xs), (BATCH * CHUNK, xc)):
+                def run_group(idx=idx, inputs=inputs):
+                    for i in idx:
+                        w, rho, sig, plane = prepared[i]
+                        k.emt_matmul(inputs[i], w, sig, device=emt.device,
+                                     seed=SEED, plane=plane)
+                g_ms = cuda_time(run_group, 5)
+                g_dev = device_ms(run_group, keys)
+                g_bytes = len(idx) * (K * N + 4 * N + 4 * M * (K + N))
+                alu, fma = hash_ops("K3", len(idx) * K * N)
+                g_b, _, g_term = bound(g_bytes, 2 * M * len(idx) * K * N,
+                                       alu, fma + len(idx) * K * N)
+                print(f"  K3 int8 {K}x{N} at M={M}: {len(idx)} calls a "
+                      f"step, {g_ms:.4f} ms (device time {fmt(g_dev, 4)}), "
+                      f"bound {g_b:.4f} ms ({g_term}; {g_bytes / 1e9:.4f} "
+                      f"GB), share of the device time {share(g_b, g_dev)}")
 
     def k5(self):
         """Technique-C bit-serial matmul at every MLP projection of one
@@ -1087,7 +1318,8 @@ class Smoke:
         steps of the legacy prefill) and `per_kind` decode steps are
         captured, then stop; print each step's wall time, device busy time
         (the sum of its device events) and top kernels.  Profiling single
-        steps keeps the trace small."""
+        steps keeps the trace small.  Returns each kind's device busy ms,
+        a list per kind."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1095,6 +1327,7 @@ class Smoke:
             eng.submit(r)
         prefill = "chunk" if eng.chunked else "admission + decode"
         seen = {prefill: 0, "decode": 0}
+        busy_ms = {prefill: [], "decode": []}
         n = 0
         while eng.scheduler.busy and min(seen.values()) < per_kind:
             n += 1
@@ -1120,6 +1353,7 @@ class Smoke:
                   and e.self_device_time_total > 0]
             ev.sort(key=lambda e: e.self_device_time_total, reverse=True)
             busy = sum(e.self_device_time_total for e in ev) / 1e3
+            busy_ms[kind].append(busy)
             ops = sum(e.count for e in prof.key_averages()
                       if e.key.startswith("aten::"))
             print(f"  profiled {kind} step {n}: wall {wall:.1f} ms "
@@ -1128,6 +1362,7 @@ class Smoke:
             for e in ev[:8]:
                 print(f"    {e.self_device_time_total / 1e3:8.2f} ms "
                       f"{e.count:6d}x {e.key[:80]}")
+        return busy_ms
 
     def _counters(self):
         from repro_torch.kernels import emt_bitserial as k5
@@ -1138,6 +1373,7 @@ class Smoke:
                 "paged_attention": k1.paged_attention,
                 "paged_prefill": k2.paged_prefill,
                 "emt_matmul": k3.emt_matmul,
+                "emt_matmul_int8": k3._forward_int8,
                 "emt_matmul_dx": k3.emt_matmul_dx,
                 "emt_matmul_dw": k3.emt_matmul_dw,
                 "emt_bitserial": k5.emt_bitserial}
@@ -1186,6 +1422,7 @@ class Smoke:
         steps = {"chunk_step": 0, "decode_step": 0}
         self.sync()
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         for w in counters.values():
             w.launches = 0
         t0 = time.perf_counter()
@@ -1223,12 +1460,15 @@ class Smoke:
                    <= 1e-6 * m["total_energy_pj"],
                    f"{label}: corners sum to {total}, total "
                    f"{m['total_energy_pj']}")
-        self._profile_steps(make(), self._requests(cfg, ring), per_kind)
+        busy = self._profile_steps(make(), self._requests(cfg, ring),
+                                   per_kind)
         summary = dict(tok_s=ntok / wall, wall_s=wall, tokens=ntok,
                        steps=m["steps"], chunk_steps=steps["chunk_step"],
                        decode_steps=steps["decode_step"],
                        uj_per_token=m["total_energy_pj"] * 1e-6 / ntok,
-                       uj_per_token_by_corner=corners, peak_gib=peak / 2**30)
+                       uj_per_token_by_corner=corners, peak_gib=peak / 2**30,
+                       peak_above_resident_gib=(peak - resident) / 2**30,
+                       step_busy_ms=busy)
         return summary, launches, m, results
 
     def _check_launches(self, label, launches, steps, per_step):
@@ -1246,8 +1486,8 @@ class Smoke:
     def engine(self):
         """The analog path: K1, K2 and K3 (183 per step), no K5."""
         L = self.cfg.num_layers
-        summary, launches, m, _ = self._serve(self.cfg, self.params,
-                                              "analog", 2)
+        summary, launches, m, self.engine_results = self._serve(
+            self.cfg, self.params, "analog", 2)
         self._check_launches("analog", launches, m["steps"], {
             "paged_attention_decode": None, "paged_prefill": None,
             "emt_matmul": 7 * L + 1, "emt_bitserial": 0,
@@ -1298,12 +1538,13 @@ class Smoke:
         self.s2s_summary = summary
 
     def _engine_ring(self, paged):
-        """gemma3-1b as published (22 ring layers of window 512, 4 global)
-        on 6 requests of 520-600 tokens.  Paged: per decode step 26 K1
-        (22 on ring tables, 4 on the global one), per chunk step 4 K2 (the
-        global layers; a ring layer's chunk attends in plain PyTorch, as
-        in JAX), 183 K3 per step.  Contiguous: 183 K3 per step, nothing
-        else (its attention is plain, as in JAX)."""
+        """gemma3-1b's published 5:1 stack cut to RING_LAYERS (12: 10 ring
+        layers of window 512, 2 global) on 6 requests of 520-600 tokens.
+        Paged: per decode step 12 K1 (10 on ring tables, 2 on the global
+        ones), per chunk step 2 K2 (the global layers; a ring layer's chunk
+        attends in plain PyTorch, as in JAX), 85 K3 per step.  Contiguous:
+        85 K3 per step, nothing else (its attention is plain, as in
+        JAX)."""
         cfg = self.ring
         L, G = cfg.num_layers, cfg.blocks().count("global")
         label = "ring paged" if paged else "ring contiguous"
@@ -1334,7 +1575,8 @@ class Smoke:
         self._engine_ring(False)
 
     def _ring_steps(self, cfg, paged):
-        """Three model steps on the published stack at full width, from a
+        """Three model steps on the ring stack at full width (the published
+        5:1 pattern, RING_LAYERS deep), from a
         fresh cache (paged, or contiguous): one history chunk step that
         writes positions [0, 530 / 589 / 505 / 300) (three rings wrap;
         K3 at M = 4 x 589), then a chunk step (two rows wrapped, one
@@ -1397,11 +1639,13 @@ class Smoke:
         return [("history chunk step", None, n), ("chunk step", lc, n),
                 ("decode step", ld, n)]
 
-    def _step_pair(self, cfg):
-        """One chunk step (over K/V history) then one decode step on `cfg`,
-        from a fresh cache.  Returns [(step, logits or None, projections
-        it runs)] in call order; the history step's logits are not held."""
+    def _step_pair(self, cfg, params=None):
+        """One chunk step (over K/V history) then one decode step on `cfg`
+        (and `params`, default the float32 tree), from a fresh cache.
+        Returns [(step, logits or None, projections it runs)] in call
+        order; the history step's logits are not held."""
         import numpy as np
+        params = self.params if params is None else params
         from repro_torch.models import lm
         from repro_torch.models.context import Ctx
         from repro_torch.serve.kv_pool import PagedKV
@@ -1426,14 +1670,14 @@ class Smoke:
         cache = lm.init_paged_cache(cfg, BATCH, MAX_LEN, BLOCK, nb,
                                     device=self.dev)
         # history: positions [0, start) of the rows that have one
-        lm.chunk_step(self.params, cache, toks, torch.zeros_like(start),
+        lm.chunk_step(params, cache, toks, torch.zeros_like(start),
                       start.clamp(min=1), cfg, Ctx(seed=SEED),
                       active=start > 0, page_tables=pt, page_lens=lens)
-        lc, cache, _ = lm.chunk_step(self.params, cache, toks, start, ntok,
+        lc, cache, _ = lm.chunk_step(params, cache, toks, start, ntok,
                                      cfg, Ctx(seed=SEED), active=act,
                                      page_tables=pt, page_lens=lens)
         nxt = torch.as_tensor(self._first_tokens(lc), device=self.dev)
-        ld, cache, _ = lm.decode_step(self.params, cache, nxt, start + ntok,
+        ld, cache, _ = lm.decode_step(params, cache, nxt, start + ntok,
                                       cfg, Ctx(seed=SEED), active=act,
                                       page_tables=pt, page_lens=lens)
         n = 7 * cfg.num_layers + 1
@@ -1510,9 +1754,9 @@ class Smoke:
         from repro_torch.kernels import paged_attention as k1
         from repro_torch.kernels import paged_prefill as k2
         torch = self.torch
-        worst = {"emt_matmul": 0.0, "emt_bitserial": 0.0,
-                 "paged_attention_decode": 0.0, "paged_attention": 0.0,
-                 "paged_prefill": 0.0}
+        worst = {"emt_matmul": 0.0, "emt_matmul_int8": 0.0,
+                 "emt_bitserial": 0.0, "paged_attention_decode": 0.0,
+                 "paged_attention": 0.0, "paged_prefill": 0.0}
         counts = dict.fromkeys(worst, 0)
         pools_ok = {"paged_attention_decode": True, "paged_attention": True}
         names = ("_emt_matmul", "_emt_bitserial", "_paged_decode",
@@ -1522,9 +1766,10 @@ class Smoke:
         def checked(name, attr, plain):
             def call(*args, **kw):
                 y = orig[attr](*args, **kw)
-                worst[name] = max(worst[name],
-                                  rel_err(y, plain(*args, **kw))[1])
-                counts[name] += 1
+                # K3's int8 weight operand (levels, scale) counts apart
+                n = name + "_int8" if isinstance(args[1], tuple) else name
+                worst[n] = max(worst[n], rel_err(y, plain(*args, **kw))[1])
+                counts[n] += 1
                 return y
             return call
 
@@ -1619,9 +1864,9 @@ class Smoke:
             self._s2s_steps)
 
     def ring_calls_vs_plain(self):
-        """The ring paged steps: 26 K1 calls in the decode step (22 on
-        wrapped ring tables), 4 K2 calls in each chunk step, 183 K3 calls
-        a step."""
+        """The ring paged steps: 6 K1 calls in the decode step (5 on
+        wrapped ring tables), 1 K2 call in each chunk step, 43 K3 calls a
+        step."""
         self.__dict__.pop("_tokens", None)
         L, G = self.ring.num_layers, self.ring.blocks().count("global")
         self._calls_vs_plain(self.ring, "ring paged", {
@@ -1831,9 +2076,10 @@ class Smoke:
         frozen noise, paged, temperature 0: the default scenario matrix's
         base (benchmarks/matrix.py default_matrix) on the card."""
         from repro_torch.serve.spec import ServeSpec
+        kw.setdefault("paged", True)
         return ServeSpec(arch=ARCH, mode="analog", smoke=False,
                          all_global=True, a_per_row=True, frozen_noise=True,
-                         paged=True, temperature=0.0, **kw)
+                         temperature=0.0, **kw)
 
     def _reset_launches(self):
         counters = self._counters()
@@ -2235,15 +2481,17 @@ class Smoke:
             emt_linear.quant_levels = quant
             sampling.sample_tokens = sample
 
-    def _schedule_gap(self, results, differ, stream, serve, projections):
-        """Hold the Poisson stream's logits (`stream`, traced on the replay
-        of its schedule, which gave the stream's results bit for bit) to
-        engine.serve's (`serve`) on every token of every request up to and
-        including its first differing one (`differ`: rid -> index), within
-        POISSON_LOGIT_TOL.  At each first difference and at POISSON_PROBE
-        print both runs' top-2 margins, the margin of each run's token over
-        the other's, and the DAC levels that differ in the row computing
-        it.  Returns the largest logit gap."""
+    def _schedule_gap(self, results, differ, stream, serve, projections,
+                      label="Poisson", probe=POISSON_PROBE):
+        """Hold the logits of one schedule (`stream`: the Poisson stream's,
+        traced on the replay of its schedule, which gave the stream's
+        results bit for bit; or a speculative run's) to engine.serve's
+        (`serve`) on every token of every request up to and including its
+        first differing one (`differ`: rid -> index), within
+        POISSON_LOGIT_TOL.  At each first difference and at `probe` print
+        both runs' top-2 margins, the margin of each run's token over the
+        other's, and the DAC levels that differ in the row computing it.
+        Returns the largest logit gap."""
         worst, at = 0.0, None
         for r in results:
             n = min(len(r.tokens), differ.get(r.rid, len(r.tokens)) + 1)
@@ -2252,22 +2500,22 @@ class Smoke:
                     .max().item()
                 if d > worst:
                     worst, at = d, (r.rid, i)
-        print(f"  Poisson vs engine.serve: logits max|diff| {worst:.4e} at "
+        print(f"  {label} vs engine.serve: logits max|diff| {worst:.4e} at "
               f"(rid, token) {at} over every token up to each request's "
               f"first differing one, limit {POISSON_LOGIT_TOL:g}")
         self.check(worst <= POISSON_LOGIT_TOL,
-                   f"Poisson: logits differ from engine.serve's by "
+                   f"{label}: logits differ from engine.serve's by "
                    f"{worst:.4e} at {at} > {POISSON_LOGIT_TOL:g}")
-        for rid, i in sorted(set(differ.items()) | {POISSON_PROBE}):
+        for rid, i in sorted(set(differ.items()) | {probe}):
             (la, lva), (lb, lvb) = stream[(rid, i)], serve[(rid, i)]
             (va, ia), (vb, ib) = la.topk(2), lb.topk(2)
             ta, tb = int(ia[0]), int(ib[0])
             self.check(len(lva) == len(lvb) == projections,
-                       f"Poisson: {len(lva)} / {len(lvb)} projections "
+                       f"{label}: {len(lva)} / {len(lvb)} projections "
                        f"traced for ({rid}, {i}), want {projections}")
             flips = [int((a != b).sum().item()) for a, b in zip(lva, lvb)]
             first = next((c for c, f in enumerate(flips) if f), None)
-            print(f"  Poisson (rid {rid}, token {i}): stream {ta} (over "
+            print(f"  {label} (rid {rid}, token {i}): {ta} (over "
                   f"the runner-up {int(ia[1])} by {float(va[0] - va[1]):.4e},"
                   f" over {tb} by {float(la[ta] - la[tb]):.4e}), "
                   f"engine.serve {tb} (over the runner-up {int(ib[1])} by "
@@ -2383,6 +2631,396 @@ class Smoke:
         eng = spec.build_engine(self.cfg, self.params, max_len=max_len,
                                 torch_device=self.dev)
         self._engine_calls_vs_plain("Poisson", eng, [reqs[:3], reqs[3:5]])
+
+    # -- phase 9: speculative decoding and int8 weight streaming -----------
+    def _spec_requests(self):
+        """6 greedy requests, prompts of 20-96 tokens, max_new 32: every
+        request runs several rounds within max_len 128."""
+        import numpy as np
+        from repro_torch.serve.engine import GenRequest
+        rng = np.random.default_rng(SEED + 17)
+        return [GenRequest(prompt=rng.integers(
+            0, self.cfg.vocab_size, int(rng.integers(
+                SPEC_PROMPTS[0], SPEC_PROMPTS[1] + 1))).astype(np.int32),
+            max_new=SPEC_MAX_NEW, seed=2000 + i) for i in range(6)]
+
+    @contextlib.contextmanager
+    def _spec_trace(self, eng, out: dict, log: dict):
+        """Trace a speculative engine: out[(rid, index)] = (the verify
+        lane's logits row, [the DAC levels, as int8, of that lane's input
+        row, per projection]) for every token it commits (each one a
+        target's argmax of a verify lane: lane j for a decode slot's j-th
+        token, the last prompt lane for a prompt's first token); log counts
+        the model steps (verify, draft chunk, draft decode) and the draft
+        chunk's catch-up rows."""
+        from repro_torch.core import emt_linear
+        from repro_torch.models import lm
+        torch = self.torch
+        quant, chunk, decode = (emt_linear.quant_levels, lm.chunk_step,
+                                lm.decode_step)
+        book, step, on_token = eng._book_draft_step, eng.step, eng.on_token
+        cur = {"on": False, "levels": [], "logits": None}
+        events = []
+        C = eng.spec_k + 1
+
+        def levels(x, *args, **kw):
+            lv, scale = quant(x, *args, **kw)
+            if cur["on"]:
+                cur["levels"].append(lv.detach().reshape(
+                    eng.batch_size, -1, lv.shape[-1]).to(torch.int8))
+            return lv, scale
+
+        def chunk_step(*args, **kw):
+            if not kw.get("all_lanes"):
+                log["draft chunk"] += 1
+                return chunk(*args, **kw)
+            log["verify"] += 1
+            cur.update(on=True, levels=[])
+            try:
+                logits, cache, aux = chunk(*args, **kw)
+            finally:
+                cur["on"] = False
+            cur["logits"] = logits.detach()
+            return logits, cache, aux
+
+        def decode_step(*args, **kw):
+            log["draft decode"] += 1
+            return decode(*args, **kw)
+
+        def book_draft(aux, rows, prefill_rows=None):
+            if prefill_rows is None:
+                return book(aux, rows)
+            log["catch-up rows"] += len(set(rows) - set(prefill_rows))
+            return book(aux, rows, prefill_rows)
+
+        def traced_step():
+            before = {s.rid: (i, s.prefilling, s.pos, len(s.prompt),
+                              len(s.generated))
+                      for i, s in eng.scheduler.active_slots()}
+            events.clear()
+            res = step()
+            seen = {}
+            for rid, tok in events:
+                i, prefilling, pos, plen, n0 = before[rid]
+                k = seen.get(rid, 0)
+                seen[rid] = k + 1
+                lane = min(C, plen - pos) - 1 if prefilling else k
+                out[(rid, n0 + k)] = (cur["logits"][i, lane].clone(),
+                                      [lv[i, lane] for lv in cur["levels"]])
+            return res
+
+        def token(rid, tok):
+            events.append((rid, tok))
+            if on_token is not None:
+                on_token(rid, tok)
+
+        emt_linear.quant_levels = levels
+        lm.chunk_step, lm.decode_step = chunk_step, decode_step
+        eng._book_draft_step, eng.step, eng.on_token = (book_draft,
+                                                        traced_step, token)
+        try:
+            yield
+        finally:
+            emt_linear.quant_levels = quant
+            lm.chunk_step, lm.decode_step = chunk, decode
+            eng._book_draft_step, eng.step, eng.on_token = (book, step,
+                                                            on_token)
+
+    def _engine_spec(self, paged):
+        """The speculative engine at full gemma3-1b width (all-global,
+        analog on the default cell, per-row DAC, frozen noise, batch 4,
+        block 16, built through ServeSpec(draft_placement="sram_digital",
+        spec_k=4, temperature=0)) against the plain engine of the same spec
+        on 6 staggered requests.  Launches exact from the round log: K3 183
+        a model step (verify, draft chunk and draft decode alike), K2 26 a
+        verify step on the paged layout (its 5-lane query chunk), no K1 (the
+        target never runs a decode step; the draft's cache is contiguous).
+        The three ledger invariants at rtol 1e-6.  Tokens equal to the plain
+        engine's up to each request's first differing one, and the logits
+        of every token up to it within POISSON_LOGIT_TOL (_schedule_gap:
+        the verify runs K3's tiled kernel where plain decode runs its
+        GEMV, ROADMAP Queue 3).  Then one full round (four draft decodes
+        and the verify) timed and its verify step profiled (paged only: the
+        contiguous one differs in the attention alone), and every kernel
+        call of a round of one
+        draft decode (K3's GEMV at sigma 0) and the verify (K3 tiled at
+        M = 20, K2 at C = 5 on the paged layout) against its plain
+        version."""
+        import numpy as np
+        torch = self.torch
+        L = self.cfg.num_layers
+        layout = "paged" if paged else "contiguous"
+        label = f"speculative {layout}"
+        plain_spec = self._serve_spec(paged=paged, batch_size=BATCH,
+                                      block_size=BLOCK, max_len=MAX_LEN,
+                                      prefill_chunk=CHUNK)
+        spec = plain_spec.replace(draft_placement="sram_digital",
+                                  spec_k=SPEC_K)
+        runs = {}
+        for name, sp in (("plain", plain_spec), ("speculative", spec)):
+            eng = sp.build_engine(self.cfg, self.params, torch_device=self.dev)
+            traced = {}
+            log = dict.fromkeys(("verify", "draft chunk", "draft decode",
+                                 "catch-up rows"), 0)
+            steps = {"chunk_step": 0, "decode_step": 0}
+            self.sync()
+            torch.cuda.reset_peak_memory_stats()
+            counters = self._reset_launches()
+            t0 = time.perf_counter()
+            if name == "plain":
+                with self._counting_steps(steps), \
+                        self._token_trace(eng, traced):
+                    res = eng.serve(self._spec_requests(), stagger=2)
+                    self.sync()
+            else:
+                with self._spec_trace(eng, traced, log):
+                    res = eng.serve(self._spec_requests(), stagger=2)
+                    self.sync()
+            wall = time.perf_counter() - t0
+            launches = {n: w.launches for n, w in counters.items()}
+            m = eng.metrics()
+            ntok = sum(len(r.tokens) for r in res)
+            runs[name] = dict(eng=eng, res=res, traced=traced, log=log,
+                              launches=launches, m=m, wall=wall, ntok=ntok,
+                              steps=steps,
+                              peak=torch.cuda.max_memory_allocated())
+        base, sp = runs["plain"], runs["speculative"]
+        eng, m, log, launches = sp["eng"], sp["m"], sp["log"], sp["launches"]
+        n_steps = log["verify"] + log["draft chunk"] + log["draft decode"]
+        print(f"  {label}: round log: {log['verify']} verify steps (rounds), "
+              f"{log['draft decode']} draft decodes, {log['draft chunk']} "
+              f"draft chunks ({log['catch-up rows']} catch-up rows), "
+              f"{m['spec_rounds']} slot rounds; engine steps {m['steps']} "
+              f"(draft {m['draft_steps']}); launches {launches}")
+        self.check(n_steps == m["steps"] and m["draft_steps"]
+                   == log["draft chunk"] + log["draft decode"]
+                   and log["verify"] > 0 and log["draft decode"] > 0,
+                   f"{label}: round log {log} against metrics steps "
+                   f"{m['steps']}, draft {m['draft_steps']}")
+        want = {"emt_matmul": (7 * L + 1) * n_steps,
+                "paged_prefill": L * log["verify"] if paged else 0,
+                "paged_attention_decode": 0, "paged_attention": 0,
+                "emt_bitserial": 0, "emt_matmul_int8": 0}
+        for n, k in want.items():
+            self.check(launches[n] == k, f"{label}: {n} launched "
+                       f"{launches[n]} times, want {k} (round log {log})")
+        res = sp["res"]
+        total = m["total_energy_pj"]
+        corners = m["corner_energy_pj"]
+        dsum = sum(r.draft_energy_pj for r in res)
+        inv = {
+            "per-request + idle == total": (
+                sum(r.energy_pj for r in res) + m["idle_energy_pj"], total),
+            "corners == total": (sum(corners.values()), total),
+            "draft per-request + draft idle == draft total": (
+                dsum + m["draft_idle_energy_pj"], m["draft_total_energy_pj"]),
+            "draft total == corner sram_digital": (
+                m["draft_total_energy_pj"], corners.get("sram_digital", 0.0))}
+        for what, (a, b) in inv.items():
+            ok = bool(np.isclose(a, b, rtol=1e-6))
+            print(f"  {label}: {what}: {a:.9g} vs {b:.9g} ({ok})")
+            self.check(ok, f"{label}: {what}: {a} vs {b}")
+        ref = {r.rid: r.tokens for r in base["res"]}
+        differ = {r.rid: int(np.argmin(np.append(
+            r.tokens == ref[r.rid][:len(r.tokens)], False)))
+            for r in res if not np.array_equal(r.tokens, ref[r.rid])}
+        for r in res:
+            self.check(r.done_reason == "max_new"
+                       and len(r.tokens) == SPEC_MAX_NEW,
+                       f"{label}: rid {r.rid} {r.done_reason} "
+                       f"{len(r.tokens)} tokens")
+        toks = {r.rid: r.tokens for r in res}
+        firsts = {rid: (i, int(toks[rid][i]), int(ref[rid][i]))
+                  for rid, i in differ.items()}
+        print(f"  {label} vs the plain engine: {len(differ)} of {len(res)} "
+              f"requests differ {firsts} (rid: first index, speculative "
+              f"token, plain token)")
+        gap = self._schedule_gap(res, differ, sp["traced"], base["traced"],
+                                 7 * L + 1, label=label, probe=(0, 1))
+        per = {}
+        for name, run in runs.items():
+            c = run["m"]["corner_energy_pj"]
+            per[name] = dict(
+                traced_tok_s=run["ntok"] / run["wall"],
+                traced_wall_s=run["wall"],
+                tokens=run["ntok"], steps=run["m"]["steps"],
+                uj_per_token=run["m"]["total_energy_pj"] * 1e-6
+                / run["ntok"],
+                analog_uj_per_token=c.get("analog", 0.0) * 1e-6
+                / run["ntok"],
+                peak_gib=run["peak"] / 2**30)
+            print(f"  {label}, {name} engine: {run['ntok']} tokens in "
+                  f"{run['wall']:.3f} s (traced, no warm-up run) -> "
+                  f"{per[name]['traced_tok_s']:.2f}"
+                  f" tok/s, {run['m']['steps']} steps; analog "
+                  f"{per[name]['analog_uj_per_token']:.4f} uJ/token, total "
+                  f"{per[name]['uj_per_token']:.4f} uJ/token; peak device "
+                  f"memory {per[name]['peak_gib']:.2f} GiB")
+        print(f"  {label}: accept rate {eng.accept_rate:.4f}, accepted-"
+              f"length histogram {eng.accept_len_hist.tolist()}, draft "
+              f"energy {m['draft_total_energy_pj'] * 1e-6:.4f} uJ "
+              f"({100 * m['draft_total_energy_pj'] / total:.2f}% of total)")
+        key = f"spec_{layout}_launches"
+        for n in ("paged_prefill", "emt_matmul"):
+            self.records[n][key] = launches[n]
+        self.spec_summaries[label] = dict(
+            speculative=per["speculative"], plain=per["plain"],
+            accept_rate=eng.accept_rate,
+            accept_len_hist=eng.accept_len_hist.tolist(),
+            draft_uj=m["draft_total_energy_pj"] * 1e-6, round_log=log,
+            differ=len(differ), logit_gap=gap)
+        if paged:                       # the contiguous round's is alike
+            self.spec_summaries[label].update(
+                self._profile_verify(spec, label, paged))
+        self._spec_round_vs_plain(spec, label, paged)
+
+    def _round_engine(self, spec, drafts=SPEC_K):
+        """A fresh speculative engine whose next step is a round of
+        `drafts` draft decode steps and the verify (one 5-lane chunk step):
+        4 requests of 5-token prompts admitted and prefilled through one
+        verify chunk, each with `drafts` + 2 tokens to generate (the round
+        drafts at most remaining - 1)."""
+        import numpy as np
+        from repro_torch.serve.engine import GenRequest
+        eng = spec.build_engine(self.cfg, self.params, torch_device=self.dev)
+        rng = np.random.default_rng(SEED + 19)
+        for _ in range(BATCH):
+            eng.submit(GenRequest(prompt=rng.integers(
+                0, self.cfg.vocab_size, SPEC_K + 1).astype(np.int32),
+                max_new=drafts + 2))
+        eng.step()
+        return eng
+
+    def _profile_verify(self, spec, label, paged):
+        """One round (4 draft decodes and the verify) timed on the host,
+        untraced; then its verify chunk step replayed under torch.profiler
+        (device_ms): the step's device busy time and K3's (tiled, M = 20)
+        and K2's (C = 5) share of it.  The replay writes the same K/V rows
+        the verify wrote, so it can repeat; a draft decode's K3 is the K3
+        phase's decode step."""
+        from repro_torch.models import lm
+        eng = self._round_engine(spec)
+        chunk, seen = lm.chunk_step, []
+
+        def capture(*args, **kw):
+            if kw.get("all_lanes"):
+                seen.append((args, kw))
+            return chunk(*args, **kw)
+
+        self.sync()
+        t0 = time.perf_counter()
+        lm.chunk_step = capture
+        try:
+            eng.step()
+            self.sync()
+        finally:
+            lm.chunk_step = chunk
+        wall = (time.perf_counter() - t0) * 1e3
+        self.check(len(seen) == 1, f"{label}: {len(seen)} verify steps in "
+                   f"a round")
+        args, kw = seen[0]
+        groups = {"busy": "", "k3": ("emt_matmul", "emt_tiled", "split_sum")}
+        if paged:
+            groups["k2"] = "paged_prefill"
+        got = device_ms(lambda: chunk(*args, **kw), groups,
+                        need="paged_prefill" if paged else "emt_tiled")
+        print(f"  {label}: one round (4 draft decodes + the verify): wall "
+              f"{wall:.1f} ms untraced; its verify step: device busy "
+              f"{fmt(got['busy'])}, of it K3 {fmt(got['k3'])}"
+              + (f" and K2 {fmt(got['k2'])}" if paged else ""))
+        return dict(round_wall_ms=wall, verify_device_ms=got["busy"],
+                    verify_k3_device_ms=got["k3"],
+                    verify_k2_device_ms=got.get("k2"))
+
+    def _spec_round_vs_plain(self, spec, label, paged):
+        """Every kernel call of a round of one draft decode step (K3's GEMV
+        at sigma 0) and the verify (K3 tiled at M = 20, K2 at C = 5 on
+        the paged layout) held to its plain version."""
+        L = self.cfg.num_layers
+        eng = self._round_engine(spec, drafts=1)
+        log = dict.fromkeys(("verify", "draft chunk", "draft decode",
+                             "catch-up rows"), 0)
+        expect = {}
+
+        def run(cfg):
+            with self._spec_trace(eng, {}, log):
+                eng.step()
+            n = log["verify"] + log["draft chunk"] + log["draft decode"]
+            expect.update(emt_matmul=(7 * L + 1) * n,
+                          paged_prefill=L * log["verify"] if paged else 0)
+
+        self._calls_vs_plain(self.cfg, f"{label} round", expect, run)
+        print(f"  {label} round: model steps checked {log}")
+        self.check(log["verify"] == 1 and log["draft decode"] == 1,
+                   f"{label} round: {log}")
+
+    def engine_speculative_paged(self):
+        self._engine_spec(True)
+
+    def engine_speculative_contiguous(self):
+        self._engine_spec(False)
+
+    def engine_int8(self):
+        """Phase 4's analog requests (paged, all-global) on the int8 tree
+        (quantize_tree_for_serving, store_int8=True): 182 int8 K3 launches
+        and 1 float32 K3 launch (the tied unembed) a step; the weight bytes
+        against the float32 tree's, peak memory against phase 4's; every K3
+        call of a chunk and a decode step against its plain version; the
+        logits against the float32 engine's within 1e-3 at the 24-bit DAC
+        (they differ at most by the float path's STE form w + (q s - w)
+        against q s), the 8-bit gap reported."""
+        import numpy as np
+        L = self.cfg.num_layers
+        cfg_q = self.cfg.replace(emt=self.cfg.emt.replace(store_int8=True))
+
+        def nbytes(tree):
+            return sum(t.numel() * t.element_size() for _, t in _flat(tree))
+
+        fb, qb = nbytes(self.params), nbytes(self.params_q)
+        print(f"  int8: weights {fb / 1e9:.3f} GB in float32, {qb / 1e9:.3f} "
+              f"GB as int8 levels + scales (the tied embedding table, "
+              f"{self.params['embed']['table'].numel() * 4 / 1e9:.3f} GB, "
+              f"stays float32)")
+        summary, launches, m, results = self._serve(cfg_q, self.params_q,
+                                                    "int8", 1)
+        self._check_launches("int8", launches, m["steps"], {
+            "emt_matmul_int8": 7 * L, "emt_matmul": 1,
+            "paged_attention_decode": None, "paged_prefill": None,
+            "emt_bitserial": 0, "paged_attention": 0})
+        self.records["emt_matmul_int8"]["launches"] = \
+            launches["emt_matmul_int8"]
+        same = sum(np.array_equal(a.tokens, b.tokens) for a, b in
+                   zip(self.engine_results, results))
+        f32 = self.engine_summary
+        print(f"  int8 engine vs the float32 engine (phase 4): peak device "
+              f"memory {summary['peak_gib']:.2f} GiB against "
+              f"{f32['peak_gib']:.2f} (both trees resident), of it above "
+              f"the resident trees and caches "
+              f"{summary['peak_above_resident_gib']:.4f} GiB against "
+              f"{f32['peak_above_resident_gib']:.4f}; device busy of the "
+              f"profiled steps (chunk, decode) "
+              f"{summary['step_busy_ms']} ms against {f32['step_busy_ms']}; "
+              f"{same} of {len(results)} requests' tokens identical")
+        summary.update(weight_gb_f32=fb / 1e9, weight_gb_int8=qb / 1e9,
+                       same_tokens_as_f32=int(same))
+        self.int8_summary = summary
+        self._calls_vs_plain(cfg_q, "int8", {
+            "emt_matmul_int8": 3 * 7 * L, "emt_matmul": 3,
+            "paged_attention_decode": L, "paged_prefill": 2 * L},
+            lambda c: self._step_pair(c, self.params_q))
+        for bits, limit in ((24, 1e-3), (8, None)):
+            self.__dict__.pop("_tokens", None)
+            cq = cfg_q.replace(emt=_dac_bits(cfg_q.emt, bits))
+            cf = self.cfg.replace(emt=_dac_bits(self.cfg.emt, bits))
+            a = self._run_path(cq, lambda c: self._step_pair(c,
+                                                             self.params_q))
+            b = self._run_path(cf, self._step_pair)
+            self._compare(f"int8, {bits}-bit DAC: int8 vs float32 weights",
+                          a, b, limit=limit)
+            exact = all(x is None or self.torch.equal(x, y)
+                        for (_, x, _), (_, y, _) in zip(a, b))
+            print(f"  int8, {bits}-bit DAC: logits bit-identical to the "
+                  f"float32 path's: {exact}")
 
     def _level_flips(self, path, label, la, lb, steps):
         """Count the DAC levels that differ between two runs of `steps`
@@ -2977,6 +3615,7 @@ def main() -> int:
     phases = [("device", s.device_info), ("build", s.build),
               ("model", s.model), ("model, seamless", s.seamless_model),
               ("K3 emt_matmul", s.k3),
+              ("K3 emt_matmul, int8 weights", s.k3_int8),
               ("K1 paged_attention_decode", s.k1),
               ("K2 paged_prefill", s.k2), ("K4 paged_attention", s.k4),
               ("K5 emt_bitserial", s.k5),
@@ -2998,6 +3637,10 @@ def main() -> int:
               ("server, Poisson stream", s.server_stream),
               ("kernel calls vs plain, prefix", s.prefix_calls_vs_plain),
               ("kernel calls vs plain, Poisson", s.poisson_calls_vs_plain),
+              ("engine, speculative paged", s.engine_speculative_paged),
+              ("engine, speculative contiguous",
+               s.engine_speculative_contiguous),
+              ("engine, int8", s.engine_int8),
               ("train, gemma3-1b analog", s.train_gemma3),
               ("train vs plain", s.train_vs_plain),
               ("train, paper CNN", s.train_cnn)]
@@ -3024,6 +3667,9 @@ def main() -> int:
         print(f"engine, {label}: " + json.dumps(summary))
     print("engine, prefix cache: " + json.dumps(s.prefix_summary))
     print("server, Poisson stream: " + json.dumps(s.poisson_summary))
+    for label, summary in s.spec_summaries.items():
+        print(f"engine, {label}: " + json.dumps(summary))
+    print("engine, int8: " + json.dumps(s.int8_summary))
     print("train, gemma3-1b analog: " + json.dumps(s.train_summary))
     print("train, paper CNN: " + json.dumps(s.cnn_summary))
     print(s.smi)
@@ -3031,7 +3677,7 @@ def main() -> int:
                                   ("paged_attention_decode", "paged_prefill",
                                    "emt_matmul", "paged_attention",
                                    "emt_bitserial", "emt_matmul_dx",
-                                   "emt_matmul_dw")]}))
+                                   "emt_matmul_dw", "emt_matmul_int8")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,9 +16,11 @@ from repro_torch.models.config import ModelConfig
 def emt_preset(mode: str = "analog", rng: str = "hash",
                intensity: str = "normal", rho_init: float = 4.0,
                energy_accounting: str = "full",
+               store_int8: bool = False,
                device: str | None = None) -> EMTConfig:
     """The standard EMT configuration; `device` names a registered corner
-    (None: the paper's default cell)."""
+    (None: the paper's default cell); `store_int8` stores the weights as
+    int8 levels + per-column scales (serve-only)."""
     if mode == "ideal":
         return IDEAL
     dev = get_device(device) if device else DeviceModel()
@@ -29,6 +31,7 @@ def emt_preset(mode: str = "analog", rng: str = "hash",
         device=dev.with_intensity(intensity),
         rho_init=rho_init,
         energy_accounting=energy_accounting,
+        store_int8=store_int8,
         corner=device or "",
     )
 

@@ -1,6 +1,5 @@
 """Heterogeneous device placement: per-layer EMT technology corners (port of
-:mod:`repro.core.placement` without its dict serialization, which comes
-with the checkpoint reader).
+:mod:`repro.core.placement`, with its dict serialization).
 
 A model config may carry a :class:`DevicePlacement` instead of one global
 ``EMTConfig``: an ordered list of :class:`LayerRule` glob patterns over
@@ -16,7 +15,7 @@ import fnmatch
 import functools
 from typing import Callable, Optional, Tuple, Union
 
-from repro_torch.core.device import get_device
+from repro_torch.core.device import DeviceModel, get_device
 from repro_torch.core.emt_linear import EMTConfig, IDEAL
 from repro_torch.core.noise import NoiseConfig
 from repro_torch.core.quant import QuantConfig
@@ -121,6 +120,68 @@ def as_placement(emt: Union[EMTConfig, DevicePlacement]) -> DevicePlacement:
         raise TypeError(f"emt must be EMTConfig or DevicePlacement, "
                         f"got {type(emt).__name__}")
     return _coerce(emt)
+
+
+# ---------------------------------------------------------------------------
+# dict serialization (checkpoint ``extra`` metadata), JSON-compatible with
+# JAX's: the same keys and values, but for EMTConfig's two TPU kernel
+# switches, which the port has not (it dispatches on the tensors' device)
+# and drops when it reads a JAX dict
+# ---------------------------------------------------------------------------
+TPU_ONLY_EMT_KEYS = ("use_pallas", "pallas_interpret")
+
+
+def device_to_dict(dev: DeviceModel) -> dict:
+    return {f.name: getattr(dev, f.name)
+            for f in dataclasses.fields(DeviceModel)}
+
+
+def device_from_dict(d: dict) -> DeviceModel:
+    known = {f.name for f in dataclasses.fields(DeviceModel)}
+    unknown = set(d) - known
+    if unknown:
+        raise ValueError(f"unknown DeviceModel fields {sorted(unknown)}")
+    d = dict(d)
+    for k in ("state_offsets", "state_probs"):
+        if k in d:
+            d[k] = tuple(d[k])
+    return DeviceModel(**d)
+
+
+def emt_to_dict(emt: EMTConfig) -> dict:
+    d = {f.name: getattr(emt, f.name) for f in dataclasses.fields(EMTConfig)}
+    d["quant"] = dataclasses.asdict(emt.quant)
+    d["noise"] = dataclasses.asdict(emt.noise)
+    d["device"] = device_to_dict(emt.device)
+    return d
+
+
+def emt_from_dict(d: dict) -> EMTConfig:
+    d = {k: v for k, v in d.items() if k not in TPU_ONLY_EMT_KEYS}
+    if "quant" in d:
+        d["quant"] = QuantConfig(**d["quant"])
+    if "noise" in d:
+        d["noise"] = NoiseConfig(**d["noise"])
+    if "device" in d:
+        dev = d["device"]
+        # a string names a registered corner (KeyError if unknown); a dict
+        # carries the full parameters inline
+        d["device"] = (get_device(dev) if isinstance(dev, str)
+                       else device_from_dict(dev))
+    return EMTConfig(**d)
+
+
+def placement_to_dict(p: Union[EMTConfig, DevicePlacement]) -> dict:
+    p = as_placement(p)
+    return {"rules": [{"pattern": r.pattern, "emt": emt_to_dict(r.emt)}
+                      for r in p.rules],
+            "default": emt_to_dict(p.default)}
+
+
+def placement_from_dict(d: dict) -> DevicePlacement:
+    rules = tuple(LayerRule(r["pattern"], emt_from_dict(r["emt"]))
+                  for r in d.get("rules", ()))
+    return DevicePlacement(rules=rules, default=emt_from_dict(d["default"]))
 
 
 def map_corners(emt: Union[EMTConfig, DevicePlacement],

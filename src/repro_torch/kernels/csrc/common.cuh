@@ -165,6 +165,32 @@ __device__ __forceinline__ float f4(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
+// -- int8 weights (store_int8 serving; K3 only) ----------------------------
+// 16 int8 levels p[0], p[step], ..., p[15 * step] (0 past `valid`): one
+// 16-byte load when `vec` (step 1, p 16-byte aligned) and all 16 are valid.
+__device__ __forceinline__ uint4 load_q16(const int8_t* __restrict__ p,
+                                          long long step, int valid,
+                                          bool vec) {
+  if (vec && valid >= 16) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (j < valid)
+      v[j >> 2] |= (uint32_t)(uint8_t)__ldg(p + j * step) << (8 * (j & 3));
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// Level j (0-3) of the 4 packed in `word`, as float (exact).
+__device__ __forceinline__ float level(uint32_t word, int j) {
+  return __int2float_rn((int)(int8_t)(word >> (8 * j)));
+}
+
+// The dequantized weight fl(float(q) * scale): one rounding, as the
+// reference's w_int8.astype(f32) * w_scale.
+__device__ __forceinline__ float dequant(uint32_t word, int j, float scale) {
+  return __fmul_rn(level(word, j), scale);
+}
+
 // -- split-K ---------------------------------------------------------------
 // A kernel split along K writes slab z's partial (M, N) sums to
 // part[z * M * N ...]; split_sum adds the slabs in slab order into y, so the

@@ -10,6 +10,15 @@
 // barrier a tile); every w element is hashed once per 64-row tile.  Split
 // along K by the host's plan (repro_torch/kernels/splitk.py): CTA z writes
 // its partial sums to out + z * M * N.
+//
+// The weight loader is a template parameter: float32 (I8 false), or int8
+// conductance levels with a float32 scale per column (I8 true, store_int8
+// serving).  The int8 loader reads the 32 x 64 tile (2 KB) in 16-byte
+// loads, 16 levels each, by lanes 0-15 of every warp; lane l + 16 takes
+// the upper 8 levels of lane l's load by two shuffles, and every lane
+// dequantizes its 8 as fl(float(q) * scale[n]) and noises them as the
+// float loader does, into the same float32 shared-memory tile: the FMA
+// loop is the float path's.
 #pragma once
 #include <cstdint>
 
@@ -20,14 +29,15 @@ namespace repro {
 constexpr int kTiledThreads = 256;
 constexpr int kTBM = 64, kTBN = 64, kTBK = 32;
 
-// KC: w is not n-contiguous (swn != 1; the load runs along k).
-template <bool KC, int NS>
+// KC: w is not n-contiguous (swn != 1; the load runs along k).  I8: w is
+// int8 levels and `scale` their per-column scale (else unused).
+template <bool KC, int NS, bool I8>
 __global__ void __launch_bounds__(kTiledThreads, 2)
-emt_tiled(const float* __restrict__ x, const float* __restrict__ w,
-          float* __restrict__ out, const float* __restrict__ sig_ptr, int M,
-          int N, int K, int k_slab, long long sxm, long long sxk,
-          long long swk, long long swn, int vw, int xvec, uint32_t seed,
-          uint32_t plane, NoiseParams np) {
+emt_tiled(const float* __restrict__ x, const void* __restrict__ wv,
+          const float* __restrict__ scale, float* __restrict__ out,
+          const float* __restrict__ sig_ptr, int M, int N, int K, int k_slab,
+          long long sxm, long long sxk, long long swk, long long swn, int vw,
+          int xvec, uint32_t seed, uint32_t plane, NoiseParams np) {
   __shared__ __align__(16) float ws[2][kTBK][kTBN];
   __shared__ __align__(16) float xs[2][kTBK][kTBM + 4];
   const int tid = threadIdx.x;
@@ -43,6 +53,23 @@ emt_tiled(const float* __restrict__ x, const float* __restrict__ w,
   // loader coordinates: n-major weights by (row, 4-column group); k-major
   // weights and x by (column or row, 8-deep K run)
   const int ln = tid & 63, lq = tid >> 6;
+  const float* __restrict__ w = static_cast<const float*>(wv);
+  // int8 loader: load e (lanes 0-15 of each warp) covers 16 levels of
+  // n-major row e / 4 from column 16 * (e % 4), or of k-major column e / 2
+  // from row 16 * (e % 2); lane l + 16 dequantizes the upper 8 of lane l's
+  const int8_t* __restrict__ wq = static_cast<const int8_t*>(wv);
+  const int lane = tid & 31, half = lane >> 4;
+  const int e8 = (tid >> 5) * 16 + (lane & 15);
+  const int qk = KC ? 16 * (e8 & 1) : e8 >> 2;            // tile row
+  const int qn = KC ? e8 >> 1 : 16 * (e8 & 3);            // tile column
+  float sc[KC ? 1 : 8];
+  if constexpr (I8) {
+#pragma unroll
+    for (int j = 0; j < (KC ? 1 : 8); ++j) {
+      const int n = n0 + qn + (KC ? 0 : 8 * half + j);
+      sc[j] = n < N ? __ldg(scale + n) : 0.f;
+    }
+  }
   // the noisy value of element (k, n), hashed at (k, n)
   auto hashed = [&](float v, int k, int n) {
     return noisy<NS>(v, (uint32_t)k, (uint32_t)n, pk, F);
@@ -55,10 +82,25 @@ emt_tiled(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   float4 wr[2], xr[2];
+  uint4 q8 = make_uint4(0u, 0u, 0u, 0u);
   auto load_tile = [&](int k0) {
+    if constexpr (I8) {
+      if (lane < 16) {
+        if constexpr (KC) {
+          const int n = n0 + qn, k = k0 + qk;
+          q8 = load_q16(wq + n * swn + k * swk, swk,
+                        n < N ? min(16, ke - k) : 0, vw == 16);
+        } else {
+          const int k = k0 + qk, n = n0 + qn;
+          q8 = load_q16(wq + k * swk + n, 1, k < ke ? min(16, N - n) : 0,
+                        vw == 16);
+        }
+      }
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if constexpr (KC) {
+      if constexpr (I8) {
+      } else if constexpr (KC) {
         wr[r] = load_k4(w, k0 + 8 * lq + 4 * r, ke, n0 + ln, N, swk, swn, vw);
       } else {
         const int e = tid + kTiledThreads * r, k = k0 + (e >> 4);
@@ -80,9 +122,34 @@ emt_tiled(const float* __restrict__ x, const float* __restrict__ w,
     }
   };
   auto store_tile = [&](int buf, int k0) {               // the hash
+    if constexpr (I8) {
+      // lane l + 16 takes words z, w (levels 8-15) of lane l's load
+      const uint32_t hz = __shfl_sync(0xffffffffu, q8.z, lane & 15);
+      const uint32_t hw = __shfl_sync(0xffffffffu, q8.w, lane & 15);
+      const uint32_t lo = half ? hz : q8.x, hi = half ? hw : q8.y;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t word = j < 4 ? lo : hi;
+        const int kk = qk + (KC ? 8 * half + j : 0);
+        const int c = qn + (KC ? 0 : 8 * half + j);
+        v[j] = hashed(dequant(word, j & 3, sc[KC ? 0 : j]), k0 + kk, n0 + c);
+      }
+      if constexpr (KC) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ws[buf][qk + 8 * half + j][qn] = v[j];
+      } else {
+        const int c = qn + 8 * half;
+        *reinterpret_cast<float4*>(&ws[buf][qk][c]) =
+            make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(&ws[buf][qk][c + 4]) =
+            make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if constexpr (KC) {
+      if constexpr (I8) {
+      } else if constexpr (KC) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int kk = 8 * lq + 4 * r + j;
@@ -139,23 +206,24 @@ emt_tiled(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Launch emt_tiled<KC, NS> over an (M, N) output in `splits` slabs of
+// Launch emt_tiled<KC, NS, I8> over an (M, N) output in `splits` slabs of
 // `k_slab` reduction rows.
-template <int NS>
-void launch_tiled(const float* x, const float* w, float* out, const float* sig,
-                  int M, int N, int K, int k_slab, long long sxm,
-                  long long sxk, long long swk, long long swn, int vw,
-                  int xvec, uint32_t seed, uint32_t plane,
-                  const NoiseParams& np, bool kc, int splits, cudaStream_t s) {
+template <int NS, bool I8>
+void launch_tiled(const float* x, const void* w, const float* scale,
+                  float* out, const float* sig, int M, int N, int K,
+                  int k_slab, long long sxm, long long sxk, long long swk,
+                  long long swn, int vw, int xvec, uint32_t seed,
+                  uint32_t plane, const NoiseParams& np, bool kc, int splits,
+                  cudaStream_t s) {
   dim3 grid((N + kTBN - 1) / kTBN, (M + kTBM - 1) / kTBM, splits);
   if (kc)
-    emt_tiled<true, NS><<<grid, kTiledThreads, 0, s>>>(
-        x, w, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, vw, xvec, seed,
-        plane, np);
+    emt_tiled<true, NS, I8><<<grid, kTiledThreads, 0, s>>>(
+        x, w, scale, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, vw, xvec,
+        seed, plane, np);
   else
-    emt_tiled<false, NS><<<grid, kTiledThreads, 0, s>>>(
-        x, w, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, vw, xvec, seed,
-        plane, np);
+    emt_tiled<false, NS, I8><<<grid, kTiledThreads, 0, s>>>(
+        x, w, scale, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, vw, xvec,
+        seed, plane, np);
 }
 
 }  // namespace repro

@@ -17,10 +17,18 @@ template ``csrc/emt_tc.cuh``: :func:`emt_matmul_dx` (K3-dx, the noise in
 the weight operand's transform) and :func:`emt_matmul_dw` (K3-dw, x^T g
 with the noise in its epilogue).
 
+The weight operand may also be int8 conductance levels with a float32
+scale per column, ``(w_int8, w_scale)``, the ``store_int8`` serving form
+(``core/emt_linear.py``): the kernels read the levels and dequantize them
+in registers (``emt_matmul_i8`` in ``csrc/emt_matmul.cu``), and the plain
+version dequantizes first.  It is serve-only: a gradient through it
+raises, and K3-dx and K3-dw take float32 weights only.
+
 On a CPU tensor each wrapper computes its plain version
 (:mod:`repro_torch.kernels.ref`); on a CUDA tensor it launches its kernel or
-raises.  ``emt_matmul.launches``, ``emt_matmul_dx.launches`` and
-``emt_matmul_dw.launches`` count kernel launches.
+raises.  ``emt_matmul.launches`` (float32 weights),
+``_forward_int8.launches`` (int8 weights), ``emt_matmul_dx.launches``
+and ``emt_matmul_dw.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -121,7 +129,14 @@ def _fn(lib: str, entry: str, pointers: int = 6):
 def plan(M: int, N: int, K: int, sms: int, n_major: bool) -> splitk.Plan:
     """The kernel's cut of (M, K) @ (K, N): K split until the grid holds two
     CTAs per SM (what ~128 registers per thread allow), in whole chunks or
-    tiles.  `n_major`: the weight's N stride is 1."""
+    tiles.  `n_major`: the weight's N stride is 1.
+
+    An int8 weight takes the same cut: its loader's step (32 rows n-major,
+    128 k-major, the 32-row tile) is the float loader's slab granularity,
+    and the split counts CTAs, not bytes, because at int8 the hash's
+    operations, not the weight's bytes, bound the product (a gemma3-1b
+    decode step: 1.016 ms on the ALU pipe against 0.570 ms of bytes), so
+    the split that fills every SM stays."""
     if M <= GEMV_MAX_M:
         kw = GEMV_N if n_major else GEMV_K
         rows = M if M <= 4 else 8 if M <= 8 else 16      # the row template
@@ -198,10 +213,38 @@ def _on_cpu(what: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{what}: unsupported device {t.device}")
 
 
+def _check_int8(x, q, scale, sig) -> int:
+    """Raise unless q is int8 (K, N) and scale N contiguous float32 values
+    ((1, N) or (N,)), both on x's CUDA device (x and sig as _check wants
+    them); returns the device index."""
+    if q.dim() != 2 or x.dim() != 2 or x.shape[1] != q.shape[0]:
+        raise ValueError(f"emt_matmul: shapes {tuple(x.shape)}, "
+                         f"{tuple(q.shape)}")
+    index = x.get_device()
+    if not (q.dtype is torch.int8 and scale.dtype is torch.float32
+            and scale.numel() == q.shape[1] and scale.is_contiguous()
+            and q.get_device() == index and scale.get_device() == index):
+        raise ValueError(
+            f"emt_matmul: int8 weights need levels int8 (K, N) and a "
+            f"contiguous float32 scale of N on {x.device}, got {q.dtype} "
+            f"{tuple(q.shape)}, {scale.dtype} {tuple(scale.shape)} on "
+            f"{q.device}, {scale.device}")
+    f32 = torch.float32
+    if not (x.dtype is f32 and sig.dtype is f32 and sig.numel() == 1
+            and sig.get_device() == index):
+        raise ValueError(f"emt_matmul: x and sig must be float32 on "
+                         f"{x.device} (sig a scalar), got {x.dtype}, "
+                         f"{sig.dtype} on {sig.device}")
+    return index
+
+
 def _forward(x, w, sig, *, device: DeviceModel, seed: int = 0,
              plane: int = 0):
     if _on_cpu("emt_matmul", x):
         return plain(x, w, sig, device=device, seed=seed, plane=plane)
+    if isinstance(w, tuple):
+        return _forward_int8(x, *w, sig, device=device, seed=seed,
+                             plane=plane)
     index = _check("emt_matmul", x, w, sig, 0)
     M, K = x.shape
     N = w.shape[1]
@@ -213,6 +256,25 @@ def _forward(x, w, sig, *, device: DeviceModel, seed: int = 0,
         ctypes.addressof(noise_params(device)), _build.stream(index))
     _build.check(err, "emt_matmul")
     emt_matmul.launches += 1
+    return y
+
+
+def _forward_int8(x, q, scale, sig, *, device: DeviceModel, seed: int,
+                  plane: int):
+    """The int8 kernels (``emt_matmul_i8``): levels q (K, N) int8 of any
+    strides, scale N contiguous float32 values."""
+    index = _check_int8(x, q, scale, sig)
+    M, K = x.shape
+    N = q.shape[1]
+    p, _, dims = _launch(index, M, N, K, *x.stride(), *q.stride())
+    y, part = splitk.outputs(p, x)
+    err = _fn("emt_matmul", "emt_matmul_i8", 7)(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), part,
+        sig.data_ptr(), dims, int(seed) & 0xFFFFFFFF,
+        int(plane) & 0xFFFFFFFF, ctypes.addressof(noise_params(device)),
+        _build.stream(index))
+    _build.check(err, "emt_matmul_int8")
+    _forward_int8.launches += 1
     return y
 
 
@@ -313,13 +375,38 @@ class _NoisyMatmul(torch.autograd.Function):
                 None, None)
 
 
+class _Int8Serving(torch.autograd.Function):
+    """The int8 operand's product where an input requires a gradient: the
+    forward runs, a backward raises (store_int8 is serve-only)."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, sig, forward, kw):
+        return forward(x, (q, scale), sig, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError(
+            "emt_matmul: no gradient flows through int8 weights "
+            "(store_int8 is serve-only; K3-dx and K3-dw take float32 "
+            "weights): train on the float tree and quantize it with "
+            "quantize_tree_for_serving")
+
+
 def differentiable(forward, dx, dw):
     """The product x @ noisy(w) through `forward`, differentiable through
     `dx` and `dw` when grad mode is on and an input requires it (else the
-    forward alone, with no autograd bookkeeping: the serving path)."""
+    forward alone, with no autograd bookkeeping: the serving path).  An
+    int8 operand ``(levels, scale)`` is not differentiable (_Int8Serving)."""
     def call(x, w, sig, *, device: DeviceModel, seed: int = 0,
              plane: int = 0):
         kw = dict(device=device, seed=seed, plane=plane)
+        if isinstance(w, tuple):
+            q, scale = w
+            if torch.is_grad_enabled() and (x.requires_grad
+                                            or scale.requires_grad
+                                            or sig.requires_grad):
+                return _Int8Serving.apply(x, q, scale, sig, forward, kw)
+            return forward(x, (q, scale), sig, **kw)
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
                                         or sig.requires_grad):
             return _NoisyMatmul.apply(x, w, sig, (forward, dx, dw), kw)
@@ -333,19 +420,23 @@ _kernels = differentiable(_forward, emt_matmul_dx, emt_matmul_dw)
 plain_differentiable = differentiable(plain, plain_dx, plain_dw)
 
 
-def emt_matmul(x: torch.Tensor, w: torch.Tensor, sig: torch.Tensor, *,
+def emt_matmul(x: torch.Tensor, w, sig: torch.Tensor, *,
                device: DeviceModel, seed: int = 0, plane: int = 0):
     """x (M, K) @ noisy(w (K, N)) -> (M, N) float32, differentiable in x,
     w and sig.
 
     `w` may have any strides (the tied unembed passes the embedding table's
     transpose without a copy); the noise still hashes the logical
-    (row = K index, col = N index).  `sig` is sigma_rel(rho) as a one-element
-    float32 tensor on x's device (read by the kernel, no host sync).
+    (row = K index, col = N index).  `w` may also be ``(w_int8, w_scale)``:
+    int8 levels (K, N) of any strides and their per-column float32 scale
+    (1, N), dequantized in the kernel as fl(float(q) * scale) before the
+    noise (serve-only).  `sig` is sigma_rel(rho) as a one-element float32
+    tensor on x's device (read by the kernel, no host sync).
     """
     return _kernels(x, w, sig, device=device, seed=seed, plane=plane)
 
 
 emt_matmul.launches = 0
+_forward_int8.launches = 0
 emt_matmul_dx.launches = 0
 emt_matmul_dw.launches = 0

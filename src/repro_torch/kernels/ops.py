@@ -26,12 +26,12 @@ from repro_torch.kernels.ref import NEG_INF
 
 def emt_matmul(x, w, sig, *, device: DeviceModel, seed: int = 0,
                plane: int = 0):
-    """Noisy crossbar matmul: x (..., K) @ noisy(w (K, N)) -> (..., N) fp32."""
-    lead = x.shape[:-1]
-    kdim, n = w.shape
-    y = _emt_matmul(x.reshape(-1, kdim), w, sig, device=device, seed=seed,
-                    plane=plane)
-    return y.reshape(*lead, n)
+    """Noisy crossbar matmul: x (..., K) @ noisy(w (K, N)) -> (..., N) fp32.
+    `w` is float32, or ``(w_int8, w_scale)`` (int8 levels and their
+    per-column scale, dequantized in the kernel)."""
+    y = _emt_matmul(x.reshape(-1, x.shape[-1]), w, sig, device=device,
+                    seed=seed, plane=plane)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def emt_bitserial_matmul(xq, w, sig, *, device: DeviceModel, bits: int = 7,

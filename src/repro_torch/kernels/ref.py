@@ -33,9 +33,20 @@ def _noise(w, sig, device: DeviceModel, seed, plane):
     return offs, noise_factor(offs, sig)
 
 
+def dequantize(w_int8, w_scale):
+    """The float32 weight of int8 levels and their per-column scale:
+    fl(float(q) * scale), as the reference's w_int8.astype(f32) *
+    w_scale."""
+    return w_int8.to(torch.float32) * w_scale.reshape(1, -1).to(torch.float32)
+
+
 def emt_matmul_ref(x, w, sig, *, device: DeviceModel, seed=0, plane=0):
     """x (M, K) @ (w * (1 + a * sig)) with the RTN offsets a hashed from
-    the global (row, col) of every weight element.  Returns (M, N) fp32."""
+    the global (row, col) of every weight element.  `w` may be int8 levels
+    and their scale, ``(w_int8, w_scale)``: dequantized first.  Returns
+    (M, N) fp32."""
+    if isinstance(w, tuple):
+        w = dequantize(*w)
     _, f = _noise(w, sig, device, seed, plane)
     wn = (w.to(torch.float32) * f).to(w.dtype)
     return torch.matmul(x, wn).to(torch.float32)

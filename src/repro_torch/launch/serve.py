@@ -14,8 +14,12 @@ the CPU.  With ``--rate R`` the engine is driven through
 arrivals and TTFT / inter-token latency are reported; otherwise requests
 arrive every ``--stagger`` steps.  It reports tokens/s, the modeled EMT
 energy per token, and per request the done reason and first tokens.
-Speculation (``--draft-placement``) and ``--shards`` above 1 raise: they
-are ported with later slices.
+``--draft-placement CORNER`` serves through the speculative engine (draft
+on CORNER, ``--spec-k`` tokens a round, verified in one analog all-lane
+step; greedy only) on an all-global stack, the launcher's coercion, and
+reports the accept rate, the accepted-length histogram and the draft's
+share of the energy.  ``--shards`` above 1 raises: multi-device serving is
+ported with a later slice.
 """
 from __future__ import annotations
 
@@ -204,6 +208,17 @@ def main(argv=None, *, torch_device="cuda"):
     dev = resolve_device(torch_device)
     try:
         spec = spec_from_args(args)
+        if args.draft_placement:
+            # speculation needs an all-global stack (rejected-draft writes
+            # would clobber sliding-window ring K/V): the spec coerces it,
+            # and the launcher says so when the stack had ring layers
+            plain = spec.replace(draft_placement=None, all_global=False,
+                                 paged=False, prefix_cache=False)
+            c0 = plain.build_config()
+            if c0.sliding_window and "local" in c0.blocks():
+                print("speculative decoding: coerced attention stack to "
+                      "all-global (ring layers are incompatible with "
+                      "rejected-draft writes)")
         cfg = spec.build_config()
     except ValueError as e:
         ap.error(str(e))
@@ -214,6 +229,9 @@ def main(argv=None, *, torch_device="cuda"):
     n_req = args.requests or args.batch
     eng = spec.build_engine(cfg, params, torch_device=dev)
     controller = eng.controller
+    if args.draft_placement:
+        print(f"speculative decoding: draft on {args.draft_placement}, "
+              f"k={args.spec_k}")
     print(f"prefill path: "
           f"{'chunked (exact positions, mixed step)' if eng.chunked else 'legacy (batch-1 pow2 buckets)'}"
           + (f", chunk={eng.prefill_chunk}, prefix_cache=on"
@@ -267,6 +285,14 @@ def main(argv=None, *, torch_device="cuda"):
         per_tok = r.energy_pj * 1e-6 / max(len(r.tokens), 1)
         print(f"  req{r.rid}: {len(r.tokens)} toks, {per_tok:.4f} uJ/token, "
               f"{r.done_reason}: {r.tokens[:6].tolist()}")
+    if args.draft_placement:
+        shed = sum(1 for r in results if r.done_reason == "energy_budget")
+        share = eng.draft_total_energy_pj / max(eng.total_energy_pj, 1e-12)
+        print(f"speculation: accept rate {eng.accept_rate:.2f}, "
+              f"accepted-length histogram {eng.accept_len_hist.tolist()}, "
+              f"draft energy {eng.draft_total_energy_pj*1e-6:.3f} uJ "
+              f"({share*100:.1f}% of total)"
+              + (f", shed {shed}" if shed else ""))
     if controller is not None:
         print(f"control plane: shed {controller.shed} on request budgets, "
               f"deferred {controller.deferred_steps} admissions on the "

@@ -9,9 +9,12 @@ take float32) on ``SyntheticLM`` through the fault-tolerant loop
 straggler watchdog, JSONL metrics).  It takes the JAX launcher's flags
 (``--device`` names the EMT technology corner, as there).  The command
 line runs on the card; a program passes ``main(argv, torch_device="cpu")``
-to run the plain PyTorch path on the CPU.  ``--rng threefry`` (ROADMAP
-Queue 1 item 6) and sharding over more than one device (``--rules``, item
-11) raise as not yet ported.
+to run the plain PyTorch path on the CPU.  ``--rng threefry`` fails at
+the first analog projection with the reference's own ValueError ("threefry
+backend needs a PRNG key"): JAX's train step never sets ``ctx.key``
+(``repro/train/step.py:74``), and the port's step mirrors it.  Sharding
+over more than one device (``--rules``, ROADMAP Queue 1 item 11) raises as
+not yet ported.
 """
 from __future__ import annotations
 
@@ -81,10 +84,6 @@ def setup(argv=None, *, torch_device="cuda", seed: int = 0) -> Run:
     if args.placement and args.device:
         ap.error("--placement and --device are mutually exclusive "
                  "(a placement names its corners per layer)")
-    if args.rng != "hash":
-        raise NotImplementedError(
-            "--rng threefry: the threefry noise backend is ported with "
-            "ROADMAP Queue 1 item 6")
     dev = resolve_device(torch_device)
     if dev.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(

@@ -66,7 +66,7 @@ def _project_qkv(params, x, cfg: ModelConfig, ctx: Ctx, tag: str):
     out = []
     for name in ("wq", "wk", "wv"):
         y, a = emt_dense(params[name], x, cfg.emt_at(f"{tag}/{name}"),
-                         tag=f"{tag}/{name}", seed=ctx.seed)
+                         tag=f"{tag}/{name}", seed=ctx.seed, key=ctx.key)
         aux = add_aux(aux, a)
         out.append(y)
     q = out[0].reshape(*x.shape[:-1], H, hd)
@@ -335,7 +335,7 @@ def self_attention(params, x, cfg: ModelConfig, *, positions, mask,
                                                                   hd)
         y = _gqa_core(q, cache["k"], cache["v"], mask, cfg)
     o, a = emt_dense(params["wo"], y, cfg.emt_at(f"{tag}/wo"),
-                     tag=f"{tag}/wo", seed=ctx.seed)
+                     tag=f"{tag}/wo", seed=ctx.seed, key=ctx.key)
     return o, add_aux(aux, a), cache
 
 
@@ -354,7 +354,7 @@ def cross_attention(params, x, cfg: ModelConfig, *, enc_out=None,
     aux = new_aux()
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, a = emt_dense(params["wq"], x, cfg.emt_at(f"{tag}/wq"),
-                     tag=f"{tag}/wq", seed=ctx.seed)
+                     tag=f"{tag}/wq", seed=ctx.seed, key=ctx.key)
     aux = add_aux(aux, a)
     q = q.reshape(*x.shape[:-1], H, hd)
     new_cache = None
@@ -386,11 +386,11 @@ def cross_attention(params, x, cfg: ModelConfig, *, enc_out=None,
         for name in ("wk", "wv"):
             t, a = emt_dense(params[name], enc_out,
                              cfg.emt_at(f"{tag}/{name}"), tag=f"{tag}/{name}",
-                             seed=ctx.seed)
+                             seed=ctx.seed, key=ctx.key)
             aux = add_aux(aux, a)
             out.append(t.reshape(*enc_out.shape[:-1], KV, hd))
         new_cache = {"ck": out[0], "cv": out[1]}
         y = _gqa_core(q, out[0], out[1], enc_mask, cfg)
     o, a = emt_dense(params["wo"], y, cfg.emt_at(f"{tag}/wo"),
-                     tag=f"{tag}/wo", seed=ctx.seed)
+                     tag=f"{tag}/wo", seed=ctx.seed, key=ctx.key)
     return o, add_aux(aux, a), new_cache

@@ -67,7 +67,7 @@ def conv_specs(cin, cout, emt: EMTConfig, k=3, dtype=torch.float32):
 
 def emt_conv(params, x, emt: EMTConfig, *, k=3, stride=1, tag, ctx: Ctx):
     return emt_dense(params, _patches(x, k, stride), emt, tag=tag,
-                     seed=ctx.seed)
+                     seed=ctx.seed, key=ctx.key)
 
 
 def layernorm_specs(c):
@@ -134,7 +134,7 @@ def forward(params, x, cfg: CNNConfig, ctx: Ctx):
         h = h.reshape(B, H // 2, 2, W // 2, 2, C).mean((2, 4))
     h = h.mean((1, 2))                                   # global average pool
     logits, a = emt_dense(params["head"], h, cfg.emt_at("head"), tag="head",
-                          seed=ctx.seed)
+                          seed=ctx.seed, key=ctx.key)
     aux = add_aux(aux, a)
     return logits.to(torch.float32), aux
 

@@ -89,11 +89,12 @@ def unembed_specs(d, vocab, emt: EMTConfig, dtype):
     return dense_specs(d, vocab, emt, dtype=dtype, init=normal_init(0.02))
 
 
-def unembed(params, x, emt: EMTConfig, *, tied_table=None, seed=0):
+def unembed(params, x, emt: EMTConfig, *, tied_table=None, seed=0,
+            key=None):
     """Vocabulary logits.  With tied embeddings the table's transpose (a
     strided view, no copy) is the crossbar, still through emt_dense."""
     if tied_table is not None:
         p = dict(params)
         p["w"] = tied_table.T
-        return emt_dense(p, x, emt, tag="unembed", seed=seed)
-    return emt_dense(params, x, emt, tag="unembed", seed=seed)
+        return emt_dense(p, x, emt, tag="unembed", seed=seed, key=key)
+    return emt_dense(params, x, emt, tag="unembed", seed=seed, key=key)

@@ -88,7 +88,7 @@ def _logits(params, h, cfg: ModelConfig, ctx: Ctx):
     tied = params["embed"]["table"] if cfg.tie_embeddings else None
     y, aux = common.unembed(params.get("lm_head", {}), h,
                             cfg.emt_at("unembed"), tied_table=tied,
-                            seed=ctx.seed)
+                            seed=ctx.seed, key=ctx.key)
     return common.softcap(y.to(cfg.logit_dtype), cfg.final_softcap), aux
 
 
@@ -276,14 +276,18 @@ def _masks(cfg: ModelConfig, qpos, L: int):
 
 
 def chunk_step(params, cache, tokens, start, ntok, cfg: ModelConfig,
-               ctx: Ctx, active=None, page_tables=None, page_lens=None):
+               ctx: Ctx, active=None, page_tables=None, page_lens=None,
+               all_lanes: bool = False):
     """One mixed prefill+decode step over a (B, C) token chunk: row b
     advances by ntok[b] tokens at positions start[b] .. start[b] + ntok[b]
     - 1 (padding lanes past ntok[b] are dropped).  `page_tables`
     ``{"global": (B, Tg), "local": (B, Tl)}`` int32 and `page_lens`
     (:func:`clamped_lens`) select the paged layout; without them the cache
     is contiguous.  Returns (last real lane's logits (B, vocab), cache,
-    aux)."""
+    aux), or with ``all_lanes`` every lane's logits (B, C, vocab): the
+    verify step of speculative decoding (lane j scores the token after
+    position start[b] + j), whose unembed runs, and bills energy, over all
+    C lanes."""
     B, C = tokens.shape
     x = common.embed(params["embed"], tokens, cfg.embed_scale,
                      cfg.d_model).to(cfg.dtype)
@@ -297,6 +301,10 @@ def chunk_step(params, cache, tokens, start, ntok, cfg: ModelConfig,
         positions=wpos, mask=masks, caches=cache, cache_index=start,
         active=active, page_tables=page_tables, page_lens=page_lens,
         chunk_lens=ntok)
+    if all_lanes:
+        logits, a = _logits(params, common.rmsnorm(params["final_norm"], h,
+                                                   cfg.norm_eps), cfg, ctx)
+        return logits, cache, add_aux(aux, a)
     idx = (ntok.long() - 1)[:, None, None].expand(B, 1, h.shape[-1])
     h_last = common.rmsnorm(params["final_norm"], torch.gather(h, 1, idx),
                             cfg.norm_eps)

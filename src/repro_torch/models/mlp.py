@@ -20,11 +20,11 @@ def mlp(params, x, cfg: ModelConfig, *, ctx: Ctx, tag: str):
     act = common.activation(cfg.act)
     aux = new_aux()
     g, a = emt_dense(params["wg"], x, cfg.emt_at(f"{tag}/wg"),
-                     tag=f"{tag}/wg", seed=ctx.seed)
+                     tag=f"{tag}/wg", seed=ctx.seed, key=ctx.key)
     aux = add_aux(aux, a)
     u, a = emt_dense(params["wu"], x, cfg.emt_at(f"{tag}/wu"),
-                     tag=f"{tag}/wu", seed=ctx.seed)
+                     tag=f"{tag}/wu", seed=ctx.seed, key=ctx.key)
     aux = add_aux(aux, a)
     y, a = emt_dense(params["wd"], act(g) * u, cfg.emt_at(f"{tag}/wd"),
-                     tag=f"{tag}/wd", seed=ctx.seed)
+                     tag=f"{tag}/wd", seed=ctx.seed, key=ctx.key)
     return y, add_aux(aux, a)

@@ -5,15 +5,18 @@ Two scopes:
 
 * **Per-request SLA** (:attr:`repro_torch.serve.engine.GenRequest.
   energy_budget_uj`): after every engine step the controller compares the
-  energy billed to each active slot (prefill + decode share) with its
-  budget and sheds an exhausted request through the engine's cancel path
+  energy billed to each active slot (prefill + decode share, and a
+  speculative engine's draft share, which its ledger books into the same
+  two) with its budget and sheds an exhausted request through the
+  engine's cancel path
   with ``done_reason="energy_budget"``; its partial tokens and billed
   energy ride out on the result, so per-request + idle == total still
   holds.  The shed is post hoc: the step that crossed the budget is billed,
   so the overrun is at most one step's share.
 * **Per-engine admission** (a rolling uJ bucket): the engine earns
   ``step_budget_uj`` of credit per step up to a ``burst_uj`` cap, and every
-  step's booked energy is debited.  While the bucket is overdrawn,
+  step's booked energy (both placements' steps of a speculative engine)
+  is debited.  While the bucket is overdrawn,
   admission of new requests head-blocks in the FIFO like the paged block
   budget; admitted requests are never shed by the bucket.  An engine with
   no active slot always admits, so the clock that refills the bucket never

@@ -68,7 +68,8 @@ from repro_torch.serve.kv_pool import PagedKV
 from repro_torch.serve.scheduler import RejectedError, Scheduler, Slot
 
 __all__ = ["ServingEngine", "GenRequest", "GenResult", "RejectedError",
-           "make_pool_copy", "paged_insert", "prefill_bucket", "view_bucket"]
+           "make_pool_copy", "paged_insert", "prefill_bucket", "verify_step",
+           "view_bucket"]
 
 
 def view_bucket(need: int, block_size: int, max_len: int) -> int:
@@ -109,6 +110,22 @@ def paged_insert(cache, small, row_g, row_l=None,
             x = F.pad(x, (0, 0, 0, 0, 0, width * bs - x.shape[0]))
             x = x.reshape(width, bs, *x.shape[1:])
             pool[rows[ok].to(pool.device)] = x[ok.to(x.device)]
+
+
+def verify_step(params, cache, tokens, start, ntok, cfg: ModelConfig,
+                ctx: Ctx, active=None, page_tables=None, page_lens=None):
+    """Speculative decoding's verify step (JAX's ``make_verify_step``):
+    one ``lm.chunk_step`` over every slot's ``[last_token, draft_1 ..
+    draft_k]`` chunk with ``all_lanes=True``, paged or contiguous.  Returns
+    (the per-lane float32 argmax (B, C), cache, aux): lane j's token is the
+    target's greedy continuation after position start[b] + j, the token
+    that validates draft j + 1 or replaces it.  The argmax is the greedy
+    sampler's at temperature 0, which keeps speculation token-identical to
+    plain greedy decode."""
+    logits, cache, aux = lm.chunk_step(
+        params, cache, tokens, start, ntok, cfg, ctx, active=active,
+        page_tables=page_tables, page_lens=page_lens, all_lanes=True)
+    return torch.argmax(logits.to(torch.float32), dim=-1), cache, aux
 
 
 def make_pool_copy(cfg: ModelConfig):
@@ -153,6 +170,12 @@ class GenResult:
     # eos | max_new | max_len, or from cancel(): cancelled | timeout |
     # energy_budget (the slot retired early with its partial tokens)
     done_reason: str
+    # speculative decoding (serve/speculative.py; zero on plain engines):
+    # the subset of energy_pj billed on the draft placement, and the
+    # request's draft proposals and acceptances
+    draft_energy_pj: float = 0.0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -717,4 +740,7 @@ class ServingEngine:
                          tokens=np.asarray(slot.generated, np.int32),
                          energy_pj=slot.prefill_energy_pj + slot.energy_pj,
                          prefill_energy_pj=slot.prefill_energy_pj,
-                         steps=slot.steps, done_reason=reason)
+                         steps=slot.steps, done_reason=reason,
+                         draft_energy_pj=slot.draft_energy_pj,
+                         spec_proposed=slot.spec_proposed,
+                         spec_accepted=slot.spec_accepted)

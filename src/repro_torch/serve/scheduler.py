@@ -28,6 +28,12 @@ class Slot:
     # the prompt still streaming in (chunked prefill); None = legacy
     # bucketed prefill (the slot is placed ready to decode)
     prompt: object = None
+    # speculative decoding (serve/speculative.py; zero on plain engines):
+    # the subset of energy_pj / prefill_energy_pj billed on the draft
+    # placement, and the request's draft proposals and acceptances
+    draft_energy_pj: float = 0.0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     @property
     def prefilling(self) -> bool:

@@ -17,7 +17,9 @@ and feeds ``step()`` from a bounded admission queue.
   thread; the engine's own torch ops run on the same thread, so they share
   it.
 * **Streaming.** The engine's ``on_token(rid, token)`` hook fires inside
-  ``step()`` the moment a token is sampled; the server stamps it with a
+  ``step()`` the moment a token is sampled (a speculative engine,
+  :mod:`repro_torch.serve.speculative`, commits several a step, each
+  fired as it is committed); the server stamps it with a
   monotonic time and pushes it on the handle's queue, so TTFT and
   inter-token latency are measurable per request
   (:attr:`RequestHandle.ttft_s`, :attr:`RequestHandle.itl_s`).

@@ -267,14 +267,12 @@ class ServeSpec:
         card unless the caller asks for the CPU; ``device`` is the EMT
         corner).  `cfg` defaults to ``build_config()`` and `params` to the
         port's seeded init (seed 0) on that device; pass them to share
-        weights across engines."""
+        weights across engines.  With ``draft_placement`` set it is a
+        :class:`~repro_torch.serve.speculative.SpeculativeEngine`."""
         from repro_torch import resolve_device
         from repro_torch.models import lm
         from repro_torch.serve.engine import ServingEngine
 
-        if self.draft_placement is not None:
-            raise _later("speculative decoding (draft_placement)",
-                         "item 7, speculative decoding")
         if self.shards > 1:
             raise _later("sharded serving (shards > 1)",
                          "item 11, multi-device serving")
@@ -284,9 +282,14 @@ class ServeSpec:
         if params is None:
             params = lm.init_model_params(cfg, 0, device=dev)
         kw = self.engine_kwargs(max_len=max_len)
-        return ServingEngine(cfg, params, on_token=on_token,
-                             controller=self.build_controller(), device=dev,
-                             **kw)
+        kw.update(on_token=on_token, controller=self.build_controller(),
+                  device=dev)
+        if self.draft_placement is not None:
+            from repro_torch.serve.speculative import SpeculativeEngine
+            return SpeculativeEngine(cfg, params,
+                                     draft_placement=self.draft_placement,
+                                     spec_k=self.spec_k, **kw)
+        return ServingEngine(cfg, params, **kw)
 
 
 def build_config(arch: str = "gemma3-1b", mode: str = "analog", *,

@@ -170,13 +170,17 @@ def test_k3_noise_independent_of_layout_and_batching():
 
 
 def test_emt_config_rejects_unported_modes():
-    """bitserial (technique C, kernel K5) is ported; store_int8 is not."""
+    """bitserial (technique C, kernel K5) and store_int8 are ported (the
+    int8 parity tests are tests/test_torch_int8.py); an unknown mode is
+    refused."""
     cfg = t_emt_preset("bitserial")
     assert cfg.mode == "bitserial" and cfg.active
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tel.EMTConfig(mode="analog", store_int8=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tel.EMTConfig(mode="bitserial", store_int8=True)
+    for mode in ("analog", "bitserial"):
+        cfg = tel.EMTConfig(mode=mode, store_int8=True)
+        assert cfg.store_int8 and set(tel.dense_specs(4, 3, cfg)) == {
+            "w_int8", "w_scale", "rho_raw"}
+    with pytest.raises(ValueError, match="unknown EMT mode"):
+        tel.EMTConfig(mode="digital")
 
 
 def test_rho_from_raw_matches():

@@ -147,8 +147,8 @@ def test_build_config_function_is_the_spec():
 def test_build_engine_on_the_cpu_and_not_yet_ported_modes():
     """build_engine builds the engine the spec describes on the torch
     device it is given, with its controller; without a card, the default
-    ("cuda") raises instead of falling back; speculation and shards raise
-    as not yet ported."""
+    ("cuda") raises instead of falling back; a draft placement builds the
+    speculative engine; shards raise as not yet ported."""
     from repro_torch.serve.control import EnergyBudgetController
     spec = ServeSpec(**SERVE_KW).replace(step_budget_uj=1.0)
     eng = spec.build_engine(torch_device="cpu")
@@ -165,9 +165,12 @@ def test_build_engine_on_the_cpu_and_not_yet_ported_modes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="not available"):
             spec.build_engine()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ServeSpec(all_global=True, draft_placement="sram_digital",
-                  max_len=32).build_engine(torch_device="cpu")
+    from repro_torch.serve.speculative import SpeculativeEngine
+    spec_eng = ServeSpec(all_global=True, draft_placement="sram_digital",
+                         spec_k=3, max_len=32).build_engine(
+                             torch_device="cpu")
+    assert isinstance(spec_eng, SpeculativeEngine) and spec_eng.spec_k == 3
+    assert spec_eng.draft_cfg.emt.corner == "sram_digital"
     with pytest.raises(NotImplementedError, match="item 11"):
         ServeSpec(shards=2, max_len=32).build_engine(torch_device="cpu")
 

@@ -160,8 +160,14 @@ def test_launcher_trains_and_refuses_what_is_not_ported(tmp_path, monkeypatch,
         launch.main(args + ["--placement", "mixed", "--device", "pcm"],
                     torch_device="cpu")
     assert "mutually exclusive" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 6"):
-        launch.main(args + ["--rng", "threefry"], torch_device="cpu")
+    # JAX's train step never sets ctx.key, so --rng threefry fails at the
+    # first analog projection with the reference's own error (in a fresh
+    # run: the one above would resume past its last step)
+    fresh = args[:args.index("--ckpt-dir")] + [
+        "--ckpt-dir", str(tmp_path / "threefry")] + args[
+            args.index("--ckpt-dir") + 2:]
+    with pytest.raises(ValueError, match="threefry backend needs a PRNG key"):
+        launch.main(fresh + ["--rng", "threefry"], torch_device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         tstep.make_train_step(launch.setup(args, torch_device="cpu").cfg,
                               tstep.TrainConfig(), mesh=object())
