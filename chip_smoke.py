@@ -127,7 +127,23 @@ Phases (any failure exits non-zero and prints no result line):
    (182 int8 and 1 float32 K3 launches a step; its device busy a step and
    peak memory against phase 4's), its kernel calls against
    their plain versions and its logits against the float32 engine's
-   (1e-3 at the 24-bit DAC, the 8-bit gap reported).
+   (1e-3 at the 24-bit DAC, the 8-bit gap reported);
+10. (run between phases 9 and 8) mixture of experts: moonshot-v1-16b-a3b
+   at its published widths (64 experts top-6 of d_ff 1408, d_model 2048,
+   16 MHA heads of 128, vocab 163,840) cut to MOE_LAYERS = 4 of 48 layers,
+   on the "mixed" placement (attention analog on PCM; the routers on SRAM
+   through K3 at N = 64; the experts technique A on RRAM through K3's
+   experts entry, one launch a projection of all 64 experts; the untied
+   unembed analog on PCM), batch 4, paged, chunked: 6 staggered requests
+   with exact launch counts (21 K3 and 12 expert K3 a step, K1 4 a
+   decode step, K2 4 a chunk step, no K5) and energy on all three
+   corners; every kernel call of a history chunk step, a chunk step
+   (expert capacity 8) and a decode step (capacity 4) against its plain
+   version, the expert calls' |w~| sum (rtol 1e-6) and max (exact) too;
+   the experts entry timed on the decode step's 12 calls (and at the
+   chunk step's M = 8) beside torch.bmm on the pre-noised stacks; the
+   logits against the plain path at the 24-bit DAC (1e-3, every corner's
+   noise on: the experts read in analog), the 8-bit gaps reported.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Every "ms" is the kernel's time in one
@@ -138,8 +154,10 @@ a seamless decode step, K5 = the 78 bit-serial MLP matmuls of a mixed
 decode step, K3-dx and K3-dw (``emt_matmul_dx``, ``emt_matmul_dw``) = the
 183 calls each of a gemma3-1b training step at M = 1,024, K3 int8
 (``emt_matmul_int8``) = the 182 int8 calls and the float32 unembed of a
-decode step (its launches: the int8 engine's run); K3's and K5's
-records also carry ``chunk_ms``,
+decode step (its launches: the int8 engine's run), K3 experts
+(``emt_matmul_experts``) = the 12 expert calls of a moonshot decode step
+(M = 4; its launches: the moe run, and ``device_ms``/``chunk_*`` at the
+chunk step's M = 8); K3's and K5's records also carry ``chunk_ms``,
 ``chunk_bound_ms`` and ``chunk_library_ms``, the same matmuls and their
 yardstick at M = 64, and K1's, K4's and K5's
 ``device_ms`` (K5's also ``chunk_device_ms``), the kernels' device time in
@@ -209,6 +227,12 @@ HASH_OPS = {
 }
 ARCH = "gemma3-1b"
 SEAMLESS = "seamless-m4t-medium"
+# the MoE path: moonshot-v1-16b-a3b at its published widths on the "mixed"
+# placement, cut from 48 layers to MOE_LAYERS: a layer holds 0.57 B
+# parameters (2.28 GB in float32), 4 layers and the untied embedding and
+# head 11.8 GB; the 48 layers (109 GB) do not fit the card
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_LAYERS = 4
 BATCH, BLOCK, CHUNK, MAX_LEN, MAX_NEW = 4, 16, 16, 128, 8
 SEED = 0
 # the ring paths: prompts past gemma3-1b's 512-position window, so that
@@ -1374,6 +1398,7 @@ class Smoke:
                 "paged_prefill": k2.paged_prefill,
                 "emt_matmul": k3.emt_matmul,
                 "emt_matmul_int8": k3._forward_int8,
+                "emt_matmul_experts": k3.emt_matmul_experts,
                 "emt_matmul_dx": k3.emt_matmul_dx,
                 "emt_matmul_dw": k3.emt_matmul_dw,
                 "emt_bitserial": k5.emt_bitserial}
@@ -1398,12 +1423,14 @@ class Smoke:
             for n, fn in orig.items():
                 setattr(lm, n, fn)
 
-    def _serve(self, cfg, params, label, per_kind, paged=True, ring=False):
-        """Serve the 6 requests on `cfg` (after one warm-up run) with every
-        launch count reset just before and read just after; profile
-        `per_kind` prefill and decode steps of a third run.  `paged`
-        chooses the KV layout; `ring` the long prompts and max_len of the
-        ring paths.  Returns (summary, launches, metrics, results)."""
+    def _serve(self, cfg, params, label, per_kind, paged=True, ring=False,
+               warm=True):
+        """Serve the 6 requests on `cfg` (after one warm-up run, unless
+        `warm` is False) with every launch count reset just before and read
+        just after; profile `per_kind` prefill and decode steps of another
+        run.  `paged` chooses the KV layout; `ring` the long prompts and
+        max_len of the ring paths.  Returns (summary, launches, metrics,
+        results)."""
         import numpy as np
         from repro_torch.serve.engine import ServingEngine
         torch = self.torch
@@ -1415,7 +1442,8 @@ class Smoke:
                                  block_size=BLOCK, prefill_chunk=CHUNK,
                                  device=self.dev)
 
-        make().serve(self._requests(cfg, ring), stagger=2)     # warm-up
+        if warm:
+            make().serve(self._requests(cfg, ring), stagger=2)
         eng = make()
         reqs = self._requests(cfg, ring)
         counters = self._counters()
@@ -1680,7 +1708,10 @@ class Smoke:
         ld, cache, _ = lm.decode_step(params, cache, nxt, start + ntok,
                                       cfg, Ctx(seed=SEED), active=act,
                                       page_tables=pt, page_lens=lens)
-        n = 7 * cfg.num_layers + 1
+        # the projections that quantize their inputs (every placed path
+        # but the expert stacks, which read their inputs undigitized)
+        n = sum(1 for path, _, mode in cfg.placement_plan()
+                if mode != "fp32" and not path.endswith("/moe/experts"))
         return [("history chunk step", None, n), ("chunk step", lc, n),
                 ("decode step", ld, n)]
 
@@ -1755,12 +1786,14 @@ class Smoke:
         from repro_torch.kernels import paged_prefill as k2
         torch = self.torch
         worst = {"emt_matmul": 0.0, "emt_matmul_int8": 0.0,
+                 "emt_matmul_experts": 0.0,
                  "emt_bitserial": 0.0, "paged_attention_decode": 0.0,
                  "paged_attention": 0.0, "paged_prefill": 0.0}
         counts = dict.fromkeys(worst, 0)
         pools_ok = {"paged_attention_decode": True, "paged_attention": True}
-        names = ("_emt_matmul", "_emt_bitserial", "_paged_decode",
-                 "_paged_attend", "_paged_prefill")
+        stats = {"max_equal": True, "sum_rel": 0.0}
+        names = ("_emt_matmul", "_emt_matmul_experts", "_emt_bitserial",
+                 "_paged_decode", "_paged_attend", "_paged_prefill")
         orig = {n: getattr(ops, n) for n in names}
 
         def checked(name, attr, plain):
@@ -1800,6 +1833,20 @@ class Smoke:
                 return y
             return call
 
+        def experts_call(x, w, sig, **kw):
+            """K3's experts entry: the product against its plain version,
+            and the noisy stack's max |w~| exactly, its sum within rtol
+            1e-6 (float64 partials against a float32 sum)."""
+            y, s, m = orig["_emt_matmul_experts"](x, w, sig, **kw)
+            yp, sp, mp = k3.plain_experts(x, w, sig, **kw)
+            worst["emt_matmul_experts"] = max(worst["emt_matmul_experts"],
+                                              rel_err(y, yp)[1])
+            stats["max_equal"] &= bool(torch.equal(m, mp))
+            stats["sum_rel"] = max(stats["sum_rel"], abs(
+                float(s) - float(sp)) / max(float(sp), 1e-30))
+            counts["emt_matmul_experts"] += 1
+            return y, s, m
+
         pairs = [0, 0]                  # K5 GEMV (k, plane) pairs: needed, all
         k5_checked = checked("emt_bitserial", "_emt_bitserial", k5.plain)
 
@@ -1811,6 +1858,7 @@ class Smoke:
 
         with self._ops_through(
                 _emt_matmul=checked("emt_matmul", "_emt_matmul", k3.plain),
+                _emt_matmul_experts=experts_call,
                 _emt_bitserial=k5_call,
                 _paged_decode=pooled("paged_attention_decode",
                                      "_paged_decode", k1.plain, True),
@@ -1827,6 +1875,12 @@ class Smoke:
                        f"{label}: {name} on the model's activations: "
                        f"{counts[name]} calls (want {expect.get(name, 0)}), "
                        f"rel {r:.3e}")
+        if counts["emt_matmul_experts"]:
+            print(f"  {label}: emt_matmul_experts statistics vs plain: max "
+                  f"|w~| equal on every call: {stats['max_equal']}; sum "
+                  f"|w~| worst rel diff {stats['sum_rel']:.3e}")
+            self.check(stats["max_equal"] and stats["sum_rel"] <= 1e-6,
+                       f"{label}: expert statistics {stats}")
         if pairs[1]:
             print(f"  {label}: emt_bitserial (k, plane) pairs whose plane "
                   f"is zero in every row, on the real activations of its "
@@ -1967,7 +2021,7 @@ class Smoke:
                 self.check(d <= limit, f"{label} {what} logits differ by "
                                        f"{d:.3e} > {limit:g}")
 
-    def _logits_vs_plain(self, cfg, label, steps):
+    def _logits_vs_plain(self, cfg, label, steps, quiet=True):
         """End-to-end logits of the kernel path (K1, K2, K3, K4 and, on the
         mixed path, K5, as the path runs them) against the plain path on
         the card, noise on, over the model steps of `steps`.
@@ -1986,7 +2040,9 @@ class Smoke:
         script reports the gap beside the gap between two plain paths that
         differ only in accumulation precision (float32 vs float64 matmul),
         and counts the DAC levels that differ between the kernel and plain
-        paths."""
+        paths.  With `quiet` False every corner keeps its noise in the gated
+        run: the MoE experts' rule is bit-serial, but they read in analog
+        (technique A), so their products are continuous in their inputs."""
         import dataclasses
         from repro_torch.core.placement import as_placement, map_corners
         from repro_torch.kernels import emt_bitserial as k5
@@ -1997,6 +2053,10 @@ class Smoke:
                 return plain(x.double(), w.double(), sig, **kw).float()
             return call
 
+        def f64_experts(x, w, sig, **kw):
+            return tuple(t.float() for t in k3.plain_experts(
+                x.double(), w.double(), sig, **kw))
+
         def dac24(quiet_bitserial):
             def corner(e):
                 e = e.replace(quant=dataclasses.replace(e.quant, a_bits=24))
@@ -2006,17 +2066,20 @@ class Smoke:
                 return e
             return cfg.replace(emt=map_corners(cfg.emt, corner))
 
-        plain = dict(_emt_matmul=k3.plain, _emt_bitserial=k5.plain)
+        plain = dict(_emt_matmul=k3.plain, _emt_bitserial=k5.plain,
+                     _emt_matmul_experts=k3.plain_experts)
         plain64 = dict(_emt_matmul=f64(k3.plain),
-                       _emt_bitserial=f64(k5.plain))
+                       _emt_bitserial=f64(k5.plain),
+                       _emt_matmul_experts=f64_experts)
         p = as_placement(cfg.emt)
-        bitserial = any(e.mode == "bitserial"
-                        for e in [r.emt for r in p.rules] + [p.default])
+        bitserial = quiet and any(
+            e.mode == "bitserial" for e in [r.emt for r in p.rules]
+            + [p.default])
         self.__dict__.pop("_tokens", None)
-        quiet = ", bit-serial read noise off" if bitserial else ""
-        self._compare(f"{label}, 24-bit DAC{quiet}: kernel vs plain path",
-                      self._run_path(dac24(True), steps),
-                      self._run_path(dac24(True), steps, plain=plain),
+        off = ", bit-serial read noise off" if bitserial else ""
+        self._compare(f"{label}, 24-bit DAC{off}: kernel vs plain path",
+                      self._run_path(dac24(quiet), steps),
+                      self._run_path(dac24(quiet), steps, plain=plain),
                       limit=1e-3)
         if bitserial:
             self.__dict__.pop("_tokens", None)
@@ -3022,6 +3085,177 @@ class Smoke:
             print(f"  int8, {bits}-bit DAC: logits bit-identical to the "
                   f"float32 path's: {exact}")
 
+    # -- phase 10: mixture of experts ------------------------------------------
+    def engine_moe(self):
+        """moonshot-v1-16b-a3b at published widths, cut to MOE_LAYERS, on
+        the mixed placement (attention analog on PCM; the routers on SRAM
+        through K3 at N = 64; the experts technique A on RRAM through K3's
+        experts entry, 3 launches a layer; the unembed analog on PCM),
+        paged, chunked, batch 4: per step 5 L + 1 K3 and 3 L expert
+        launches, K1 or K2 on attention, no K5."""
+        from repro_torch.models import lm
+        from repro_torch.serve.spec import build_config
+        self.moe = build_config(MOE_ARCH, smoke=False, placement="mixed",
+                                a_per_row=True,
+                                model_overrides={"num_layers": MOE_LAYERS})
+        cfg = self.moe
+        t0 = time.perf_counter()
+        self.moe_params = lm.init_model_params(cfg, SEED, device=self.dev)
+        self.sync()
+        n = sum(p.numel() for _, p in _flat(self.moe_params))
+        print(f"model: {MOE_ARCH} published widths, {cfg.num_layers} of 48 "
+              f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+              f"{cfg.head_dim} (kv {cfg.num_kv_heads}), {cfg.num_experts} "
+              f"experts top-{cfg.experts_per_token} of d_ff {cfg.moe_d_ff}, "
+              f"vocab {cfg.vocab_size}, untied lm_head: {n:,} parameters "
+              f"(f32, {4 * n / 1e9:.2f} GB), init "
+              f"{time.perf_counter() - t0:.2f} s")
+        plan = {}
+        for _, corner, mode in cfg.placement_plan():
+            plan[(corner, mode)] = plan.get((corner, mode), 0) + 1
+        print(f"  moe placement: {plan} sites per (corner, mode)")
+        L = cfg.num_layers
+        summary, launches, m, _ = self._serve(cfg, self.moe_params,
+                                              "moe mixed", 1, warm=False)
+        self._check_launches("moe mixed", launches, m["steps"], {
+            "emt_matmul": 5 * L + 1, "emt_matmul_experts": 3 * L,
+            "paged_attention_decode": None, "paged_prefill": None,
+            "emt_bitserial": 0, "paged_attention": 0, "emt_matmul_int8": 0})
+        self.check(set(m["corner_energy_pj"]) == {"pcm", "rram",
+                                                  "sram_digital"},
+                   f"moe corners {sorted(m['corner_energy_pj'])}")
+        self.records["emt_matmul_experts"] = dict(
+            launches=launches["emt_matmul_experts"])
+        self.moe_summary = summary
+
+    def moe_calls_vs_plain(self):
+        """A history chunk step, a chunk step (64 lanes: expert capacity 8)
+        and a decode step (4 rows: capacity 4) of the MoE path: every K3
+        call (21 a step), every expert call (12 a step) with its two
+        statistics, every K1 and K2 call against its plain version on the
+        model's activations; then the experts entry timed on the decode
+        step's 12 calls."""
+        L = self.moe.num_layers
+        self.__dict__.pop("_tokens", None)
+        self._calls_vs_plain(self.moe, "moe mixed", {
+            "emt_matmul": 3 * (5 * L + 1), "emt_matmul_experts": 3 * 3 * L,
+            "paged_attention_decode": L, "paged_prefill": 2 * L},
+            lambda c: self._step_pair(c, self.moe_params))
+        self._time_experts()
+
+    def _time_experts(self):
+        """K3's experts entry on the decode step's 12 calls (the real
+        inputs and quantized stacks, M = 4), and on the same stacks at the
+        chunk step's M = 8 (random inputs): event time, device time, the
+        plain version, torch.bmm on the pre-noised stacks (a yardstick the
+        port never calls) and the bound."""
+        from repro_torch.kernels import emt_matmul as k3
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.ref import noisy_experts
+        from repro_torch.models.moe import capacity
+        torch = self.torch
+        cfg = self.moe
+        cap = capacity(cfg, BATCH)                    # a decode step's rows
+        orig = ops._emt_matmul_experts
+        calls = []
+
+        def capture(x, w, sig, **kw):
+            if x.shape[1] == cap and len(calls) < 3 * cfg.num_layers:
+                calls.append((x, w, sig, kw))
+            return orig(x, w, sig, **kw)
+
+        self.__dict__.pop("_tokens", None)
+        with self._ops_through(_emt_matmul_experts=capture):
+            self._step_pair(self.moe, self.moe_params)
+        self.check(len(calls) == 3 * cfg.num_layers,
+                   f"captured {len(calls)} decode-step expert calls")
+        gen = torch.Generator(device=self.dev).manual_seed(3)
+        xs = [x for x, *_ in calls]
+        xc = [torch.randn((x.shape[0], capacity(cfg, BATCH * CHUNK),
+                           x.shape[2]), generator=gen, device=self.dev)
+              for x in xs]
+        worst = 0.0
+        for x, w, sig, kw in calls:
+            y, _, _ = k3.emt_matmul_experts(x, w, sig, **kw)
+            worst = max(worst, rel_err(y, k3.plain_experts(
+                x, w, sig, **kw)[0])[0])
+        noisy = [noisy_experts(w, sig, **kw) for _, w, sig, kw in calls]
+
+        def run(fn, inputs):
+            for x, (_, w, sig, kw) in zip(inputs, calls):
+                fn(x, w, sig, **kw)
+
+        def run_library(inputs):
+            for x, wn in zip(inputs, noisy):
+                torch.bmm(x, wn)
+
+        def step_bound(inputs):
+            """Bytes (x, the stack and y once, the two statistics), FP32
+            FLOPs and the hash's and select's operations once per weight
+            element (HASH_OPS["K3"]; the statistics' float64 add and max
+            per element run on other pipes and are not counted)."""
+            nbytes = flops = elements = 0
+            for x, (_, w, *_) in zip(inputs, calls):
+                E, M, K = x.shape
+                N = w.shape[2]
+                nbytes += 4 * (E * M * K + E * K * N + E * M * N) + 8
+                flops += 2 * E * M * K * N
+                elements += E * K * N
+            alu, fma = hash_ops("K3", elements)
+            return bound(nbytes, flops, alu, fma), nbytes, alu
+
+        keys = ("emt_matmul", "emt_tiled", "split_sum", "stats_finish")
+        ms = cuda_time(lambda: run(k3.emt_matmul_experts, xs), 5)
+        lib_ms = cuda_time(lambda: run_library(xs), 5)
+        chunk_ms = cuda_time(lambda: run(k3.emt_matmul_experts, xc), 3)
+        chunk_lib_ms = cuda_time(lambda: run_library(xc), 3)
+        dev_ms = device_ms(lambda: run(k3.emt_matmul_experts, xs), keys)
+        chunk_dev_ms = device_ms(lambda: run(k3.emt_matmul_experts, xc),
+                                 keys)
+        del noisy
+        plain_ms = cuda_time(lambda: run(k3.plain_experts, xs), 2, warmup=1)
+        (b_ms, by, term), nbytes, alu = step_bound(xs)
+        (cb_ms, _, cterm), _, _ = step_bound(xc)
+        L = cfg.num_layers
+        self.records["emt_matmul_experts"].update(
+            name="emt_matmul_experts", route="cuda",
+            source="src/repro_torch/kernels/csrc/emt_matmul.cu",
+            replaces="src/repro/kernels/emt_matmul.py:57",
+            max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
+            chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
+            chunk_bound_ms=cb_ms, chunk_library_ms=chunk_lib_ms)
+        p = [k3.plan(x.shape[1], w.shape[2], x.shape[2], self.sms, True,
+                     experts=x.shape[0]) for x, w, *_ in calls[:3]]
+        print(f"  K3 experts per decode step ({len(calls)} calls, E "
+              f"{xs[0].shape[0]}, M={cap}; plans {[(q.splits, q.ctas) for q in p]} "
+              f"(slabs, CTAs) for wg, wu, wd): kernel {ms:.3f} ms (device "
+              f"time {fmt(dev_ms)}; per MoE layer {ms / L:.3f} ms, device "
+              f"{fmt(None if dev_ms is None else dev_ms / L)}), plain "
+              f"{plain_ms:.3f} ms, torch.bmm on pre-noised stacks "
+              f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({term}; "
+              f"{nbytes / 1e9:.3f} GB, {alu / 1e9:.3f} G ALU-pipe ops; per "
+              f"layer {b_ms / L:.3f} ms), roofline share "
+              f"{100 * b_ms / ms:.2f}% of the event time, "
+              f"{share(b_ms, dev_ms)} of the device time; max |diff| vs "
+              f"plain {worst:.3e}")
+        print(f"  K3 experts at the chunk step's M="
+              f"{xc[0].shape[1]} (the same stacks): kernel {chunk_ms:.3f} ms "
+              f"(device time {fmt(chunk_dev_ms)}), torch.bmm on pre-noised "
+              f"stacks {chunk_lib_ms:.3f} ms, bound {cb_ms:.3f} ms "
+              f"({cterm}), share of the device time "
+              f"{share(cb_ms, chunk_dev_ms)}")
+
+    def moe_logits_vs_plain(self):
+        """The MoE path's logits against its plain path at the 24-bit DAC
+        (limit 1e-3) with every corner's noise on, the 8-bit gaps
+        reported; then the MoE weights are dropped."""
+        self._logits_vs_plain(self.moe, "moe mixed",
+                              lambda c: self._step_pair(c, self.moe_params),
+                              quiet=False)
+        self.__dict__.pop("moe_params", None)
+        self.torch.cuda.empty_cache()
+
     def _level_flips(self, path, label, la, lb, steps):
         """Count the DAC levels that differ between two runs of `steps`
         (as a step function returned them: (step, logits, projections)),
@@ -3233,7 +3467,7 @@ class Smoke:
 
     def _free_serving(self):
         """Drop the serving phases' weights before the training phases."""
-        for name in ("params", "s2s_params"):
+        for name in ("params", "s2s_params", "moe_params"):
             self.__dict__.pop(name, None)
         self.torch.cuda.empty_cache()
         print(f"  device memory in use: "
@@ -3641,6 +3875,9 @@ def main() -> int:
               ("engine, speculative contiguous",
                s.engine_speculative_contiguous),
               ("engine, int8", s.engine_int8),
+              ("engine, moe mixed", s.engine_moe),
+              ("kernel calls vs plain, moe", s.moe_calls_vs_plain),
+              ("logits vs plain, moe", s.moe_logits_vs_plain),
               ("train, gemma3-1b analog", s.train_gemma3),
               ("train vs plain", s.train_vs_plain),
               ("train, paper CNN", s.train_cnn)]
@@ -3670,6 +3907,7 @@ def main() -> int:
     for label, summary in s.spec_summaries.items():
         print(f"engine, {label}: " + json.dumps(summary))
     print("engine, int8: " + json.dumps(s.int8_summary))
+    print("engine, moe mixed: " + json.dumps(s.moe_summary))
     print("train, gemma3-1b analog: " + json.dumps(s.train_summary))
     print("train, paper CNN: " + json.dumps(s.cnn_summary))
     print(s.smi)
@@ -3677,7 +3915,8 @@ def main() -> int:
                                   ("paged_attention_decode", "paged_prefill",
                                    "emt_matmul", "paged_attention",
                                    "emt_bitserial", "emt_matmul_dx",
-                                   "emt_matmul_dw", "emt_matmul_int8")]}))
+                                   "emt_matmul_dw", "emt_matmul_int8",
+                                   "emt_matmul_experts")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -82,7 +82,8 @@ PLACEMENTS = ("mixed", "attn-pcm", "digital-router")
 
 
 def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """Reduced same-family smoke config: tiny widths, few layers, fp32."""
+    """Reduced same-family smoke config: tiny widths, few layers and
+    experts (top-k capped by them), fp32."""
     heads = max(2, min(4, cfg.num_heads))
     kv = max(1, min(cfg.num_kv_heads, heads))
     if cfg.num_kv_heads == cfg.num_heads:
@@ -93,6 +94,11 @@ def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
         num_layers=min(cfg.num_layers, max(2, len(cfg.layer_pattern))),
         d_model=64, num_heads=heads, num_kv_heads=kv, head_dim=16,
         d_ff=0 if cfg.d_ff == 0 else 128, vocab_size=512,
+        num_experts=min(cfg.num_experts, 4),
+        experts_per_token=min(cfg.experts_per_token,
+                              min(cfg.num_experts, 4)) if cfg.num_experts
+        else 0,
+        moe_d_ff=64 if cfg.moe_d_ff else 0,
         sliding_window=8 if cfg.sliding_window else 0,
         encoder_layers=2 if cfg.encoder_layers else 0, dtype=torch.float32)
     kw.update(overrides)

@@ -171,8 +171,9 @@ def emt_dense(params: dict, x: torch.Tensor, cfg: EMTConfig, *, tag: str,
     tag:  unique layer name; crc32(tag) is the layer's noise plane, so tags
           must equal the JAX package's ("dec/layer_000/attn/wq", "unembed").
     seed: the step's noise seed (a Python int).
-    key:  the threefry backend's torch.Generator; the layer draws from a
-          generator derived from it and the plane (JAX's fold_in).
+    key:  the threefry backend's key (JAX's key words,
+          ``noise.prng_key``); the layer draws from ``fold_in(key,
+          plane)``, as JAX's layer does.
     """
     from repro_torch.kernels import ops     # kernels depend on core
 
@@ -209,8 +210,7 @@ def emt_dense(params: dict, x: torch.Tensor, cfg: EMTConfig, *, tag: str,
         if not cfg.noise.enabled:
             y = xin @ wq
         elif cfg.noise.backend == "threefry":
-            layer_key = (None if key is None
-                         else fold_in(key, plane, device=wq.device))
+            layer_key = None if key is None else fold_in(key, plane)
             y = xin @ fluctuate(wq, rho, cfg.device, cfg.noise,
                                 key=layer_key)
         elif cfg.noise.backend != "hash":

@@ -6,17 +6,27 @@ with the RTN state l drawn by one of two backends:
 
 * ``hash``: the counter hash of ``(seed, plane, row, col)``, bit-exact with
   the JAX reference and with the fused kernels (no noise tensor in memory);
-* ``threefry``: the paper-faithful categorical draw from ``state_probs``
-  on an explicit ``torch.Generator`` (JAX draws it with
-  ``jax.random.categorical`` from a threefry key; the streams cannot match,
-  the marginals do).  The noise is a weight-sized tensor.
+* ``threefry``: the paper-faithful categorical draw from ``state_probs``,
+  ``jax.random.categorical`` as JAX computes it from a threefry key:
+  threefry2x32 bits (the partitionable counter scheme), a Gumbel per state
+  and the argmax of Gumbel + log-probability.  The key is JAX's raw key
+  data, a pair of uint32 words (:func:`prng_key`, :func:`fold_in`).  The
+  bits equal JAX's bit for bit; the two ``log`` of the Gumbel step are
+  the only inexact part (XLA's CPU ``log`` is a polynomial of its own),
+  so a state can differ only where two states' Gumbel + logit lie within
+  a few ulp.  The noise is a weight-sized tensor.
+
+The threefry arithmetic runs in int64 holding uint32 values, masked back
+to 32 bits after every add and shift, as :mod:`repro_torch.core.hashrng`
+does for the hash.
 """
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import math
-from typing import Optional
+from typing import Optional, Sequence, Union
+
+import numpy as np
 
 import torch
 
@@ -52,32 +62,104 @@ def sample_state_offsets_hash(seed, shape, device: DeviceModel, plane=0,
     return torch.stack(planes).reshape(shape)
 
 
-def fold_in(gen: torch.Generator, data: int, device=None) -> torch.Generator:
-    """A generator derived deterministically from `gen`'s current state and
-    `data` (JAX's ``fold_in(key, data)``): the same state and data give the
-    same stream; `gen` is not advanced.  The new generator lives on
-    `device` (default: `gen`'s)."""
-    h = hashlib.sha256(gen.get_state().cpu().numpy().tobytes()
-                       + int(data).to_bytes(8, "little", signed=False))
-    child = torch.Generator(device=gen.device if device is None else device)
-    child.manual_seed(int.from_bytes(h.digest()[:8], "little") >> 1)
-    return child
+# a threefry key: JAX's raw key data, two uint32 words
+Key = Union[Sequence[int], np.ndarray, torch.Tensor]
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def sample_state_offsets_threefry(gen: torch.Generator, shape,
-                                  device: DeviceModel,
-                                  on=None) -> torch.Tensor:
-    """Paper-faithful categorical state sampling on `gen`: state i with
-    probability ``state_probs[i]`` (the inverse CDF of a float64 uniform),
-    looked up in ``state_offsets``.  float32, on `on` (default: `gen`'s
-    device)."""
-    on = gen.device if on is None else torch.device(on)
-    u = torch.rand(tuple(shape), generator=gen, dtype=torch.float64,
-                   device=on)
-    cdf = torch.cumsum(torch.as_tensor(device.state_probs,
-                                       dtype=torch.float64, device=on), 0)
-    state = torch.clamp(torch.searchsorted(cdf, u, right=True),
-                        max=len(cdf) - 1)
+def key_words(key: Key) -> tuple:
+    """The key's two uint32 words as Python ints (a tuple, a list, a numpy
+    array or a tensor of two integers, e.g. ``jax.random.PRNGKey(s)``'s
+    data)."""
+    if isinstance(key, torch.Tensor):
+        key = key.tolist()
+    k0, k1 = (int(v) & _MASK for v in np.asarray(key).reshape(-1).tolist())
+    return k0, k1
+
+
+def prng_key(seed: int) -> tuple:
+    """The key words of ``jax.random.PRNGKey(seed)`` (x64 off): a seed in
+    32-bit range is (0, seed mod 2^32), a wider one its high and low
+    words."""
+    seed = int(seed)
+    if -2 ** 31 <= seed < 2 ** 32:
+        return 0, seed & _MASK
+    return (seed >> 32) & _MASK, seed & _MASK
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & _MASK) | (x >> (32 - r))
+
+
+def threefry2x32(key: Key, x0: torch.Tensor, x1: torch.Tensor):
+    """The Threefry-2x32 block cipher (20 rounds) of the counter pairs
+    (x0, x1) under `key`, as ``jax._src.prng.threefry2x32_p`` computes it:
+    int64 tensors holding uint32 values in, the two output words out."""
+    k0, k1 = key_words(key)
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def fold_in(key: Key, data: int) -> tuple:
+    """``jax.random.fold_in(key, data)``: the key words of threefry2x32
+    under `key` of the counter pair (0, data mod 2^32)."""
+    y0, y1 = threefry2x32(key, torch.zeros(1, dtype=torch.int64),
+                          torch.tensor([int(data) & _MASK]))
+    return int(y0), int(y1)
+
+
+def random_bits(key: Key, shape, on="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` under the partitionable
+    threefry scheme (``jax_threefry_partitionable``, JAX's default since
+    0.5): element i of the flattened shape is the XOR of the two words of
+    threefry2x32 of the counter pair (i >> 32, i mod 2^32).  An int64
+    tensor holding the uint32 values."""
+    shape = tuple(int(s) for s in shape)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=on)
+    b0, b1 = threefry2x32(key, idx >> 32, idx & _MASK)
+    return (b0 ^ b1).reshape(shape)
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.gumbel``'s float32 value of 32 random bits (mode
+    "low"): the uniform in [tiny, 1) from the top 23 bits (bits >> 9 |
+    0x3F800000 is a float in [1, 2); minus 1, scaled onto [tiny, 1)),
+    then -log(-log(u))."""
+    one = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    tiny = float(np.finfo(np.float32).tiny)
+    span = float(np.float32(1.0) - np.float32(tiny))
+    u = torch.clamp_min((one - 1.0) * span + tiny, tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical_scores(key: Key, shape, probs, on="cpu") -> torch.Tensor:
+    """The (*shape, n_states) float32 scores whose argmax over the last
+    axis is ``jax.random.categorical(key, log(probs), shape=shape)``:
+    a Gumbel per (element, state) plus the state's log-probability."""
+    n = len(probs)
+    g = gumbel_from_bits(random_bits(key, (*tuple(shape), n), on))
+    return g + torch.log(torch.as_tensor(probs, dtype=torch.float32,
+                                         device=on))
+
+
+def sample_state_offsets_threefry(key: Key, shape, device: DeviceModel,
+                                  on="cpu") -> torch.Tensor:
+    """Paper-faithful categorical state sampling from the threefry `key`:
+    ``jax.random.categorical(key, log(state_probs), shape=shape)`` (the
+    first of equal scores wins, as jnp.argmax), looked up in
+    ``state_offsets``.  float32, on `on`."""
+    state = torch.argmax(categorical_scores(key, shape, device.state_probs,
+                                            on), dim=-1)
     table = torch.as_tensor(device.state_offsets, dtype=torch.float32,
                             device=on)
     return table[state]
@@ -90,12 +172,12 @@ def noise_factor(offs: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
 
 
 def fluctuate(w: torch.Tensor, rho: torch.Tensor, device: DeviceModel,
-              cfg: NoiseConfig, *, key: Optional[torch.Generator] = None,
+              cfg: NoiseConfig, *, key: Optional[Key] = None,
               seed=0, plane=0) -> torch.Tensor:
     """The sampled read value w~ = r_l(w, rho) (technique A forward), the
     noise materialized as a weight-sized tensor (the hash backend's is the
     plain version of the fused kernel in kernels/emt_matmul.py).  The
-    threefry backend draws from `key` (a generator the caller has already
+    threefry backend draws from `key` (the key the caller has already
     derived for this layer, as JAX folds the plane into its key)."""
     if not cfg.enabled:
         return w

@@ -191,6 +191,51 @@ __device__ __forceinline__ float dequant(uint32_t word, int j, float scale) {
   return __fmul_rn(level(word, j), scale);
 }
 
+// -- a stack of experts in one grid (K3's experts entry) --------------------
+// Expert e of an (E, K, N) weight stack reads x + e * sxe and w + e * swe
+// and hashes its element (k, n) at row e * K + k of the folded (E * K, N)
+// stack.  `stats` takes two float64 slots per CTA: the CTA's sum of |w'|
+// over the noisy weight elements it hashed (a region no other CTA
+// hashes), then, after all the sums, its max |w'|.
+struct Experts {
+  long long sxe, swe;
+  double* stats;
+};
+
+// Reduce one thread's (sum, max) of |w'| over the CTA in a fixed order
+// (a butterfly over the lanes, then the warps in order) and write them at
+// the CTA's slot (its linear index in the grid).  Every thread calls it.
+template <int kThreadsT>
+__device__ __forceinline__ void cta_stats(double s, float m, double* stats) {
+  __shared__ double wsum[kThreadsT / 32];
+  __shared__ float wmax[kThreadsT / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    wsum[warp] = s;
+    wmax[warp] = m;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double t = wsum[0];
+    float u = wmax[0];
+    for (int v = 1; v < kThreadsT / 32; ++v) {
+      t += wsum[v];
+      u = fmaxf(u, wmax[v]);
+    }
+    const long long n = (long long)gridDim.x * gridDim.y * gridDim.z;
+    const long long slot =
+        blockIdx.x + (long long)gridDim.x * (blockIdx.y +
+                                             (long long)gridDim.y * blockIdx.z);
+    stats[slot] = t;
+    stats[n + slot] = (double)u;
+  }
+}
+
 // -- split-K ---------------------------------------------------------------
 // A kernel split along K writes slab z's partial (M, N) sums to
 // part[z * M * N ...]; split_sum adds the slabs in slab order into y, so the

@@ -49,6 +49,19 @@
 //   are the float path's.  The weight's bytes fall 4x; the hash's work
 //   per element does not (at a gemma3-1b decode step the ALU pipe, not the
 //   bytes, then bounds the step: PERF.md).
+// * A stack of E experts (emt_matmul_experts_f32; the MoE layer's three
+//   projections, JAX's moe._emt_stacked + einsum): the GEMV n-major and
+//   tiled kernels with an expert grid axis (template EX; GEMV z = e, tiled
+//   z = e * splits + slab).  Expert e reads x + e * sxe and w + e * swe and
+//   hashes its element (k, n) at row e * K + k: the folded (E * K, N) draw
+//   of the reference, the TPU kernel's row base k0_base.  One launch
+//   covers a projection of every expert, and the planner counts all the
+//   experts' CTAs before it splits K.  Each CTA also sums |w'| (float64)
+//   and takes its max over the weight elements it hashed (disjoint
+//   regions: GEMV CTAs each hash their own slab of 128 columns, tiled CTAs
+//   of the first row tile only), and a one-CTA pass adds the per-CTA
+//   partials in a fixed order: the noisy stack's statistics, which the
+//   layer's accounting reads, without a noisy stack in memory.
 // Not yet done (later work): at decode the host's two launches and the
 // output allocation, not the device, set the time of a call (PERF.md); a
 // split sum inside a thread-block cluster, as the chunked prefill merges
@@ -132,14 +145,18 @@ __device__ __forceinline__ void gemv_x_row(const float* xs, int kk,
 // load (the next step's in flight), dequantizes and noises them into a
 // shared 32 x 128 float tile (aliasing `red`), and after a barrier the
 // warps run the float path's FMA loop on the tile's rows.
-template <int M, int NS, bool I8>
+//
+// EX (float32 weights only): expert blockIdx.z of a stack (repro::Experts;
+// the file's note), its |w'| sum and max reduced per CTA.
+template <int M, int NS, bool I8, bool EX>
 __global__ void __launch_bounds__(kThreads, 2)
 emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
                   const float* __restrict__ scale, float* __restrict__ out,
                   const float* __restrict__ sig_ptr, int Mr, int N, int K,
                   int k_slab, long long sxm, long long sxk, long long swk,
                   int vw, uint32_t seed, uint32_t plane,
-                  repro::NoiseParams np) {
+                  repro::NoiseParams np, repro::Experts ex) {
+  static_assert(!(EX && I8), "experts: float32 weights");
   constexpr int U = gemv_u<M>();
   constexpr int STEP = kWarps * U;                 // slab rows per step
   extern __shared__ __align__(16) float xs[];       // [k_slab][M]
@@ -149,6 +166,9 @@ emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
   const int n = n0 + 4 * lane;
   const int kb = blockIdx.y * k_slab;
   const int ke = min(K, kb + k_slab);
+  const int ei = EX ? blockIdx.z : 0;              // the expert
+  if constexpr (EX) x += ei * ex.sxe;
+  const uint32_t row0 = EX ? (uint32_t)ei * (uint32_t)K : 0u;
   const uint32_t pk = repro::hash_pk(seed, plane);
   Factors F;
   make_factors(np, *sig_ptr, F);
@@ -158,6 +178,8 @@ emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
   for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+  double ssum = 0.0;                               // EX: sum, max of |w'|
+  float smax = 0.f;
 
   if constexpr (I8) {
     const int8_t* __restrict__ w = static_cast<const int8_t*>(wv);
@@ -183,8 +205,8 @@ emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           v[j] = noisy<NS>(dequant(word, j, sc[4 * jj + j]),
-                           (uint32_t)(k0 + lr), (uint32_t)(ln + 4 * jj + j),
-                           pk, F);
+                           row0 + (uint32_t)(k0 + lr),
+                           (uint32_t)(ln + 4 * jj + j), pk, F);
         *reinterpret_cast<float4*>(&wsm[lr * kGemvBN + lc + 4 * jj]) =
             make_float4(v[0], v[1], v[2], v[3]);
       }
@@ -209,7 +231,8 @@ emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
       qc = qn;
     }
   } else {
-  const float* __restrict__ w = static_cast<const float*>(wv);
+  const float* __restrict__ w =
+      static_cast<const float*>(wv) + (EX ? ei * ex.swe : 0);
   float4 wc[U], wn[U];
   auto load_w = [&](int k0, float4 (&v)[U]) {
 #pragma unroll
@@ -231,8 +254,16 @@ emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
       float wp[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        wp[j] = noisy<NS>(f4(wc[u], j), (uint32_t)(kb + kk),
+        wp[j] = noisy<NS>(f4(wc[u], j), row0 + (uint32_t)(kb + kk),
                           (uint32_t)(n + j), pk, F);
+      if constexpr (EX) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float a = fabsf(wp[j]);
+          ssum += a;
+          smax = fmaxf(smax, a);
+        }
+      }
       float xv[M];
       gemv_x_row<M>(xs, kk, xv);
 #pragma unroll
@@ -245,8 +276,9 @@ emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
   }
   }
 
-  // the 8 warps' partials of each column, summed in warp order
-  float* o = out + (long long)blockIdx.y * Mr * N;
+  // the 8 warps' partials of each column, summed in warp order; slab
+  // blockIdx.y of expert ei
+  float* o = out + ((long long)blockIdx.y * gridDim.z + ei) * Mr * N;
 #pragma unroll
   for (int mg = 0; mg < M; mg += 4) {
     __syncthreads();
@@ -265,6 +297,7 @@ emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
       o[(long long)m * N + n0 + col] = s;
     }
   }
+  if constexpr (EX) repro::cta_stats<kThreads>(ssum, smax, ex.stats);
 }
 
 // k-major or any-stride weight (swn != 1; the tied unembed reads the
@@ -409,41 +442,45 @@ struct Args {
   int vw;
   uint32_t seed, plane;
   repro::NoiseParams np;
+  int E;                    // experts (EX; else 1)
+  repro::Experts ex;
 };
 
-template <int MT, int NS, bool I8>
+template <int MT, int NS, bool I8, bool EX>
 void launch_gemv(const Args& a, bool kc, int splits, cudaStream_t s) {
   const size_t smem = sizeof(float) * MT * a.k_slab;
-  if (kc) {
-    dim3 grid((a.N + kGemvBNk - 1) / kGemvBNk, splits);
-    emt_matmul_gemv_k<MT, NS, I8><<<grid, kThreads, smem, s>>>(
-        a.x, a.w, a.scale, a.out, a.sig, a.M, a.N, a.K, a.k_slab, a.sxm,
-        a.sxk, a.swk, a.swn, a.vw, a.seed, a.plane, a.np);
-  } else {
-    dim3 grid((a.N + kGemvBN - 1) / kGemvBN, splits);
-    emt_matmul_gemv_n<MT, NS, I8><<<grid, kThreads, smem, s>>>(
-        a.x, a.w, a.scale, a.out, a.sig, a.M, a.N, a.K, a.k_slab, a.sxm,
-        a.sxk, a.swk, a.vw, a.seed, a.plane, a.np);
+  if constexpr (!EX) {
+    if (kc) {
+      dim3 grid((a.N + kGemvBNk - 1) / kGemvBNk, splits);
+      emt_matmul_gemv_k<MT, NS, I8><<<grid, kThreads, smem, s>>>(
+          a.x, a.w, a.scale, a.out, a.sig, a.M, a.N, a.K, a.k_slab, a.sxm,
+          a.sxk, a.swk, a.swn, a.vw, a.seed, a.plane, a.np);
+      return;
+    }
   }
+  dim3 grid((a.N + kGemvBN - 1) / kGemvBN, splits, a.E);
+  emt_matmul_gemv_n<MT, NS, I8, EX><<<grid, kThreads, smem, s>>>(
+      a.x, a.w, a.scale, a.out, a.sig, a.M, a.N, a.K, a.k_slab, a.sxm,
+      a.sxk, a.swk, a.vw, a.seed, a.plane, a.np, a.ex);
 }
 
-template <int NS, bool I8>
+template <int NS, bool I8, bool EX>
 void launch(const Args& a, bool kc, int splits, int xvec, cudaStream_t s) {
   if (a.M > kGemvMaxM) {
-    repro::launch_tiled<NS, I8>(a.x, a.w, a.scale, a.out, a.sig, a.M, a.N,
-                                a.K, a.k_slab, a.sxm, a.sxk, a.swk, a.swn,
-                                a.vw, xvec, a.seed, a.plane, a.np, kc, splits,
-                                s);
+    repro::launch_tiled<NS, I8, EX>(a.x, a.w, a.scale, a.out, a.sig, a.M,
+                                    a.N, a.K, a.k_slab, a.sxm, a.sxk, a.swk,
+                                    a.swn, a.vw, xvec, a.seed, a.plane, a.np,
+                                    kc, splits, a.E, a.ex, s);
     return;
   }
   switch (a.M) {
-    case 1: launch_gemv<1, NS, I8>(a, kc, splits, s); break;
-    case 2: launch_gemv<2, NS, I8>(a, kc, splits, s); break;
-    case 3: launch_gemv<3, NS, I8>(a, kc, splits, s); break;
-    case 4: launch_gemv<4, NS, I8>(a, kc, splits, s); break;
+    case 1: launch_gemv<1, NS, I8, EX>(a, kc, splits, s); break;
+    case 2: launch_gemv<2, NS, I8, EX>(a, kc, splits, s); break;
+    case 3: launch_gemv<3, NS, I8, EX>(a, kc, splits, s); break;
+    case 4: launch_gemv<4, NS, I8, EX>(a, kc, splits, s); break;
     default:
-      if (a.M <= 8) launch_gemv<8, NS, I8>(a, kc, splits, s);
-      else launch_gemv<16, NS, I8>(a, kc, splits, s);
+      if (a.M <= 8) launch_gemv<8, NS, I8, EX>(a, kc, splits, s);
+      else launch_gemv<16, NS, I8, EX>(a, kc, splits, s);
   }
 }
 
@@ -452,13 +489,14 @@ bool aligned(const void* p, int bytes) {
 }
 
 
-// The shared body of both C entries: check the plan, pick the weight
-// loads' width, launch, and sum the slabs.
-template <bool I8>
+// The shared body of the C entries: check the plan, pick the weight
+// loads' width, launch, and sum the slabs.  EX: a stack of E experts at
+// the strides of `ex` (n-major weights only).
+template <bool I8, bool EX>
 int run(const float* x, const void* w, const float* scale, float* y,
         float* part, const float* sig, const long long* dims,
         unsigned int seed, unsigned int plane, const repro::NoiseParams* np,
-        void* stream) {
+        void* stream, int E = 1, repro::Experts ex = {0, 0, nullptr}) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = (int)dims[0], N = (int)dims[1], K = (int)dims[2];
   const int splits = (int)dims[3], k_slab = (int)dims[4];
@@ -468,7 +506,8 @@ int run(const float* x, const void* w, const float* scale, float* y,
   const int bk = !gemv ? repro::kTBK : kc ? kGemvBKk : kGemvBK;
   const int mt = M <= 4 ? M : M <= 8 ? 8 : 16;     // the GEMV row template
   if (M < 1 || N < 1 || !repro::split_plan_ok(K, splits, k_slab, bk) ||
-      (gemv && (long long)sizeof(float) * mt * k_slab > kGemvXBytes))
+      (gemv && (long long)sizeof(float) * mt * k_slab > kGemvXBytes) ||
+      (EX && (kc || E < 1 || (long long)splits * E > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
   int vw = 1;
   if (I8) {
@@ -476,23 +515,54 @@ int run(const float* x, const void* w, const float* scale, float* y,
     if (!kc ? swk % 16 == 0 : swk == 1 && swn % 16 == 0)
       vw = aligned(w, 16) ? 16 : 1;
   } else if (!kc) {
-    vw = aligned(w, 16) && swk % 4 == 0  ? 4
-         : aligned(w, 8) && swk % 2 == 0 ? 2
-                                         : 1;
+    // (every expert's rows at the alignment of the first's)
+    const long long swe = ex.swe;
+    vw = aligned(w, 16) && swk % 4 == 0 && swe % 4 == 0  ? 4
+         : aligned(w, 8) && swk % 2 == 0 && swe % 2 == 0 ? 2
+                                                         : 1;
   } else if (swk == 1 && swn % 4 == 0 && aligned(w, 16)) {
     vw = 4;
   }
-  const int xvec = sxk == 1 && sxm % 4 == 0 && aligned(x, 16);
+  const int xvec = sxk == 1 && sxm % 4 == 0 && ex.sxe % 4 == 0 &&
+                   aligned(x, 16);
   Args a{x, w, scale, splits > 1 ? part : y, sig, M, N, K, k_slab, sxm, sxk,
-         swk, swn, vw, seed, plane, *np};
+         swk, swn, vw, seed, plane, *np, E, ex};
   if (np->n_states == 2)
-    launch<2, I8>(a, kc, splits, xvec, s);
+    launch<2, I8, EX>(a, kc, splits, xvec, s);
   else
-    launch<0, I8>(a, kc, splits, xvec, s);
+    launch<0, I8, EX>(a, kc, splits, xvec, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(
-      repro::split_sum(part, y, (long long)M * N, splits, s));
+      repro::split_sum(part, y, (long long)E * M * N, splits, s));
+}
+
+// The experts' statistics: the per-CTA partial sums (float64) added in
+// slot order by each thread, then the threads in a fixed tree; the maxima
+// likewise; out = {float(sum), float(max)}.
+__global__ void stats_finish(const double* __restrict__ part, long long n,
+                             float* __restrict__ out) {
+  __shared__ double s[kThreads], m[kThreads];
+  const int t = threadIdx.x;
+  double a = 0.0, b = 0.0;
+  for (long long i = t; i < n; i += kThreads) {
+    a += part[i];
+    b = fmax(b, part[n + i]);
+  }
+  s[t] = a;
+  m[t] = b;
+  __syncthreads();
+  for (int o = kThreads / 2; o > 0; o >>= 1) {
+    if (t < o) {
+      s[t] += s[t + o];
+      m[t] = fmax(m[t], m[t + o]);
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    out[0] = (float)s[0];
+    out[1] = (float)m[0];
+  }
 }
 
 }  // namespace
@@ -511,8 +581,8 @@ extern "C" int emt_matmul_f32(const float* x, const float* w, float* y,
                               const long long* dims, unsigned int seed,
                               unsigned int plane,
                               const repro::NoiseParams* np, void* stream) {
-  return run<false>(x, w, nullptr, y, part, sig, dims, seed, plane, np,
-                    stream);
+  return run<false, false>(x, w, nullptr, y, part, sig, dims, seed, plane,
+                           np, stream);
 }
 
 // The same with w stored as int8 conductance levels (K, N), any strides,
@@ -525,5 +595,38 @@ extern "C" int emt_matmul_i8(const float* x, const int8_t* w,
                              const float* sig, const long long* dims,
                              unsigned int seed, unsigned int plane,
                              const repro::NoiseParams* np, void* stream) {
-  return run<true>(x, w, scale, y, part, sig, dims, seed, plane, np, stream);
+  return run<true, false>(x, w, scale, y, part, sig, dims, seed, plane, np,
+                          stream);
+}
+
+// A stack of E experts: y (E, M, N) = x (E, M, K) @ noisy(w (E, K, N))
+// per expert, expert e's element (k, n) hashed at row e * K + k; w
+// n-major (swn == 1).  dims = {M, N, K, splits, k_slab, sxm, sxk, swk, swn,
+// E, sxe, swe, slots}: the plan is emt_matmul.py::plan's with the experts'
+// tiles counted, `part` holds splits * E * M * N floats, `parts` 2 * slots
+// float64 values, slots being the grid's CTAs (checked), and `stats`
+// receives {sum |w'|, max |w'|} of the noisy stack.
+extern "C" int emt_matmul_experts_f32(const float* x, const float* w,
+                                      float* y, float* part, double* parts,
+                                      float* stats, const float* sig,
+                                      const long long* dims,
+                                      unsigned int seed, unsigned int plane,
+                                      const repro::NoiseParams* np,
+                                      void* stream) {
+  const int M = (int)dims[0], N = (int)dims[1];
+  const long long splits = dims[3], E = dims[9], slots = dims[12];
+  const long long ctas =
+      M <= kGemvMaxM
+          ? (long long)((N + kGemvBN - 1) / kGemvBN) * splits * E
+          : (long long)((N + repro::kTBN - 1) / repro::kTBN) *
+                ((M + repro::kTBM - 1) / repro::kTBM) * splits * E;
+  if (dims[8] != 1 || E < 1 || E > 65535 || slots != ctas)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = run<false, true>(x, w, nullptr, y, part, sig, dims, seed,
+                                   plane, np, stream, (int)E,
+                                   repro::Experts{dims[10], dims[11], parts});
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  stats_finish<<<1, kThreads, 0, s>>>(parts, slots, stats);
+  return static_cast<int>(cudaGetLastError());
 }

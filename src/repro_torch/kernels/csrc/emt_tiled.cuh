@@ -19,6 +19,14 @@
 // dequantizes its 8 as fl(float(q) * scale[n]) and noises them as the
 // float loader does, into the same float32 shared-memory tile: the FMA
 // loop is the float path's.
+//
+// EX (K3's experts entry, n-major float32 weights): grid z holds E experts
+// times the slabs (z = e * splits + slab); expert e reads its x rows and
+// weight at the Experts strides, hashes at rows e * K + k of the folded
+// stack, writes its slab's (M, N) partial at out + (slab * E + e) * M * N,
+// and the CTAs of the first row tile (each weight element is hashed once
+// a row tile) sum |w'| and take its max for the stack's statistics
+// (common.cuh cta_stats).
 #pragma once
 #include <cstdint>
 
@@ -30,14 +38,17 @@ constexpr int kTiledThreads = 256;
 constexpr int kTBM = 64, kTBN = 64, kTBK = 32;
 
 // KC: w is not n-contiguous (swn != 1; the load runs along k).  I8: w is
-// int8 levels and `scale` their per-column scale (else unused).
-template <bool KC, int NS, bool I8>
+// int8 levels and `scale` their per-column scale (else unused).  EX: a
+// stack of experts (above; float32 n-major weights only).
+template <bool KC, int NS, bool I8, bool EX>
 __global__ void __launch_bounds__(kTiledThreads, 2)
 emt_tiled(const float* __restrict__ x, const void* __restrict__ wv,
           const float* __restrict__ scale, float* __restrict__ out,
           const float* __restrict__ sig_ptr, int M, int N, int K, int k_slab,
           long long sxm, long long sxk, long long swk, long long swn, int vw,
-          int xvec, uint32_t seed, uint32_t plane, NoiseParams np) {
+          int xvec, uint32_t seed, uint32_t plane, NoiseParams np,
+          Experts ex) {
+  static_assert(!(EX && (KC || I8)), "experts: float32 n-major weights");
   __shared__ __align__(16) float ws[2][kTBK][kTBN];
   __shared__ __align__(16) float xs[2][kTBK][kTBM + 4];
   const int tid = threadIdx.x;
@@ -45,15 +56,25 @@ emt_tiled(const float* __restrict__ x, const void* __restrict__ wv,
   const int ty = tid / 16;                  // rows ty*4 .. ty*4+3
   const int m0 = blockIdx.y * kTBM;
   const int n0 = blockIdx.x * kTBN;
-  const int kb = blockIdx.z * k_slab;
+  const int splits = EX ? (K + k_slab - 1) / k_slab : 1;
+  const int ei = EX ? blockIdx.z / splits : 0;      // the expert
+  const int zs = EX ? blockIdx.z % splits : blockIdx.z;
+  const int kb = zs * k_slab;
   const int ke = min(K, kb + k_slab);
+  if constexpr (EX) x += ei * ex.sxe;
+  const uint32_t row0 = EX ? (uint32_t)ei * (uint32_t)K : 0u;
   const uint32_t pk = hash_pk(seed, plane);
   Factors F;
   make_factors(np, *sig_ptr, F);
   // loader coordinates: n-major weights by (row, 4-column group); k-major
   // weights and x by (column or row, 8-deep K run)
   const int ln = tid & 63, lq = tid >> 6;
-  const float* __restrict__ w = static_cast<const float*>(wv);
+  const float* __restrict__ w =
+      static_cast<const float*>(wv) + (EX ? ei * ex.swe : 0);
+  // EX: this thread's share of the stack's sum and max of |w'|
+  const bool stats = EX && blockIdx.y == 0;
+  double ssum = 0.0;
+  float smax = 0.f;
   // int8 loader: load e (lanes 0-15 of each warp) covers 16 levels of
   // n-major row e / 4 from column 16 * (e % 4), or of k-major column e / 2
   // from row 16 * (e % 2); lane l + 16 dequantizes the upper 8 of lane l's
@@ -70,9 +91,9 @@ emt_tiled(const float* __restrict__ x, const void* __restrict__ wv,
       sc[j] = n < N ? __ldg(scale + n) : 0.f;
     }
   }
-  // the noisy value of element (k, n), hashed at (k, n)
+  // the noisy value of element (k, n), hashed at (row0 + k, n)
   auto hashed = [&](float v, int k, int n) {
-    return noisy<NS>(v, (uint32_t)k, (uint32_t)n, pk, F);
+    return noisy<NS>(v, row0 + (uint32_t)k, (uint32_t)n, pk, F);
   };
 
   float acc[4][4];
@@ -161,6 +182,14 @@ emt_tiled(const float* __restrict__ x, const void* __restrict__ wv,
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           v[j] = hashed(f4(wr[r], j), k0 + kk, n0 + c + j);
+        if (stats) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float a = fabsf(v[j]);
+            ssum += a;
+            smax = fmaxf(smax, a);
+          }
+        }
         *reinterpret_cast<float4*>(&ws[buf][kk][c]) =
             make_float4(v[0], v[1], v[2], v[3]);
       }
@@ -193,7 +222,9 @@ emt_tiled(const float* __restrict__ x, const void* __restrict__ wv,
     __syncthreads();
   }
 
-  float* o = out + (long long)blockIdx.z * M * N;
+  // slab zs of expert ei (E = gridDim.z / splits)
+  const int n_ex = EX ? gridDim.z / splits : 1;
+  float* o = out + ((long long)zs * n_ex + ei) * M * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
@@ -204,26 +235,32 @@ emt_tiled(const float* __restrict__ x, const void* __restrict__ wv,
       if (n < N) o[(long long)m * N + n] = acc[i][j];
     }
   }
+  if constexpr (EX) cta_stats<kTiledThreads>(ssum, smax, ex.stats);
 }
 
-// Launch emt_tiled<KC, NS, I8> over an (M, N) output in `splits` slabs of
-// `k_slab` reduction rows.
-template <int NS, bool I8>
+// Launch emt_tiled<KC, NS, I8, EX> over an (M, N) output (of each of E
+// experts, EX) in `splits` slabs of `k_slab` reduction rows.
+template <int NS, bool I8, bool EX>
 void launch_tiled(const float* x, const void* w, const float* scale,
                   float* out, const float* sig, int M, int N, int K,
                   int k_slab, long long sxm, long long sxk, long long swk,
                   long long swn, int vw, int xvec, uint32_t seed,
                   uint32_t plane, const NoiseParams& np, bool kc, int splits,
-                  cudaStream_t s) {
-  dim3 grid((N + kTBN - 1) / kTBN, (M + kTBM - 1) / kTBM, splits);
-  if (kc)
-    emt_tiled<true, NS, I8><<<grid, kTiledThreads, 0, s>>>(
+                  int E, const Experts& ex, cudaStream_t s) {
+  dim3 grid((N + kTBN - 1) / kTBN, (M + kTBM - 1) / kTBM, splits * E);
+  if constexpr (EX) {
+    emt_tiled<false, NS, false, true><<<grid, kTiledThreads, 0, s>>>(
         x, w, scale, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, vw, xvec,
-        seed, plane, np);
-  else
-    emt_tiled<false, NS, I8><<<grid, kTiledThreads, 0, s>>>(
+        seed, plane, np, ex);
+  } else if (kc) {
+    emt_tiled<true, NS, I8, false><<<grid, kTiledThreads, 0, s>>>(
         x, w, scale, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, vw, xvec,
-        seed, plane, np);
+        seed, plane, np, ex);
+  } else {
+    emt_tiled<false, NS, I8, false><<<grid, kTiledThreads, 0, s>>>(
+        x, w, scale, out, sig, M, N, K, k_slab, sxm, sxk, swk, swn, vw, xvec,
+        seed, plane, np, ex);
+  }
 }
 
 }  // namespace repro

@@ -24,11 +24,21 @@ in registers (``emt_matmul_i8`` in ``csrc/emt_matmul.cu``), and the plain
 version dequantizes first.  It is serve-only: a gradient through it
 raises, and K3-dx and K3-dw take float32 weights only.
 
+:func:`emt_matmul_experts` computes a stack of E experts' products in one
+launch (``emt_matmul_experts_f32``: the same kernels with an expert grid
+axis), expert e's weight hashed at rows e * K + k of the folded (E * K, N)
+stack, as JAX's MoE layer draws its noise (``repro/models/moe.py``
+``_emt_stacked``; the TPU kernel's row base ``k0_base``), and returns the
+noisy stack's sum |w~| and max |w~| beside the product, from per-CTA
+partials over disjoint weight regions summed in a fixed order (float64).
+It is serve-only on the card: a gradient through it raises.
+
 On a CPU tensor each wrapper computes its plain version
 (:mod:`repro_torch.kernels.ref`); on a CUDA tensor it launches its kernel or
 raises.  ``emt_matmul.launches`` (float32 weights),
-``_forward_int8.launches`` (int8 weights), ``emt_matmul_dx.launches``
-and ``emt_matmul_dw.launches`` count kernel launches.
+``_forward_int8.launches`` (int8 weights), ``emt_matmul_experts.launches``,
+``emt_matmul_dx.launches`` and ``emt_matmul_dw.launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from repro_torch.core.device import DeviceModel
 from repro_torch.kernels import _build, splitk
 from repro_torch.kernels.ref import emt_matmul_dw_ref as plain_dw
 from repro_torch.kernels.ref import emt_matmul_dx_ref as plain_dx
+from repro_torch.kernels.ref import emt_matmul_experts_ref as plain_experts
 from repro_torch.kernels.ref import emt_matmul_ref as plain
 
 MAX_STATES = 8
@@ -126,7 +137,8 @@ def _fn(lib: str, entry: str, pointers: int = 6):
     return fn
 
 
-def plan(M: int, N: int, K: int, sms: int, n_major: bool) -> splitk.Plan:
+def plan(M: int, N: int, K: int, sms: int, n_major: bool,
+         experts: int = 1) -> splitk.Plan:
     """The kernel's cut of (M, K) @ (K, N): K split until the grid holds two
     CTAs per SM (what ~128 registers per thread allow), in whole chunks or
     tiles.  `n_major`: the weight's N stride is 1.
@@ -136,13 +148,17 @@ def plan(M: int, N: int, K: int, sms: int, n_major: bool) -> splitk.Plan:
     and the split counts CTAs, not bytes, because at int8 the hash's
     operations, not the weight's bytes, bound the product (a gemma3-1b
     decode step: 1.016 ms on the ALU pipe against 0.570 ms of bytes), so
-    the split that fills every SM stays."""
+    the split that fills every SM stays.
+
+    A stack of `experts` products (:func:`emt_matmul_experts`) is one grid
+    of every expert's tiles: the split counts them all."""
     if M <= GEMV_MAX_M:
         kw = GEMV_N if n_major else GEMV_K
         rows = M if M <= 4 else 8 if M <= 8 else 16      # the row template
         max_slab = GEMV_X_BYTES // (4 * rows) // kw["bk"] * kw["bk"]
-        return splitk.plan(M, N, K, bm=M, sms=sms, max_slab=max_slab, **kw)
-    return splitk.plan(M, N, K, sms=sms, **TILED)
+        return splitk.plan(M, N, K, bm=M, sms=sms, max_slab=max_slab,
+                           experts=experts, **kw)
+    return splitk.plan(M, N, K, sms=sms, experts=experts, **TILED)
 
 
 def plan_dx(M: int, K: int, N: int, sms: int) -> splitk.Plan:
@@ -276,6 +292,83 @@ def _forward_int8(x, q, scale, sig, *, device: DeviceModel, seed: int,
     _build.check(err, "emt_matmul_int8")
     _forward_int8.launches += 1
     return y
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_experts(index, E, M, N, K, sxe, sxm, sxk, swe, swk):
+    """(plan, the experts entry's int64 dims array, its address) for one
+    call shape; dims[12] is the number of per-CTA statistics slots."""
+    p = plan(M, N, K, splitk.sm_count(index), True, experts=E)
+    dims = (ctypes.c_longlong * 13)(M, N, K, p.splits, p.k_slab, sxm, sxk,
+                                    swk, 1, E, sxe, swe, p.ctas)
+    return p, dims, ctypes.addressof(dims)
+
+
+def _forward_experts(x, w, sig, *, device: DeviceModel, seed: int = 0,
+                     plane: int = 0):
+    """The experts kernel: (y (E, M, N), sum |w~|, max |w~|)."""
+    if _on_cpu("emt_matmul_experts", x):
+        return plain_experts(x, w, sig, device=device, seed=seed,
+                             plane=plane)
+    if (x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0]
+            or x.shape[2] != w.shape[1]):
+        raise ValueError(f"emt_matmul_experts: shapes {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    index = _check("emt_matmul_experts", x[0], w[0], sig, 0)
+    if w.stride(2) != 1:
+        raise ValueError("emt_matmul_experts: the expert weights must be "
+                         f"n-major (stride 1 along N), got strides "
+                         f"{w.stride()}")
+    E, M, K = x.shape
+    N = w.shape[2]
+    p, _, dims = _launch_experts(index, E, M, N, K, x.stride(0),
+                                 x.stride(1), x.stride(2), w.stride(0),
+                                 w.stride(1))
+    y, part = splitk.outputs(p, x)
+    # per-CTA partial sums and maxima (float64), then the two results
+    parts = torch.empty(2 * p.ctas, dtype=torch.float64, device=x.device)
+    stats = torch.empty(2, dtype=torch.float32, device=x.device)
+    err = _fn("emt_matmul", "emt_matmul_experts_f32", 8)(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), part, parts.data_ptr(),
+        stats.data_ptr(), sig.data_ptr(), dims, int(seed) & 0xFFFFFFFF,
+        int(plane) & 0xFFFFFFFF, ctypes.addressof(noise_params(device)),
+        _build.stream(index))
+    _build.check(err, "emt_matmul_experts")
+    emt_matmul_experts.launches += 1
+    return y.view(E, M, N), stats[0], stats[1]
+
+
+class _ExpertsServing(torch.autograd.Function):
+    """The experts kernel where an input requires a gradient: the forward
+    runs, a backward raises (K3-dx and K3-dw have no row base yet)."""
+
+    @staticmethod
+    def forward(ctx, x, w, sig, kw):
+        return _forward_experts(x, w, sig, **kw)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "emt_matmul_experts: no gradient on the card yet (K3-dx and "
+            "K3-dw take no expert row base; ROADMAP Queue 1, MoE training "
+            "on the card); train MoE stacks on the CPU's plain path")
+
+
+def emt_matmul_experts(x: torch.Tensor, w: torch.Tensor, sig: torch.Tensor,
+                       *, device: DeviceModel, seed: int = 0,
+                       plane: int = 0):
+    """A stack of E experts' noisy products: x (E, M, K) @ noisy(w (E, K,
+    N)) -> (y (E, M, N) float32, sum |w~|, max |w~|), the noise of expert
+    e's element (k, n) hashed at row e * K + k, col n (the folded (E * K,
+    N) draw), and the two statistics of the noisy stack as float32 scalar
+    tensors.  x of any strides; w n-major (stride 1 along N).  On the CPU
+    the plain version, differentiable in x, w and sig; on the card the
+    kernel, whose gradient raises."""
+    kw = dict(device=device, seed=seed, plane=plane)
+    if (not x.is_cuda or not torch.is_grad_enabled()
+            or not (x.requires_grad or w.requires_grad or sig.requires_grad)):
+        return _forward_experts(x, w, sig, **kw)
+    return _ExpertsServing.apply(x, w, sig, kw)
 
 
 def emt_matmul_dx(g: torch.Tensor, w: torch.Tensor, sig: torch.Tensor, *,
@@ -438,5 +531,6 @@ def emt_matmul(x: torch.Tensor, w, sig: torch.Tensor, *,
 
 emt_matmul.launches = 0
 _forward_int8.launches = 0
+emt_matmul_experts.launches = 0
 emt_matmul_dx.launches = 0
 emt_matmul_dw.launches = 0

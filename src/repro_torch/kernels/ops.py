@@ -16,6 +16,8 @@ import torch.nn.functional as F
 from repro_torch.core.device import DeviceModel
 from repro_torch.kernels.emt_bitserial import emt_bitserial as _emt_bitserial
 from repro_torch.kernels.emt_matmul import emt_matmul as _emt_matmul
+from repro_torch.kernels.emt_matmul import \
+    emt_matmul_experts as _emt_matmul_experts
 from repro_torch.kernels.paged_attention import \
     paged_attention as _paged_attend
 from repro_torch.kernels.paged_attention import \
@@ -32,6 +34,15 @@ def emt_matmul(x, w, sig, *, device: DeviceModel, seed: int = 0,
     y = _emt_matmul(x.reshape(-1, x.shape[-1]), w, sig, device=device,
                     seed=seed, plane=plane)
     return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def emt_matmul_experts(x, w, sig, *, device: DeviceModel, seed: int = 0,
+                       plane: int = 0):
+    """A stack of E experts' noisy crossbar matmuls in one call: x (E, M,
+    K) @ noisy(w (E, K, N)) -> (y (E, M, N) fp32, sum |w~|, max |w~|), the
+    noise of the folded (E * K, N) stack (expert e's rows at e * K + k)."""
+    return _emt_matmul_experts(x, w, sig, device=device, seed=seed,
+                               plane=plane)
 
 
 def emt_bitserial_matmul(xq, w, sig, *, device: DeviceModel, bits: int = 7,

@@ -17,6 +17,7 @@ from repro_torch.core import hashrng
 from repro_torch.core.decompose import bitserial_fwd
 from repro_torch.core.device import DeviceModel
 from repro_torch.core.noise import noise_factor
+from repro_torch.core.regularizer import jax_abs
 
 # The additive-mask sentinel; must equal models.common.NEG_INF.
 NEG_INF = -1e30
@@ -50,6 +51,32 @@ def emt_matmul_ref(x, w, sig, *, device: DeviceModel, seed=0, plane=0):
     _, f = _noise(w, sig, device, seed, plane)
     wn = (w.to(torch.float32) * f).to(w.dtype)
     return torch.matmul(x, wn).to(torch.float32)
+
+
+def noisy_experts(w, sig, *, device: DeviceModel, seed=0, plane=0):
+    """The noisy (E, K, N) expert stack: ``fluctuate`` of the folded
+    (E * K, N) stack (expert e's element (k, n) hashed at row e * K + k),
+    reshaped back."""
+    e, kdim, n = w.shape
+    _, f = _noise(w.reshape(e * kdim, n), sig, device, seed, plane)
+    return w * f.reshape(e, kdim, n).to(w.dtype)
+
+
+def emt_matmul_experts_ref(x, w, sig, *, device: DeviceModel, seed=0,
+                           plane=0):
+    """A stack of E experts' products: x (E, M, K) @ noisy(w (E, K, N)) ->
+    (E, M, N) float32, with the noise of the folded (E * K, N) stack, so
+    expert e's element (k, n) hashes at row e * K + k (JAX's
+    ``moe._emt_stacked``: ``fluctuate`` of ``w.reshape(E * K, N)``), and
+    the noisy stack's sum |w~| and max |w~| (float32 scalars, JAX's
+    ``moe_ffn`` accounting).  Differentiable in x, w and sig; the sum's
+    |.| has JAX's derivative at 0 (regularizer.jax_abs), as technique B's
+    term over it needs."""
+    wn = noisy_experts(w, sig, device=device, seed=seed, plane=plane)
+    y = torch.bmm(x, wn).to(torch.float32)
+    wf = wn.to(torch.float32)
+    return (y, torch.sum(jax_abs(wf)),
+            torch.amax(torch.abs(wf.detach())))
 
 
 def emt_matmul_dx_ref(g, w, sig, *, device: DeviceModel, seed=0, plane=0):

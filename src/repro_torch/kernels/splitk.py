@@ -37,8 +37,9 @@ def cdiv(a: int, b: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How a (M, K) @ (K, N) product is cut: output tiles of bm x bn, K in
-    ``splits`` slabs of ``k_slab`` rows (whole ``bk``-row tiles)."""
+    """How a (M, K) @ (K, N) product, or ``E`` of them (a stack of
+    experts, one grid), is cut: output tiles of bm x bn, K in ``splits``
+    slabs of ``k_slab`` rows (whole ``bk``-row tiles)."""
     M: int
     N: int
     K: int
@@ -47,10 +48,11 @@ class Plan:
     bk: int
     splits: int
     k_slab: int
+    E: int = 1
 
     @property
     def tiles(self) -> int:
-        return cdiv(self.N, self.bn) * cdiv(self.M, self.bm)
+        return cdiv(self.N, self.bn) * cdiv(self.M, self.bm) * self.E
 
     @property
     def ctas(self) -> int:
@@ -58,17 +60,21 @@ class Plan:
 
 
 def plan(M: int, N: int, K: int, *, bm: int, bn: int, bk: int, sms: int,
-         min_slab: int, max_slab: int = 0, per_sm: int = CTAS_PER_SM) -> Plan:
+         min_slab: int, max_slab: int = 0, per_sm: int = CTAS_PER_SM,
+         experts: int = 1) -> Plan:
     """Split K until the grid holds ``per_sm`` CTAs per SM, with slabs of
     at least ``min_slab`` rows (and, if ``max_slab`` is set, a multiple of
     ``bk``, at most that many), rounded up to whole ``bk`` tiles (so the
-    last slab may be shorter and no slab is empty)."""
-    tiles = cdiv(N, bn) * cdiv(M, bm)
+    last slab may be shorter and no slab is empty).  A stack of `experts`
+    products in one grid counts every expert's tiles; the slabs are each
+    expert's own."""
+    tiles = cdiv(N, bn) * cdiv(M, bm) * experts
     want = max(1, min(per_sm * sms // tiles, K // min_slab))
     if max_slab:
         want = max(want, cdiv(K, max_slab))
     k_slab = max(bk, cdiv(cdiv(max(K, 1), want), bk) * bk)
-    return Plan(M, N, K, bm, bn, bk, max(1, cdiv(K, k_slab)), k_slab)
+    return Plan(M, N, K, bm, bn, bk, max(1, cdiv(K, k_slab)), k_slab,
+                experts)
 
 
 def plan_waves(M: int, N: int, K: int, *, bm: int, bn: int, bk: int,
@@ -102,17 +108,18 @@ def plan_waves(M: int, N: int, K: int, *, bm: int, bn: int, bk: int,
 
 def outputs(p: Plan, like: torch.Tensor):
     """(y, workspace pointer) for `p` on `like`'s device, one allocation:
-    y (M, N), then the ``splits`` partial slabs (none without a split: the
-    kernel then writes y directly).  y is a view of the whole buffer, so
-    the workspace lives as long as y; one allocation costs the host less
-    than two."""
-    mn = p.M * p.N
+    y (E * M, N) (the experts' outputs one after the other), then the
+    ``splits`` partial slabs (none without a split: the kernel then writes
+    y directly).  y is a view of the whole buffer, so the workspace lives
+    as long as y; one allocation costs the host less than two."""
+    rows = p.E * p.M
+    mn = rows * p.N
     if p.splits == 1:
-        y = torch.empty((p.M, p.N), dtype=torch.float32, device=like.device)
+        y = torch.empty((rows, p.N), dtype=torch.float32, device=like.device)
         return y, y.data_ptr()
     buf = torch.empty((p.splits + 1) * mn, dtype=torch.float32,
                       device=like.device)
-    y = buf.as_strided((p.M, p.N), (p.N, 1))
+    y = buf.as_strided((rows, p.N), (p.N, 1))
     return y, y.data_ptr() + 4 * mn
 
 

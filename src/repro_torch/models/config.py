@@ -1,6 +1,6 @@
 """Model configuration (port of :mod:`repro.models.config`), reduced to the
-fields the port's dense decoder and encoder-decoder stacks read, with
-per-layer device placement."""
+fields the port's decoder (dense or mixture-of-experts) and
+encoder-decoder stacks read, with per-layer device placement."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,6 +36,13 @@ class ModelConfig:
     # paged attention through the fused kernels (False: scatter + gather +
     # _gqa_core, the plain path)
     fused_paged_attn: bool = True
+    # mixture of experts (models/moe.py)
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    moe_every: int = 1               # MoE every k-th layer (others dense MLP)
+    router_aux_weight: float = 0.01
     encoder_layers: int = 0          # > 0: encoder-decoder (seamless)
     tie_embeddings: bool = False
     embed_scale: bool = False
@@ -66,6 +73,13 @@ class ModelConfig:
         reps = -(-self.num_layers // len(pat))
         return tuple((pat * reps)[: self.num_layers])
 
+    def moe_layer_mask(self) -> Tuple[bool, ...]:
+        """Which layers carry the MoE FFN (True) and which the dense one."""
+        if self.num_experts == 0:
+            return tuple(False for _ in range(self.num_layers))
+        return tuple((i % self.moe_every) == (self.moe_every - 1)
+                     for i in range(self.num_layers))
+
     # --- heterogeneous device placement -----------------------------------
     @property
     def placement(self) -> DevicePlacement:
@@ -82,11 +96,12 @@ class ModelConfig:
     def layer_paths(self) -> Tuple[str, ...]:
         """All canonical placement paths of this model, in build order: the
         encoder stack (enc-dec only), then the decoder stack (attention
-        projections, cross attention in an enc-dec stack, the GLU MLP),
-        then the unembed."""
+        projections, cross attention in an enc-dec stack, the GLU MLP or,
+        on a MoE layer, the expert stack then the router), then the
+        unembed."""
         paths = []
 
-        def stack_paths(prefix, layers, cross):
+        def stack_paths(prefix, layers, moe_mask, cross):
             for i in range(layers):
                 base = f"{prefix}/layer_{i:03d}"
                 paths.extend(f"{base}/attn/{w}"
@@ -94,20 +109,32 @@ class ModelConfig:
                 if cross:
                     paths.extend(f"{base}/xattn/{w}"
                                  for w in ("wq", "wk", "wv", "wo"))
-                if self.d_ff > 0:
+                if moe_mask[i]:
+                    paths.append(f"{base}/moe/experts")
+                    paths.append(f"{base}/moe/router")
+                elif self.d_ff > 0:
                     paths.extend(f"{base}/mlp/{w}" for w in ("wg", "wu", "wd"))
 
         if self.is_encdec:
-            stack_paths("enc", self.encoder_layers, False)
-        stack_paths("dec", self.num_layers, self.is_encdec)
+            stack_paths("enc", self.encoder_layers,
+                        (False,) * self.encoder_layers, False)
+        stack_paths("dec", self.num_layers, self.moe_layer_mask(),
+                    self.is_encdec)
         paths.append("unembed")
         return tuple(paths)
 
     def placement_plan(self) -> Tuple[Tuple[str, str, str], ...]:
         """Resolved (path, corner, mode) triples: the static per-layer
-        plan."""
+        plan.  A router reports what the MoE layer does with it: digital
+        fp32 unless an explicit rule places it (the default never
+        applies)."""
         plan = []
         for p in self.layer_paths():
+            if p.endswith("/moe/router"):
+                hit = self.emt_rule_at(p)
+                plan.append((p, "digital", "fp32") if hit is None
+                            else (p, hit.corner_label, hit.mode))
+                continue
             emt = self.emt_at(p)
             plan.append((p, emt.corner_label, emt.mode))
         return tuple(plan)

@@ -32,7 +32,8 @@ def specs(cfg: ModelConfig) -> dict:
         "embed": common.embedding_specs(cfg.vocab_size, cfg.d_model,
                                         cfg.dtype),
         "decoder": stk.stack_specs(cfg, cfg.num_layers, cfg.blocks(),
-                                   cross=cfg.is_encdec, tag="dec"),
+                                   cfg.moe_layer_mask(), cross=cfg.is_encdec,
+                                   tag="dec"),
         "final_norm": common.rmsnorm_specs(cfg.d_model),
     }
     head_emt = cfg.emt_at("unembed")
@@ -47,6 +48,7 @@ def specs(cfg: ModelConfig) -> dict:
     if cfg.is_encdec:
         s["encoder"] = stk.stack_specs(cfg, cfg.encoder_layers,
                                        ("attn",) * cfg.encoder_layers,
+                                       (False,) * cfg.encoder_layers,
                                        tag="enc")
         s["enc_norm"] = common.rmsnorm_specs(cfg.d_model)
     return s
@@ -79,7 +81,7 @@ def _encode(params, batch, cfg: ModelConfig, ctx: Ctx):
     valid = torch.ones((B, S), dtype=torch.bool, device=enc_x.device)
     y, aux, _ = stk.apply_stack(
         params["encoder"], enc_x, cfg, ("attn",) * cfg.encoder_layers,
-        ctx=ctx, tag="enc", positions=pos,
+        (False,) * cfg.encoder_layers, ctx=ctx, tag="enc", positions=pos,
         mask=common.full_mask(valid, valid))
     return common.rmsnorm(params["enc_norm"], y, cfg.norm_eps), pos, aux
 
@@ -127,8 +129,9 @@ def train_loss(params, batch, cfg: ModelConfig, ctx: Ctx, lam: float = 0.0):
             torch.ones((B, S), dtype=torch.bool, device=x.device),
             torch.ones(enc_pos.shape, dtype=torch.bool, device=x.device))
     h, a, _ = stk.apply_stack(
-        params["decoder"], x, cfg, cfg.blocks(), ctx=ctx, tag="dec",
-        positions=pos, mask=masks, enc_out=enc_out, enc_mask=enc_mask)
+        params["decoder"], x, cfg, cfg.blocks(), cfg.moe_layer_mask(),
+        ctx=ctx, tag="dec", positions=pos, mask=masks, enc_out=enc_out,
+        enc_mask=enc_mask)
     aux = add_aux(aux, a)
     h = common.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits, a = _logits(params, h, cfg, ctx)
@@ -253,9 +256,9 @@ def prefill(params, batch, cfg: ModelConfig, ctx: Ctx, cache):
             torch.ones((B, S), dtype=torch.bool, device=x.device),
             torch.ones(enc_pos.shape, dtype=torch.bool, device=x.device))
     h, a, cache = stk.apply_stack(
-        params["decoder"], x, cfg, cfg.blocks(), ctx=ctx, tag="dec",
-        positions=pos, mask=masks, caches=cache, enc_out=enc_out,
-        enc_mask=enc_mask)
+        params["decoder"], x, cfg, cfg.blocks(), cfg.moe_layer_mask(),
+        ctx=ctx, tag="dec", positions=pos, mask=masks, caches=cache,
+        enc_out=enc_out, enc_mask=enc_mask)
     aux = add_aux(aux, a)
     h = common.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
     logits, a = _logits(params, h, cfg, ctx)
@@ -297,8 +300,9 @@ def chunk_step(params, cache, tokens, start, ntok, cfg: ModelConfig,
     L = page_lens["global"] if page_lens else _cache_len(cache)
     masks = _masks(cfg, qpos, L)
     h, aux, cache = stk.apply_stack(
-        params["decoder"], x, cfg, cfg.blocks(), ctx=ctx, tag="dec",
-        positions=wpos, mask=masks, caches=cache, cache_index=start,
+        params["decoder"], x, cfg, cfg.blocks(), cfg.moe_layer_mask(),
+        ctx=ctx, tag="dec", positions=wpos, mask=masks, caches=cache,
+        cache_index=start,
         active=active, page_tables=page_tables, page_lens=page_lens,
         chunk_lens=ntok)
     if all_lanes:
@@ -333,8 +337,9 @@ def decode_step(params, cache, tokens, index, cfg: ModelConfig, ctx: Ctx,
         enc_mask = common.full_mask(
             torch.ones((B, 1), dtype=torch.bool, device=x.device), valid_k)
     h, aux, cache = stk.apply_stack(
-        params["decoder"], x, cfg, cfg.blocks(), ctx=ctx, tag="dec",
-        positions=pos, mask=masks, caches=cache, cache_index=index,
+        params["decoder"], x, cfg, cfg.blocks(), cfg.moe_layer_mask(),
+        ctx=ctx, tag="dec", positions=pos, mask=masks, caches=cache,
+        cache_index=index,
         active=active, page_tables=page_tables, page_lens=page_lens,
         enc_mask=enc_mask)
     h = common.rmsnorm(params["final_norm"], h, cfg.norm_eps)

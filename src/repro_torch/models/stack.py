@@ -1,6 +1,7 @@
-"""Layer stack of attention + GLU blocks, with cross attention in an
-encoder-decoder's decoder (port of :mod:`repro.models.stack` for the
-serving and training paths)."""
+"""Layer stack of attention blocks, each with a GLU MLP or, where the
+config's ``moe_layer_mask`` says so, a mixture of experts, and with cross
+attention in an encoder-decoder's decoder (port of
+:mod:`repro.models.stack` for the serving and training paths)."""
 from __future__ import annotations
 
 import torch
@@ -12,10 +13,11 @@ from repro_torch.models.attention import (attention_specs, cross_attention,
 from repro_torch.models.config import ATTN_KINDS, ModelConfig
 from repro_torch.models.context import Ctx
 from repro_torch.models.mlp import mlp, mlp_specs
+from repro_torch.models.moe import moe_ffn, moe_specs
 
 
-def block_specs(cfg: ModelConfig, kind: str, cross: bool = False,
-                tag: str = "") -> dict:
+def block_specs(cfg: ModelConfig, kind: str, use_moe: bool,
+                cross: bool = False, tag: str = "") -> dict:
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is ported with a "
                                   f"later slice")
@@ -24,9 +26,10 @@ def block_specs(cfg: ModelConfig, kind: str, cross: bool = False,
     if cross:
         specs["norm_x"] = common.rmsnorm_specs(cfg.d_model)
         specs["xattn"] = attention_specs(cfg, tag=f"{tag}/xattn")
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 or use_moe:
         specs["norm2"] = common.rmsnorm_specs(cfg.d_model)
-        specs["ffn"] = mlp_specs(cfg, tag=f"{tag}/mlp")
+        specs["ffn"] = (moe_specs(cfg, tag=f"{tag}/moe") if use_moe
+                        else mlp_specs(cfg, tag=f"{tag}/mlp"))
     return specs
 
 
@@ -47,8 +50,9 @@ def block_state_specs(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     return out
 
 
-def apply_block(params, x, cfg: ModelConfig, *, kind: str, tag: str,
-                ctx: Ctx, positions, mask, cache=None, cache_index=None,
+def apply_block(params, x, cfg: ModelConfig, *, kind: str, use_moe: bool,
+                tag: str, ctx: Ctx, positions, mask, cache=None,
+                cache_index=None,
                 active=None, page_tables=None, page_lens=None,
                 chunk_lens=None, enc_out=None, enc_mask=None):
     """One residual block.  Paged steps give `page_tables`/`page_lens`
@@ -89,20 +93,24 @@ def apply_block(params, x, cfg: ModelConfig, *, kind: str, tag: str,
         x = x + y
     if "ffn" in params:
         h = common.rmsnorm(params["norm2"], x, cfg.norm_eps)
-        y, a = mlp(params["ffn"], h, cfg, ctx=ctx, tag=f"{tag}/mlp")
+        if use_moe:
+            y, a = moe_ffn(params["ffn"], h, cfg, ctx=ctx, tag=f"{tag}/moe")
+        else:
+            y, a = mlp(params["ffn"], h, cfg, ctx=ctx, tag=f"{tag}/mlp")
         aux = add_aux(aux, a)
         x = x + y
     return x, aux, cache
 
 
-def stack_specs(cfg: ModelConfig, num_layers: int, kinds,
+def stack_specs(cfg: ModelConfig, num_layers: int, kinds, moe_mask,
                 cross: bool = False, tag: str = "") -> dict:
-    return {f"layer_{i:03d}": block_specs(cfg, kinds[i], cross,
+    return {f"layer_{i:03d}": block_specs(cfg, kinds[i], moe_mask[i], cross,
                                           tag=f"{tag}/layer_{i:03d}")
             for i in range(num_layers)}
 
 
-def apply_stack(params, x, cfg: ModelConfig, kinds, *, ctx: Ctx, tag: str,
+def apply_stack(params, x, cfg: ModelConfig, kinds, moe_mask, *, ctx: Ctx,
+                tag: str,
                 positions, mask, caches=None, cache_index=None, active=None,
                 page_tables=None, page_lens=None, chunk_lens=None,
                 enc_out=None, enc_mask=None):
@@ -125,7 +133,8 @@ def apply_stack(params, x, cfg: ModelConfig, kinds, *, ctx: Ctx, tag: str,
     for i, kind in enumerate(kinds):
         name = f"layer_{i:03d}"
         x, a, upd = apply_block(
-            params[name], x, cfg, kind=kind, tag=f"{tag}/{name}", ctx=ctx,
+            params[name], x, cfg, kind=kind, use_moe=moe_mask[i],
+            tag=f"{tag}/{name}", ctx=ctx,
             positions=positions, mask=mask,
             cache=None if caches is None else caches[name],
             cache_index=cache_index, active=active, page_tables=page_tables,

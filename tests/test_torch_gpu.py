@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small shapes, and the shrunk engines on the card (gemma3-1b analog and on
-the mixed placement; seamless-m4t-medium through the legacy prefill and
-the cross-attention kernel).  Marked ``gpu``: the fixture skips them
+small shapes (and K3's experts entry at moonshot-v1-16b-a3b's full expert
+stacks), and the shrunk engines on the card (gemma3-1b analog and on the
+mixed placement; seamless-m4t-medium through the legacy prefill and the
+cross-attention kernel; moonshot's MoE stack on the mixed placement).  Marked ``gpu``: the fixture skips them
 where torch sees no CUDA device; on a machine with an H100 run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -10,7 +11,9 @@ Tolerances: 1e-5 relative (float32 sum order; the attention kernels K1,
 K2 and K4 against their plain versions in float64); pools after the fused
 write (and the read-only kernel's, unchanged), the noisy weight itself
 (x = I) and two calls of the split kernels (K1, K2, K3, K4, K5) on the same
-inputs bit for bit.
+inputs bit for bit.  The experts entry's statistics: the max of |w~|
+exact, the sum within rtol 1e-6 (the kernel sums in float64, the plain
+version in float32).
 """
 import numpy as np
 import pytest
@@ -43,12 +46,14 @@ def _rel(a, b):
 # (M, K, N, transposed): every GEMV row template (1-4, 8, 16) and the tiled
 # kernel (M > 16); K a multiple of neither the K chunk nor the split; both
 # weight layouts; ragged N (row strides that allow 16-, 8- and 4-byte loads);
-# most cases split K (the plan's split count is printed on failure).
+# most cases split K (the plan's split count is printed on failure); a
+# MoE router's 64 columns (half a GEMV CTA's 128) at decode and chunk rows.
 K3_CASES = [(4, 96, 200, False), (64, 256, 130, False), (3, 64, 300, True),
             (1, 1000, 260, False), (2, 555, 1001, False),
             (4, 1000, 262, True), (6, 4100, 64, True),
             (16, 777, 514, False), (16, 300, 200, True),
-            (17, 1000, 130, False), (64, 1000, 300, True)]
+            (17, 1000, 130, False), (64, 1000, 300, True),
+            (4, 2048, 64, False), (64, 2048, 64, False)]
 
 
 @pytest.mark.parametrize("M,K,N,transposed", K3_CASES)
@@ -79,6 +84,76 @@ def test_k3_matches_plain_and_noise_bit_exact(cuda, M, K, N, transposed, dev):
     eye = torch.eye(K, device=cuda)
     assert torch.equal(k3.emt_matmul(eye[rows], w, sig, **kw), ref[rows]), p
     assert torch.equal(k3.emt_matmul(eye, w, sig, **kw), ref)
+
+
+# (E, M, K, N, strided x) for K3's experts entry: moonshot-v1-16b-a3b's 64
+# experts at its decode and chunk rows (M = 4 and 8 on the GEMV templates,
+# 20 on the tiled kernel, 1 the smallest template), wg/wu's (D, F) =
+# (2048, 1408) and wd's (1408, 2048); small ragged stacks with x a strided
+# view (rows not 16-byte aligned).
+EXPERT_CASES = [(64, 4, 2048, 1408, False), (64, 8, 2048, 1408, False),
+                (64, 20, 2048, 1408, False), (64, 4, 1408, 2048, False),
+                (64, 8, 1408, 2048, False), (64, 20, 1408, 2048, False),
+                (64, 1, 2048, 1408, False), (3, 5, 100, 130, True),
+                (2, 70, 300, 66, True), (5, 16, 777, 514, True)]
+
+
+@pytest.mark.parametrize("E,M,K,N,strided", EXPERT_CASES)
+@pytest.mark.parametrize("dev", [DeviceModel(), four_state_device()],
+                         ids=["two", "four"])
+def test_k3_experts_matches_plain(cuda, E, M, K, N, strided, dev):
+    """Within 1e-5 of the plain version (fluctuate of the folded (E * K, N)
+    stack, then bmm); the statistics max exact and sum within rtol 1e-6;
+    one launch a call; two calls bit-identical; rows of I give each
+    expert's noisy rows bit for bit (expert e hashed at rows e * K + k)."""
+    g = torch.Generator(device=cuda).manual_seed(E + M + K + N)
+    if strided:
+        x = torch.randn((E, M, K + 3), generator=g, device=cuda)[..., :K]
+    else:
+        x = torch.randn((E, M, K), generator=g, device=cuda)
+    w = torch.randn((E, K, N), generator=g, device=cuda)
+    sig = dev.sigma_rel(torch.tensor(3.5, device=cuda))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = k3.plan(M, N, K, sms, True, experts=E)
+    kw = dict(device=dev, seed=99, plane=1234)
+    before = k3.emt_matmul_experts.launches
+    y, s, m = k3.emt_matmul_experts(x, w, sig, **kw)
+    assert k3.emt_matmul_experts.launches == before + 1
+    yp, sp, mp = k3.plain_experts(x, w, sig, **kw)
+    assert _rel(y, yp) <= 1e-5, p
+    assert float(m) == float(mp), p
+    assert abs(float(s) - float(sp)) <= 1e-6 * float(sp), (float(s),
+                                                           float(sp), p)
+    y2, s2, m2 = k3.emt_matmul_experts(x, w, sig, **kw)
+    assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(m, m2)
+    rows = torch.randint(0, K, (E, M), generator=g, device=cuda)
+    eye = torch.eye(K, device=cuda)[rows]
+    wn = noise.fluctuate(w.reshape(E * K, N), torch.tensor(3.5, device=cuda),
+                         dev, noise.NoiseConfig(), seed=99,
+                         plane=1234).reshape(E, K, N)
+    want = torch.gather(wn, 1, rows[..., None].expand(E, M, N))
+    assert torch.equal(k3.emt_matmul_experts(eye, w, sig, **kw)[0], want), p
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 96, 200), (1, 1000, 260),
+                                   (16, 777, 514), (64, 256, 130),
+                                   (17, 1000, 130)])
+def test_k3_experts_row_base_zero_is_k3(cuda, M, K, N):
+    """A stack of one expert (row base 0) is plain K3 on its weight, bit
+    for bit, on the GEMV and the tiled kernel alike; a gradient through
+    the experts entry on the card raises (serve-only)."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn((1, M, K), generator=g, device=cuda)
+    w = torch.randn((1, K, N), generator=g, device=cuda)
+    dev = DeviceModel()
+    sig = dev.sigma_rel(torch.tensor(3.5, device=cuda))
+    kw = dict(device=dev, seed=7, plane=77)
+    y, _, _ = k3.emt_matmul_experts(x, w, sig, **kw)
+    assert torch.equal(y[0], k3.emt_matmul(x[0], w[0], sig, **kw))
+    xg = x.clone().requires_grad_(True)
+    y, _, _ = k3.emt_matmul_experts(xg, w, sig, **kw)
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        y.sum().backward()
 
 
 # (M, K, N, transposed) for K3's backward: the 3xTF32 template in both
@@ -491,6 +566,15 @@ def test_mixed_engine_on_card_launches_every_kernel(cuda):
     _serve_on_card("mixed")
 
 
+def test_moe_engine_on_card_launches_every_kernel(cuda):
+    """moonshot-v1-16b-a3b smoke on the mixed placement: K1, K2, K3 (the
+    attention, the routers on SRAM, the unembed) and K3's experts entry
+    (three launches a MoE layer); no K5 (the experts read in analog)."""
+    k5_before = k5.emt_bitserial.launches
+    _serve_on_card("mixed", "moonshot-v1-16b-a3b")
+    assert k5.emt_bitserial.launches == k5_before
+
+
 def test_seamless_engine_on_card_launches_its_kernels(cuda):
     """The enc-dec path: K1 (decoder self-attention), K4 (cross attention)
     and K3; no chunked prefill, so no K2."""
@@ -512,7 +596,9 @@ def _serve_on_card(placement, arch="gemma3-1b"):
     counters = (k1.paged_attention_decode, k3.emt_matmul)
     counters += ((k4.paged_attention,) if cfg.is_encdec
                  else (k2.paged_prefill,))
-    if placement == "mixed":
+    if cfg.num_experts:
+        counters += (k3.emt_matmul_experts,)
+    elif placement == "mixed":
         counters += (k5.emt_bitserial,)
     before = [c.launches for c in counters]
     rng = np.random.default_rng(0)

@@ -34,6 +34,7 @@ ARGVS = [
      "--paged-attn-impl", "ref", "--arch", "seamless-m4t-medium"],
     ["--draft-placement", "sram_digital", "--spec-k", "3"],
     ["--shards", "2", "--batch", "4", "--paged"],
+    ["--arch", "moonshot-v1-16b-a3b", "--placement", "mixed"],
 ]
 
 
@@ -70,7 +71,8 @@ def test_spec_from_args_matches_jax(argv):
 def test_print_plan_matches_jax():
     from repro.serve.spec import ServeSpec as JSpec
     from repro_torch.serve.spec import ServeSpec as TSpec
-    for kw in (dict(), dict(placement="mixed", all_global=True)):
+    for kw in (dict(), dict(placement="mixed", all_global=True),
+               dict(arch="moonshot-v1-16b-a3b", placement="mixed")):
         outs = []
         for spec, mod in ((JSpec(**kw), jserve), (TSpec(**kw), tserve)):
             buf = io.StringIO()
@@ -111,6 +113,29 @@ def test_main_streams_poisson_arrivals_on_the_cpu():
                      r"[\d.]+ ms, inter-token p50 [\d.]+ ms", out)
     assert re.search(r"served 3 requests / 9 tokens", out)
     assert "control plane: shed 0 on request budgets" in out
+
+
+def test_main_serves_moe_on_the_mixed_placement_on_the_cpu():
+    """``--arch moonshot-v1-16b-a3b --placement mixed``: the MoE stack's
+    plan (experts on RRAM, routers on SRAM), the chunked path, every
+    request served, energy booked on all three corners; the plan lines are
+    JAX's launcher's."""
+    argv = ["--arch", "moonshot-v1-16b-a3b", "--placement", "mixed"]
+    out = _main(argv + TINY + ["--stagger", "1"])
+    assert re.search(r"dec/layer_001/moe/experts +-> rram \(bitserial\)", out)
+    assert re.search(r"dec/layer_001/moe/router +-> sram_digital \(analog\)",
+                     out)
+    assert "prefill path: chunked" in out
+    assert re.search(r"served 3 requests / 9 tokens in [\d.]+s", out)
+    for corner in ("pcm", "rram", "sram_digital"):
+        assert re.search(rf"^\| {corner} \| [\d.]+ \|", out, re.M), corner
+    args = tserve._parser().parse_args(argv)
+    from repro.serve.spec import ServeSpec as JSpec
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jserve.print_plan(JSpec.from_dict(
+            tserve.spec_from_args(args).to_dict()).build_config())
+    assert buf.getvalue() in out
 
 
 def test_prefix_cache_on_the_default_ring_stack_is_refused():

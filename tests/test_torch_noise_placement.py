@@ -1,13 +1,16 @@
 """The rest of the EMT core against the JAX package: the threefry noise
 backend and the placement dict serialization.
 
-* Threefry cannot match JAX bit for bit (JAX draws
-  ``jax.random.categorical`` from a threefry key; the port draws the same
-  categorical from a ``torch.Generator``), so its tests hold the marginals
-  (every state's frequency within 5 sigma of ``state_probs`` over 10^6
-  draws, sigma the binomial standard deviation), determinism (the same
-  generator state gives the same noise; the per-layer generator derived
-  from it and the plane leaves it untouched), and the reference's error
+* Threefry: the port takes JAX's key words and reproduces
+  ``jax.random.fold_in`` and ``jax.random.bits`` bit for bit (the
+  partitionable threefry2x32 scheme), and ``jax.random.categorical``'s
+  states except where two states' Gumbel + log-probability lie within
+  GUMBEL_TIE of each other: XLA's CPU ``log`` is not torch's, and the
+  Gumbel values agree within 2e-6 (ROADMAP Queue 3); such near-ties are
+  counted and listed, not masked.  Also held: the marginals (every
+  state's frequency within 5 sigma of ``state_probs`` over 10^6 draws,
+  sigma the binomial standard deviation), determinism per key and plane,
+  the layer against JAX's on the same key, and the reference's error
   without a key, which ``launch.train --rng threefry`` reaches on both
   packages (JAX's train step never sets ``ctx.key``).
 * Placement dicts: JSON-equal to JAX's for every corner preset, the EMT
@@ -35,13 +38,75 @@ from repro_torch.core.device import DeviceModel, device_names, \
 from repro_torch.kernels import emt_matmul as k3
 
 
+# Gumbel + log-probability values closer than this may order differently
+# in the two packages (the Gumbel values agree within 2e-6)
+GUMBEL_TIE = 2e-6
+
+
+def _jax_words(key) -> tuple:
+    return tuple(int(v) for v in np.asarray(key).reshape(-1))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, 2 ** 31 - 1, 123456789])
+def test_threefry_key_fold_in_and_bits_equal_jax(seed):
+    """PRNGKey, fold_in and raw 32-bit draws equal JAX's bit for bit, at
+    several shapes including a weight's (*w.shape, n_states) draw."""
+    kj = jax.random.PRNGKey(seed)
+    kt = tnoise.prng_key(seed)
+    assert kt == _jax_words(kj)
+    for data in (0, 7, 1234567, 2 ** 31 + 3, tel._tag_plane("unembed")):
+        assert tnoise.fold_in(kt, data) == \
+            _jax_words(jax.random.fold_in(kj, data))
+    layer = tnoise.fold_in(kt, 11)
+    for shape in ((1,), (5,), (3, 7), (64, 48, 2), (33, 17, 4)):
+        want = np.asarray(jax.random.bits(jax.random.fold_in(kj, 11), shape,
+                                          jax.numpy.uint32))
+        got = tnoise.random_bits(layer, shape).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+@pytest.mark.parametrize("dev", [DeviceModel(), four_state_device()],
+                         ids=["two", "four"])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_threefry_state_offsets_equal_jax_but_at_counted_near_ties(dev, seed):
+    """State offsets equal JAX's ``sample_state_offsets_threefry`` on
+    ``jax.random.PRNGKey(seed)`` folded with a layer plane, except at
+    Gumbel near-ties: every element whose state differs has its two best
+    scores within GUMBEL_TIE in the port's draw, and each is listed."""
+    from repro.core import noise as jnoise
+    from repro.core.device import DeviceModel as JDevice
+    from repro.core.device import four_state_device as j_four
+    jdev = JDevice() if len(dev.state_probs) == 2 else j_four()
+    plane = tel._tag_plane("dec/layer_000/attn/wq")
+    kj = jax.random.fold_in(jax.random.PRNGKey(seed), plane)
+    kt = tnoise.fold_in(tnoise.prng_key(seed), plane)
+    shape = (256, 384)
+    want = np.asarray(jnoise.sample_state_offsets_threefry(kj, shape, jdev))
+    got = tnoise.sample_state_offsets_threefry(kt, shape, dev).numpy()
+    scores = tnoise.categorical_scores(kt, shape, dev.state_probs).numpy()
+    top2 = np.sort(scores, axis=-1)[..., -2:]
+    near = top2[..., 1] - top2[..., 0] <= GUMBEL_TIE
+    differ = got != want
+    listed = [(tuple(int(i) for i in ix), float(got[ix]), float(want[ix]))
+              for ix in zip(*np.nonzero(differ))]
+    print(f"{int(near.sum())} near-ties of {near.size}; states that differ "
+          f"from JAX's: {listed}")
+    assert not (differ & ~near).any(), listed
+    # the Gumbel step itself agrees within 2e-6
+    n = len(dev.state_probs)
+    gj = np.asarray(jax.random.gumbel(kj, (*shape, n)))
+    gt = tnoise.gumbel_from_bits(tnoise.random_bits(kt, (*shape, n))).numpy()
+    assert np.abs(gt - gj).max() <= 2e-6
+
+
 @pytest.mark.parametrize("dev", [DeviceModel(), four_state_device()],
                          ids=["two", "four"])
 def test_threefry_state_marginals(dev):
     """10^6 categorical draws: each state's frequency within 5 sigma of its
     probability; the offsets are the device's normalized table."""
-    gen = torch.Generator().manual_seed(123)
-    offs = tnoise.sample_state_offsets_threefry(gen, (1000, 1000), dev)
+    offs = tnoise.sample_state_offsets_threefry(tnoise.prng_key(123),
+                                                (1000, 1000), dev)
     assert offs.dtype is torch.float32 and offs.shape == (1000, 1000)
     n = offs.numel()
     table = torch.tensor(dev.state_offsets, dtype=torch.float32)
@@ -55,16 +120,15 @@ def test_threefry_state_marginals(dev):
 
 
 def test_threefry_is_deterministic_per_generator_and_plane():
-    """The same generator state gives the same noise; fold_in derives a
-    per-plane generator without advancing its parent, and other planes or
-    other seeds give other noise."""
+    """The same key gives the same noise; fold_in derives a per-plane key
+    (a pure function: the parent key is a value and stays as it was), and
+    other planes or other seeds give other noise."""
     dev = four_state_device()
 
     def draw(seed, plane):
-        gen = torch.Generator().manual_seed(seed)
-        child = tnoise.fold_in(gen, plane)
-        assert torch.equal(gen.get_state(),
-                           torch.Generator().manual_seed(seed).get_state())
+        key = tnoise.prng_key(seed)
+        child = tnoise.fold_in(key, plane)
+        assert key == tnoise.prng_key(seed) and child != key
         return tnoise.sample_state_offsets_threefry(child, (64, 48), dev)
 
     a = draw(7, 11)
@@ -74,11 +138,11 @@ def test_threefry_is_deterministic_per_generator_and_plane():
 
 
 def test_threefry_layer_and_its_missing_key():
-    """emt_dense on the threefry backend: the noise materialized on the
-    layer's generator (fold_in of the caller's and the plane) and
-    multiplied with torch.matmul, deterministic per generator, at the
-    sigma the hash backend uses; without a key JAX's error, as JAX's own
-    layer raises it."""
+    """emt_dense on the threefry backend: the noise materialized from the
+    layer's key (fold_in of the caller's and the plane) and multiplied with
+    torch.matmul, deterministic per key, at the sigma the hash backend
+    uses, and equal to JAX's layer on the same key (fp32 tolerance); without
+    a key JAX's error, as JAX's own layer raises it."""
     cfg_t = tcommon.emt_preset("analog", rng="threefry")
     cfg_j = jcommon.emt_preset("analog", rng="threefry")
     params = tel.dense_specs(32, 24, cfg_t)
@@ -88,7 +152,7 @@ def test_threefry_layer_and_its_missing_key():
 
     def run(seed):
         return tel.emt_dense(p, x, cfg_t, tag="dec/layer_000/attn/wq",
-                             key=torch.Generator().manual_seed(seed))
+                             key=tnoise.prng_key(seed))
 
     (y1, aux1), (y2, _), (y3, _) = run(5), run(5), run(6)
     assert torch.equal(y1, y2) and not torch.equal(y1, y3)
@@ -96,7 +160,7 @@ def test_threefry_layer_and_its_missing_key():
     from repro_torch.core.quant import quant_levels, quantize_weights
     wq, _ = quantize_weights(p["w"], cfg_t.quant)
     levels, scale = quant_levels(x, cfg_t.quant.a_bits)
-    layer = tnoise.fold_in(torch.Generator().manual_seed(5),
+    layer = tnoise.fold_in(tnoise.prng_key(5),
                            tel._tag_plane("dec/layer_000/attn/wq"))
     want = (levels * scale) @ tnoise.fluctuate(
         wq, regularizer.rho_from_raw(p["rho_raw"]), cfg_t.device,
@@ -106,9 +170,14 @@ def test_threefry_layer_and_its_missing_key():
     _, aux_h = tel.emt_dense(p, x, tcommon.emt_preset("analog"),
                              tag="dec/layer_000/attn/wq")
     assert float(aux1["energy_pj"]) == float(aux_h["energy_pj"])
+    pj = jax.tree.map(lambda t: jax.numpy.asarray(t.numpy()), p)
+    yj, _ = jel.emt_dense(pj, jax.numpy.asarray(x.numpy()), cfg_j,
+                          tag="dec/layer_000/attn/wq",
+                          key=jax.random.PRNGKey(5))
+    np.testing.assert_allclose(y1.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-5)
     with pytest.raises(ValueError, match="threefry backend needs a PRNG key"):
         tel.emt_dense(p, x, cfg_t, tag="t")
-    pj = jax.tree.map(lambda t: jax.numpy.asarray(t.numpy()), p)
     with pytest.raises(ValueError, match="threefry backend needs a PRNG key"):
         jel.emt_dense(pj, jax.numpy.asarray(x.numpy()), cfg_j, tag="t")
 
@@ -222,7 +291,7 @@ def test_threefry_never_reaches_the_kernel():
     k3.plain = spy
     try:
         tel.emt_dense(p, torch.ones((2, 16)), cfg, tag="t",
-                      key=torch.Generator().manual_seed(0))
+                      key=tnoise.prng_key(0))
     finally:
         k3.plain = orig
     assert not calls

@@ -178,3 +178,126 @@ def test_build_config_placement_rules():
     assert cfg.emt.default.quant.a_per_row
     off = build_config(smoke=True, placement="mixed")
     assert not any(r.emt.quant.a_per_row for r in off.emt.rules)
+
+
+# ---------------------------------------------------------------------------
+# MoE (moonshot-v1-16b-a3b smoke) on the mixed placement: the cases of
+# tests/test_placement.py's mixed_moe fixture, on both packages
+# ---------------------------------------------------------------------------
+MOE = "moonshot-v1-16b-a3b"
+
+
+@pytest.fixture(scope="module")
+def mixed_moe():
+    import jax
+    import jax.numpy as jnp
+    from repro.ckpt.checkpoint import _tree_to_arrays
+    from repro.models import lm as jlm
+    from repro.nn.param import init_params
+    from repro_torch.models import lm as tlm
+    jc = j_get_config(MOE, smoke=True, placement="mixed").replace(
+        dtype=jnp.float32, remat=False)
+    pj = init_params(jlm.specs(jc), jax.random.PRNGKey(0))
+    tc = t_get_config(MOE, smoke=True, placement="mixed").replace(
+        dtype=torch.float32)
+    pt = tlm.load_jax_arrays(_tree_to_arrays(pj), tc, device="cpu")
+    return jc, pj, tc, pt
+
+
+def test_mixed_moe_resolves_three_corners(mixed_moe):
+    jc, _, tc, _ = mixed_moe
+    plan = tc.placement_plan()
+    assert {"pcm", "rram", "sram_digital"} <= {c for _, c, _ in plan}
+    by_path = {p: (c, m) for p, c, m in plan}
+    assert by_path["dec/layer_000/attn/wq"] == ("pcm", "analog")
+    assert by_path["dec/layer_001/moe/experts"] == ("rram", "bitserial")
+    assert by_path["dec/layer_001/moe/router"] == ("sram_digital", "analog")
+    assert tc.moe_layer_mask() == jc.moe_layer_mask() == (True, True)
+    assert tc.layer_paths() == jc.layer_paths()
+    assert plan == jc.placement_plan()
+
+
+def test_moe_plan_reports_unplaced_router_as_digital():
+    """The plan says what the MoE layer does: without an explicit rule the
+    router is digital fp32, whatever the default corner."""
+    for get in (j_get_config, t_get_config):
+        cfg = get(MOE, emt_mode="analog", smoke=True)
+        routers = [t for t in cfg.placement_plan()
+                   if t[0].endswith("/moe/router")]
+        assert len(routers) == 2
+        assert all(t[1:] == ("digital", "fp32") for t in routers)
+
+
+def test_mixed_moe_router_on_crossbar_has_rho(mixed_moe):
+    """An explicitly placed router is an EMT layer (it has rho_raw); an
+    unplaced one is a plain float32 weight, on both packages."""
+    jc, pj, tc, pt = mixed_moe
+    for params in (pj, pt):
+        ffn = params["decoder"]["layer_000"]["ffn"]
+        assert "rho_raw" in ffn["router"] and "rho_raw" in ffn
+    from repro_torch.models import lm as tlm
+    plain = tlm.specs(t_get_config(MOE, emt_mode="analog", smoke=True))
+    assert set(plain["decoder"]["layer_000"]["ffn"]["router"]) == {"w"}
+
+
+@pytest.mark.parametrize("name", ["mixed", "attn-pcm", "digital-router"])
+def test_moe_placement_plan_json_matches_jax(name):
+    """The per-layer plan of the moonshot smoke stack, as ServeSpec resolves
+    it, JSON-equal to JAX's, with every resolved config equal."""
+    import json
+    jc = ServeSpec(arch=MOE, placement=name, a_per_row=True,
+                   smoke=True).build_config()
+    tc = build_config(MOE, smoke=True, placement=name, a_per_row=True)
+    assert json.dumps(tc.placement_plan()) == json.dumps(jc.placement_plan())
+    for path in tc.layer_paths():
+        assert _fields(tc.emt_at(path)) == _fields(jc.emt_at(path)), path
+        assert _label(tc.emt_rule_at(path)) == _label(jc.emt_rule_at(path))
+
+
+def test_mixed_moe_trains(mixed_moe):
+    """A training step's loss, its per-corner energy split and the
+    gradient norm on the CPU's plain path, against JAX's
+    jax.value_and_grad of the same loss."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.models import lm as jlm
+    from repro.models.context import Ctx as JCtx
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.context import Ctx as TCtx
+    jc, pj, tc, pt = mixed_moe
+    toks = np.arange(16, dtype=np.int32).reshape(2, 8) % tc.vocab_size
+    (lj, mj), gj = jax.value_and_grad(
+        lambda p: jlm.train_loss(p, {"tokens": jnp.asarray(toks),
+                                     "labels": jnp.asarray(toks)}, jc,
+                                 JCtx(seed=2), lam=1e-6),
+        has_aux=True)(pj)
+    leaves = [t for _, t in _flat(pt)]
+    for t in leaves:
+        t.requires_grad_(True)
+    batch = {"tokens": torch.from_numpy(toks).long(),
+             "labels": torch.from_numpy(toks).long()}
+    lt, mt = tlm.train_loss(pt, batch, tc, TCtx(seed=2), lam=1e-6)
+    lt.backward()
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-5)
+    split = {k.split("/")[1]: float(v) for k, v in mt.items()
+             if k.startswith("energy_uj/")}
+    assert set(split) == {"pcm", "rram", "sram_digital"}
+    for k, v in split.items():
+        np.testing.assert_allclose(v, float(mj[f"energy_uj/{k}"]), rtol=1e-5)
+    np.testing.assert_allclose(sum(split.values()), float(mt["energy_uj"]),
+                               rtol=1e-5)
+    gnorm_t = float(torch.sqrt(sum(torch.sum(t.grad ** 2) for t in leaves
+                                   if t.grad is not None)))
+    gnorm_j = float(jnp.sqrt(sum(jnp.sum(g * g)
+                                 for g in jax.tree.leaves(gj))))
+    assert np.isfinite(gnorm_t) and gnorm_t > 0
+    np.testing.assert_allclose(gnorm_t, gnorm_j, rtol=1e-4)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
