@@ -86,11 +86,15 @@ Phases (any failure exits non-zero and prints no result line):
    gemma3-1b's training shapes (M = 8 x 128; the tied unembed's table.T)
    and the CNN's K = 27 and 576, against float64 plain versions, dw bit
    for bit against the plain pass on integer x and g (x^T g exact in
-   either precision), two calls bit-identical, timed beside K3's forward,
-   torch.matmul yardsticks and bounds (FP32 pipe and 3xTF32); then
+   either precision), two calls bit-identical, timed beside K3's forward
+   at the same shapes (the tensor-core kernel, held to its float64 plain
+   version, two calls bit-identical, x = I to fluctuate bit for bit at
+   the first shape), torch.matmul yardsticks and bounds (FP32 pipe and
+   3xTF32, 4 products for the forward); then
    ``launch.train``'s path at full width (gemma3-1b as published, analog,
    AdamW, lam 1e-6, batch 8 x 128): a gradient step (finite nonzero
-   gradients on every w and rho_raw; K3, K3-dx, K3-dw 183 launches each),
+   gradients on every w and rho_raw; K3 (all on its tensor-core kernel),
+   K3-dx, K3-dw 183 launches each),
    three steps through ``train_loop`` with exact launch counts, the step-2
    checkpoint (JAX's format) restored bit for bit, the third step
    profiled (device busy, peak memory), and a fresh loop resuming from
@@ -154,7 +158,11 @@ a seamless decode step, K5 = the 78 bit-serial MLP matmuls of a mixed
 decode step, K3-dx and K3-dw (``emt_matmul_dx``, ``emt_matmul_dw``) = the
 183 calls each of a gemma3-1b training step at M = 1,024, K3 int8
 (``emt_matmul_int8``) = the 182 int8 calls and the float32 unembed of a
-decode step (its launches: the int8 engine's run), K3 experts
+decode step (its launches: the int8 engine's run), K3's tensor-core
+forward (``emt_matmul_tc``, every float32 and int8 K3 call at M > 16) =
+the 183 calls of a gemma3-1b training step at M = 1,024 (its launches:
+the training run's three steps; ``serve_launches`` its count in the
+analog run's chunk steps), K3 experts
 (``emt_matmul_experts``) = the 12 expert calls of a moonshot decode step
 (M = 4; its launches: the moe run, and ``device_ms``/``chunk_*`` at the
 chunk step's M = 8); K3's and K5's records also carry ``chunk_ms``,
@@ -182,7 +190,13 @@ per SM x 132 SMs x 1.98 GHz (16.7 TOP/s).  Those counts are the kernels'
 own (HASH_OPS), matched against their SASS by scripts/sass_ops.py.  K3-dx
 and K3-dw compute their products on the tensor cores in 3xTF32: their
 bound's product term is 3 x 2 MKN TF32 FLOPs over the 495 TFLOP/s TF32
-rate (the FP32-pipe bound of the same product is printed beside it).
+rate.  K3's forward above 16 rows (the training step at M = 1,024 and the
+chunk steps at M = 64, float32 and int8) runs on the tensor cores too: its
+product term is 4 x 2 MNK TF32 FLOPs, the fourth product being the price
+of x = I returning w~ bit for bit (w~ split in three pieces; 3 products,
+as dx's, are printed beside it for the training step), and the FP32-pipe
+bound of the same work is printed beside it (``chunk_fp32_bound_ms``,
+``fp32_bound_ms``).
 """
 from __future__ import annotations
 
@@ -269,12 +283,15 @@ POISSON_PROBE = (2, 10)
 # 32 of 32 x 32 images, 10 classes) under regimes A+B and A+B+C
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 3
 CNN_BATCH, CNN_STEPS, CNN_LR, CNN_LAM = 32, 3, 5e-3, 3e-8
-TRAIN_KERNELS = ("emt_matmul", "emt_matmul_dx", "emt_matmul_dw",
-                 "emt_bitserial")
+TRAIN_KERNELS = ("emt_matmul", "emt_matmul_tc", "emt_matmul_dx",
+                 "emt_matmul_dw", "emt_bitserial")
 # K3-dx and K3-dw against their float64 plain versions: dx sums up to
 # 262,144 float32 products in one thread's sequence (the tied unembed),
 # ~eps * sqrt(N) = 3e-5 of the result
 K3_BWD_TOL = 1e-4
+# K3's forward on the tensor cores (3xTF32 with a three-piece weight)
+# against its float64 plain version at the training shapes
+K3_FWD_TOL = 1e-5
 # a full-width training step's loss and gradients, kernels against the
 # plain versions on the card at a 24-bit DAC: float32 order differences of
 # the kernels' sums carried through 26 layers' backward
@@ -584,18 +601,26 @@ class Smoke:
                 torch.matmul(x, wn)
 
         def step_bound(M, calls=prepared):
-            """Bytes (each input read once, y written once), FP32 FLOPs and
-            the hash's and select's operations, once per weight element
-            (HASH_OPS["K3"])."""
+            """(the bound, the FP32-pipe bound's ms, bytes, FLOPs): bytes
+            (each input read once, y written once), 2 MKN FLOPs and the
+            hash's and select's operations, once per weight element
+            (HASH_OPS["K3"]).  Above GEMV_MAX_M rows the product runs on
+            the tensor cores: its term is the forward's four TF32
+            products, and the FP32-pipe bound is the same work with the
+            product on the FP32 pipe."""
             nbytes = sum(4 * (M * K + K * N + M * N)
                          for K, N in (wq.shape for wq, *_ in calls))
             flops = sum(2 * M * wq.numel() for wq, *_ in calls)
             alu, fma = hash_ops("K3", sum(wq.numel() for wq, *_ in calls))
-            return bound(nbytes, flops, alu, fma), nbytes, flops
+            fp32 = bound(nbytes, flops, alu, fma)
+            if M > k.GEMV_MAX_M:
+                return (bound(nbytes, 0, alu, fma, 4 * flops), fp32[0],
+                        nbytes, flops)
+            return fp32, fp32[0], nbytes, flops
 
         # event times first, the kernel beside its yardstick, then the
         # profiler's device times
-        keys = ("emt_matmul", "emt_tiled", "split_sum")
+        keys = ("emt_matmul", "emt_matmul_tc", "emt_tiled", "split_sum")
         ms = cuda_time(lambda: run(k.emt_matmul, xs), 5)
         lib_ms = cuda_time(run_library, 5)
         chunk_ms = cuda_time(lambda: run(k.emt_matmul, xc), 3)
@@ -604,15 +629,16 @@ class Smoke:
         chunk_dev_ms = device_ms(lambda: run(k.emt_matmul, xc), keys)
         del noisy
         plain_ms = cuda_time(lambda: run(k.plain, xs), 2, warmup=1)
-        (b_ms, by, bterm), nbytes, flops = step_bound(BATCH)
-        (cb_ms, cby, cterm), _, cflops = step_bound(BATCH * CHUNK)
+        (b_ms, by, bterm), _, nbytes, flops = step_bound(BATCH)
+        (cb_ms, cby, cterm), cb32_ms, _, cflops = step_bound(BATCH * CHUNK)
         self.records["emt_matmul"] = dict(
             name="emt_matmul", route="cuda",
             source="src/repro_torch/kernels/csrc/emt_matmul.cu",
             replaces="src/repro/kernels/emt_matmul.py:57",
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=by, library_ms=lib_ms, chunk_ms=chunk_ms,
-            chunk_bound_ms=cb_ms, chunk_library_ms=chunk_lib_ms)
+            chunk_bound_ms=cb_ms, chunk_fp32_bound_ms=cb32_ms,
+            chunk_library_ms=chunk_lib_ms)
         print(f"  K3 per decode step ({len(prepared)} calls, M={BATCH}): "
               f"kernel {ms:.3f} ms (device time {fmt(dev_ms)}), plain "
               f"{plain_ms:.3f} ms, torch.matmul on pre-noised weights "
@@ -625,7 +651,9 @@ class Smoke:
               f"{chunk_lib_ms:.3f} ms (loses by "
               f"{chunk_ms / chunk_lib_ms:.3f}x), bound "
               f"{cb_ms:.3f} ms ({cterm}; {cflops / 1e9:.3f} GFLOP), roofline "
-              f"share {100 * cb_ms / chunk_ms:.2f}%")
+              f"share {100 * cb_ms / chunk_ms:.2f}%, share of the device "
+              f"time {share(cb_ms, chunk_dev_ms)}; FP32-pipe bound "
+              f"{cb32_ms:.3f} ms)")
         # per distinct (K, N, layout) at M = 4: which calls lead the step
         groups = {}
         for i, (wq, *_) in enumerate(prepared):
@@ -635,7 +663,7 @@ class Smoke:
             inputs = [xs[i] for i in idx]
             g_ms = cuda_time(lambda: run(k.emt_matmul, inputs, calls), 5)
             g_dev = device_ms(lambda: run(k.emt_matmul, inputs, calls), keys)
-            (g_b, _, g_term), g_bytes, _ = step_bound(BATCH, calls)
+            (g_b, _, g_term), _, g_bytes, _ = step_bound(BATCH, calls)
             print(f"  K3 {K}x{N}{'' if n_major else ' (transposed)'} at "
                   f"M={BATCH}: {len(idx)} calls a step, {g_ms:.4f} ms "
                   f"(device time {fmt(g_dev, 4)}), bound {g_b:.4f} ms "
@@ -738,9 +766,12 @@ class Smoke:
                 torch.matmul(x, wn)
 
         def step_bound(M):
-            """Bytes (x, the weight as stored: int8 levels + the float32
-            scale, or float32, and y), FP32 FLOPs, and the hash's, the
-            select's and the dequantization's operations per element."""
+            """(the bound, the FP32-pipe bound's ms, bytes, FLOPs, ALU
+            ops): bytes (x, the weight as stored: int8 levels + the
+            float32 scale, or float32, and y), 2 MKN FLOPs, and the
+            hash's, the select's and the dequantization's operations per
+            element; above GEMV_MAX_M rows the product term is the tensor
+            cores' four TF32 products, as K3's."""
             nbytes = flops = elements = deq = 0
             for w, *_ in prepared:
                 q8 = isinstance(w, tuple)
@@ -751,9 +782,13 @@ class Smoke:
                 elements += K * N
                 deq += K * N if q8 else 0
             alu, fma = hash_ops("K3", elements)
-            return bound(nbytes, flops, alu, fma + deq), nbytes, flops, alu
+            fp32 = bound(nbytes, flops, alu, fma + deq)
+            if M > k.GEMV_MAX_M:
+                return (bound(nbytes, 0, alu, fma + deq, 4 * flops), fp32[0],
+                        nbytes, flops, alu)
+            return fp32, fp32[0], nbytes, flops, alu
 
-        keys = ("emt_matmul", "emt_tiled", "split_sum")
+        keys = ("emt_matmul", "emt_matmul_tc", "emt_tiled", "split_sum")
         ms = cuda_time(lambda: run(k.emt_matmul, xs), 5)
         lib_ms = cuda_time(run_library, 5)
         chunk_ms = cuda_time(lambda: run(k.emt_matmul, xc), 3)
@@ -771,8 +806,8 @@ class Smoke:
         # every kernel of the step: the dequantization's and K3's
         deq_dev_ms = device_ms(lambda: run(dequantized, xs), "")
         plain_ms = cuda_time(lambda: run(k.plain, xs), 2, warmup=1)
-        (b_ms, by, bterm), nbytes, flops, alu = step_bound(BATCH)
-        (cb_ms, _, cterm), _, cflops, _ = step_bound(BATCH * CHUNK)
+        (b_ms, by, bterm), _, nbytes, flops, alu = step_bound(BATCH)
+        (cb_ms, _, cterm), cb32_ms, _, cflops, _ = step_bound(BATCH * CHUNK)
         self.records["emt_matmul_int8"] = dict(
             name="emt_matmul_int8", route="cuda",
             source="src/repro_torch/kernels/csrc/emt_matmul.cu",
@@ -780,8 +815,8 @@ class Smoke:
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
             chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
-            chunk_bound_ms=cb_ms, chunk_library_ms=chunk_lib_ms,
-            dequantized_device_ms=deq_dev_ms)
+            chunk_bound_ms=cb_ms, chunk_fp32_bound_ms=cb32_ms,
+            chunk_library_ms=chunk_lib_ms, dequantized_device_ms=deq_dev_ms)
         print(f"  K3 int8 per decode step: dequantizing in PyTorch and "
               f"running the float32 kernel instead takes {fmt(deq_dev_ms)} "
               f"of device time against the int8 operand's {fmt(dev_ms)}")
@@ -797,7 +832,8 @@ class Smoke:
               f"{chunk_ms:.3f} ms (device time {fmt(chunk_dev_ms)}), "
               f"torch.matmul {chunk_lib_ms:.3f} ms, bound {cb_ms:.3f} ms "
               f"({cterm}; {cflops / 1e9:.3f} GFLOP), share of the device "
-              f"time {share(cb_ms, chunk_dev_ms)}")
+              f"time {share(cb_ms, chunk_dev_ms)}; FP32-pipe bound "
+              f"{cb32_ms:.3f} ms)")
         # per distinct int8 weight shape, at both row counts
         groups = {}
         for i, (w, *_) in enumerate(prepared):
@@ -814,8 +850,11 @@ class Smoke:
                 g_dev = device_ms(run_group, keys)
                 g_bytes = len(idx) * (K * N + 4 * N + 4 * M * (K + N))
                 alu, fma = hash_ops("K3", len(idx) * K * N)
-                g_b, _, g_term = bound(g_bytes, 2 * M * len(idx) * K * N,
-                                       alu, fma + len(idx) * K * N)
+                g_flops = 2 * M * len(idx) * K * N
+                tc = M > k.GEMV_MAX_M           # four TF32 products
+                g_b, _, g_term = bound(g_bytes, 0 if tc else g_flops, alu,
+                                       fma + len(idx) * K * N,
+                                       4 * g_flops if tc else 0)
                 print(f"  K3 int8 {K}x{N} at M={M}: {len(idx)} calls a "
                       f"step, {g_ms:.4f} ms (device time {fmt(g_dev, 4)}), "
                       f"bound {g_b:.4f} ms ({g_term}; {g_bytes / 1e9:.4f} "
@@ -1397,6 +1436,7 @@ class Smoke:
                 "paged_attention": k1.paged_attention,
                 "paged_prefill": k2.paged_prefill,
                 "emt_matmul": k3.emt_matmul,
+                "emt_matmul_tc": k3._forward_tc,
                 "emt_matmul_int8": k3._forward_int8,
                 "emt_matmul_experts": k3.emt_matmul_experts,
                 "emt_matmul_dx": k3.emt_matmul_dx,
@@ -1518,11 +1558,13 @@ class Smoke:
             self.cfg, self.params, "analog", 2)
         self._check_launches("analog", launches, m["steps"], {
             "paged_attention_decode": None, "paged_prefill": None,
-            "emt_matmul": 7 * L + 1, "emt_bitserial": 0,
-            "paged_attention": 0})
+            "emt_matmul": 7 * L + 1, "emt_matmul_tc": None,
+            "emt_bitserial": 0, "paged_attention": 0})
         for name in ("paged_attention_decode", "paged_prefill",
                      "emt_matmul"):
             self.records[name]["launches"] = launches[name]
+        self.records.setdefault("emt_matmul_tc", {})["serve_launches"] = \
+            launches["emt_matmul_tc"]
         self.engine_summary = summary
 
     def engine_mixed(self):
@@ -2982,11 +3024,12 @@ class Smoke:
         self.check(len(seen) == 1, f"{label}: {len(seen)} verify steps in "
                    f"a round")
         args, kw = seen[0]
-        groups = {"busy": "", "k3": ("emt_matmul", "emt_tiled", "split_sum")}
+        groups = {"busy": "", "k3": ("emt_matmul", "emt_matmul_tc",
+                                     "emt_tiled", "split_sum")}
         if paged:
             groups["k2"] = "paged_prefill"
         got = device_ms(lambda: chunk(*args, **kw), groups,
-                        need="paged_prefill" if paged else "emt_tiled")
+                        need="paged_prefill" if paged else "emt_matmul_tc")
         print(f"  {label}: one round (4 draft decodes + the verify): wall "
               f"{wall:.1f} ms untraced; its verify step: device busy "
               f"{fmt(got['busy'])}, of it K3 {fmt(got['k3'])}"
@@ -3048,6 +3091,7 @@ class Smoke:
                                                     "int8", 1)
         self._check_launches("int8", launches, m["steps"], {
             "emt_matmul_int8": 7 * L, "emt_matmul": 1,
+            "emt_matmul_tc": None,
             "paged_attention_decode": None, "paged_prefill": None,
             "emt_bitserial": 0, "paged_attention": 0})
         self.records["emt_matmul_int8"]["launches"] = \
@@ -3204,7 +3248,8 @@ class Smoke:
             alu, fma = hash_ops("K3", elements)
             return bound(nbytes, flops, alu, fma), nbytes, alu
 
-        keys = ("emt_matmul", "emt_tiled", "split_sum", "stats_finish")
+        keys = ("emt_matmul", "emt_matmul_tc", "emt_tiled", "split_sum",
+                "stats_finish")
         ms = cuda_time(lambda: run(k3.emt_matmul_experts, xs), 5)
         lib_ms = cuda_time(lambda: run_library(xs), 5)
         chunk_ms = cuda_time(lambda: run(k3.emt_matmul_experts, xc), 3)
@@ -3226,7 +3271,7 @@ class Smoke:
             chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
             chunk_bound_ms=cb_ms, chunk_library_ms=chunk_lib_ms)
         p = [k3.plan(x.shape[1], w.shape[2], x.shape[2], self.sms, True,
-                     experts=x.shape[0]) for x, w, *_ in calls[:3]]
+                     experts=x.shape[0], tiled=True) for x, w, *_ in calls[:3]]
         print(f"  K3 experts per decode step ({len(calls)} calls, E "
               f"{xs[0].shape[0]}, M={cap}; plans {[(q.splits, q.ctas) for q in p]} "
               f"(slabs, CTAs) for wg, wu, wd): kernel {ms:.3f} ms (device "
@@ -3286,9 +3331,12 @@ class Smoke:
         held to their float64 plain versions, dw bit for bit to the float32
         plain pass on integer x and g in [-4, 4] (x^T g exact in float32
         and in 3xTF32, whatever the order), two calls bit-identical; K3's
-        forward at the same M beside them; times per gemma3 training step
-        beside the FP32-pipe bound and the 3xTF32 tensor-core bound."""
-        from repro_torch.core import hashrng, quant, regularizer
+        forward at the same M beside them (the tensor-core kernel, held to
+        its float64 plain version, two calls bit-identical, and x = I to
+        fluctuate bit for bit at the first shape); times per gemma3
+        training step beside the FP32-pipe bound and the tensor-core bound
+        (3xTF32; 4 products for the forward)."""
+        from repro_torch.core import hashrng, noise, quant, regularizer
         from repro_torch.core.emt_linear import _tag_plane
         from repro_torch.core.noise import noise_factor
         from repro_torch.kernels import emt_matmul as k
@@ -3325,8 +3373,8 @@ class Smoke:
             else:
                 tot[key] = tot.get(key, 0.0) + v * n
 
-        worst = {"dx": 0.0, "dw": 0.0}
-        for label, w, rho_raw, tag, Mc, per_step in cases:
+        worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+        for i, (label, w, rho_raw, tag, Mc, per_step) in enumerate(cases):
             wq, _ = quant.quantize_weights(w, emt.quant)
             rho = regularizer.rho_from_raw(rho_raw)
             sig = dev.sigma_rel(rho)
@@ -3381,6 +3429,32 @@ class Smoke:
                 SEED, 0, 0, (K, N), dev.state_offsets, dev.state_probs,
                 kw["plane"], device=self.dev), sig)
             wn = wq * f
+            # the forward against its float64 plain version (the same
+            # noisy weight), two calls bit-identical, and x = I
+            y = k.emt_matmul(x, wq, sig, **kw)
+            same = torch.equal(y, k.emt_matmul(x, wq, sig, **kw))
+            d_fwd, r_fwd = rel_err(y.double(),
+                                   torch.matmul(x.double(), wn.double()))
+            del y
+            worst["fwd"] = max(worst["fwd"], d_fwd)
+            pf = k.plan(Mc, N, K, self.sms, wq.stride(1) == 1)
+            msg = (f"  K3 forward {label} {K}x{N} ({layout}) at M={Mc}: rel "
+                   f"{r_fwd:.3e} to float64 ({pf.splits} K slab(s), "
+                   f"{pf.ctas} CTAs); two calls bit-identical: {same}")
+            self.check(r_fwd <= K3_FWD_TOL and same,
+                       f"K3 forward {label}: rel {r_fwd:.3e} > {K3_FWD_TOL} "
+                       f"or two calls differ ({same})")
+            if i == 0:
+                eye = torch.eye(K, device=self.dev)
+                exact = torch.equal(
+                    k.emt_matmul(eye, wq, sig, **kw),
+                    noise.fluctuate(wq, rho, dev, emt.noise, seed=SEED,
+                                    plane=kw["plane"]))
+                del eye
+                msg += f"; x = I bit-exact with fluctuate: {exact}"
+                self.check(exact, f"K3 forward {label}: x = I differs from "
+                           f"fluctuate")
+            print(msg)
             it = 3 if K * N < 50e6 else 2
             t = dict(
                 fwd=cuda_time(lambda: k.emt_matmul(x, wq, sig, **kw), it),
@@ -3393,7 +3467,9 @@ class Smoke:
                 dx_plain=cuda_time(lambda: k.plain_dx(g, wq, sig, **kw), 1,
                                    warmup=1),
                 dw_plain=cuda_time(lambda: k.plain_dw(x, g, wq, sig, **kw),
-                                   1, warmup=1))
+                                   1, warmup=1),
+                fwd_plain=cuda_time(lambda: k.plain(x, wq, sig, **kw), 1,
+                                    warmup=1))
             del wn, f
             t["dx_dev"] = device_ms(
                 lambda: k.emt_matmul_dx(g, wq, sig, **kw), keys_dx,
@@ -3401,14 +3477,19 @@ class Smoke:
             t["dw_dev"] = device_ms(
                 lambda: k.emt_matmul_dw(x, g, wq, sig, **kw), keys_dw,
                 need=need)
+            t["fwd_dev"] = device_ms(
+                lambda: k.emt_matmul(x, wq, sig, **kw),
+                ("emt_matmul_tc", "split_sum"), need="emt_matmul_tc")
             alu, fma = hash_ops("K3", K * N)
             mkn = 2 * Mc * K * N
             # (bytes, FP32 FLOPs, ALU ops, other FP32-pipe ops, TF32
-            # FLOPs): the forward's product on the FP32 pipe; dx's and
-            # dw's on the tensor cores (3xTF32), and "_fp32" the same work
-            # with the product on the FP32 pipe
+            # FLOPs): the products on the tensor cores (the forward's 4,
+            # dx's and dw's 3), and "_fp32" the same work with the product
+            # on the FP32 pipe
             b = dict(
-                fwd=(4 * (Mc * K + K * N + Mc * N), mkn, alu, fma, 0),
+                fwd=(4 * (Mc * K + K * N + Mc * N), 0, alu, fma, 4 * mkn),
+                fwd_3p=(4 * (Mc * K + K * N + Mc * N), 0, alu, fma, 3 * mkn),
+                fwd_fp32=(4 * (Mc * K + K * N + Mc * N), mkn, alu, fma, 0),
                 dx=(4 * (Mc * N + K * N + Mc * K), 0, alu, fma, 3 * mkn),
                 dw=(4 * (Mc * K + Mc * N + 2 * K * N), 3 * K * N, alu, fma,
                     3 * mkn),
@@ -3416,9 +3497,12 @@ class Smoke:
                 dw_fp32=(4 * (Mc * K + Mc * N + 2 * K * N),
                          mkn + 3 * K * N, alu, fma, 0))
             bms = {n: bound(*v) for n, v in b.items()}
-            print(f"    per call: forward {t['fwd']:.3f} ms (torch.matmul "
-                  f"on the pre-noised weight {t['fwd_lib']:.3f}, bound "
-                  f"{bms['fwd'][0]:.3f} {bms['fwd'][2]}); dx {t['dx']:.3f} "
+            print(f"    per call: forward {t['fwd']:.3f} ms, device "
+                  f"{fmt(t['fwd_dev'])} (torch.matmul on the pre-noised "
+                  f"weight {t['fwd_lib']:.3f}, plain {t['fwd_plain']:.3f}, "
+                  f"bound {bms['fwd'][0]:.3f} {bms['fwd'][2]}, "
+                  f"{share(bms['fwd'][0], t['fwd_dev'])} of it; FP32-pipe "
+                  f"bound {bms['fwd_fp32'][0]:.3f}); dx {t['dx']:.3f} "
                   f"ms, device {fmt(t['dx_dev'])} (yardstick "
                   f"{t['dx_lib']:.3f}, plain {t['dx_plain']:.3f}, bound "
                   f"{bms['dx'][0]:.3f} {bms['dx'][2]}, "
@@ -3437,11 +3521,18 @@ class Smoke:
                         add(f"{n}_b{i}", part, per_step)
             del x, g, dx, dw
         bnd = {n: bound(*(tot[f"{n}_b{i}"] for i in range(5)))
-               for n in ("fwd", "dx", "dw", "dx_fp32", "dw_fp32")}
+               for n in ("fwd", "fwd_3p", "dx", "dw", "fwd_fp32", "dx_fp32",
+                         "dw_fp32")}
         print(f"  per gemma3-1b training step ({7 * L + 1} calls each, "
-              f"M={M}): forward {tot['fwd']:.2f} ms (yardstick "
-              f"{tot['fwd_lib']:.2f}, bound {bnd['fwd'][0]:.2f} "
-              f"{bnd['fwd'][2]}); dx {tot['dx']:.2f} ms, device "
+              f"M={M}): forward {tot['fwd']:.2f} ms, device "
+              f"{fmt(tot['fwd_dev'], 2)} (yardstick {tot['fwd_lib']:.2f}, "
+              f"plain {tot['fwd_plain']:.2f}, bound {bnd['fwd'][0]:.2f} "
+              f"{bnd['fwd'][2]}, {share(bnd['fwd'][0], tot['fwd_dev'])} of "
+              f"it; at dx's 3 products {bnd['fwd_3p'][0]:.2f}, "
+              f"{share(bnd['fwd_3p'][0], tot['fwd_dev'])}; FP32-pipe bound "
+              f"{bnd['fwd_fp32'][0]:.2f}, "
+              f"{share(bnd['fwd_fp32'][0], tot['fwd_dev'])} of it); dx "
+              f"{tot['dx']:.2f} ms, device "
               f"{fmt(tot['dx_dev'], 2)} (yardstick {tot['dx_lib']:.2f}, bound "
               f"{bnd['dx'][0]:.2f} {bnd['dx'][2]}, "
               f"{share(bnd['dx'][0], tot['dx_dev'])} of it; FP32-pipe bound "
@@ -3461,6 +3552,14 @@ class Smoke:
                 bound_ms=bnd[key][0], bound_by=bnd[key][1],
                 library_ms=tot[f"{key}_lib"],
                 fp32_bound_ms=bnd[f"{key}_fp32"][0])
+        self.records.setdefault("emt_matmul_tc", {}).update(
+            name="emt_matmul_tc", route="cuda",
+            source="src/repro_torch/kernels/csrc/emt_matmul_fwd.cu",
+            replaces="src/repro/kernels/emt_matmul.py:57",
+            launches=None, max_abs_err=worst["fwd"], ms=tot["fwd"],
+            device_ms=tot["fwd_dev"], plain_ms=tot["fwd_plain"],
+            bound_ms=bnd["fwd"][0], bound_by=bnd["fwd"][1],
+            library_ms=tot["fwd_lib"], fp32_bound_ms=bnd["fwd_fp32"][0])
         self.records.setdefault("emt_matmul", {}).update(
             train_ms=tot["fwd"], train_bound_ms=bnd["fwd"][0],
             train_library_ms=tot["fwd_lib"])
@@ -3531,8 +3630,9 @@ class Smoke:
         run = launch.setup(argv, torch_device="cuda", seed=SEED)
         self.sync()
         L = run.cfg.num_layers
-        want = dict(emt_matmul=7 * L + 1, emt_matmul_dx=7 * L + 1,
-                    emt_matmul_dw=7 * L + 1, emt_bitserial=0)
+        want = dict(emt_matmul=7 * L + 1, emt_matmul_tc=7 * L + 1,
+                    emt_matmul_dx=7 * L + 1, emt_matmul_dw=7 * L + 1,
+                    emt_bitserial=0)
         n = sum(p.numel() for _, p in _flat(run.state["params"]))
         state_gb = sum(t.numel() * t.element_size()
                        for _, t in _flat(run.state)) / 1e9
@@ -3616,6 +3716,8 @@ class Smoke:
             self.records[name]["launches"] = sum(c[name] for c in per_step)
         self.records.setdefault("emt_matmul", {})["train_launches"] = sum(
             c["emt_matmul"] for c in per_step)
+        self.records.setdefault("emt_matmul_tc", {})["launches"] = sum(
+            c["emt_matmul_tc"] for c in per_step)
         # 5. a fresh loop resumes from the step-2 checkpoint
         shutil.rmtree(os.path.join(ckpt, "step_000000003"),
                       ignore_errors=True)
@@ -3738,6 +3840,7 @@ class Smoke:
             convs = 2 * len(cfg.channels) * cfg.blocks_per_stage
             bitserial = regime == "A+B+C"
             want = dict(emt_matmul=0 if bitserial else convs + 1,
+                        emt_matmul_tc=0 if bitserial else convs + 1,
                         emt_matmul_dx=0 if bitserial else convs,
                         emt_matmul_dw=0 if bitserial else convs + 1,
                         emt_bitserial=convs + 1 if bitserial else 0)
@@ -3913,7 +4016,8 @@ def main() -> int:
     print(s.smi)
     print(json.dumps({"kernels": [s.records[n] for n in
                                   ("paged_attention_decode", "paged_prefill",
-                                   "emt_matmul", "paged_attention",
+                                   "emt_matmul", "emt_matmul_tc",
+                                   "paged_attention",
                                    "emt_bitserial", "emt_matmul_dx",
                                    "emt_matmul_dw", "emt_matmul_int8",
                                    "emt_matmul_experts")]}))

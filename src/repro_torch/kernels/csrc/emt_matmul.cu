@@ -1,4 +1,5 @@
-// Technique-A noisy crossbar matmul for Hopper (sm_90a), plain FP32 FFMA.
+// Technique-A noisy crossbar matmul for Hopper (sm_90a) at M <= 16, plain
+// FP32 FFMA (M > 16: emt_matmul_fwd.cu, on the tensor cores).
 //
 // Replaces the TPU kernel repro/kernels/emt_matmul.py::emt_matmul_pallas:
 //   y = x @ (w * (1 + a(k, n) * sigma))
@@ -12,11 +13,7 @@
 // (4.0 GB per gemma3-1b decode step, 1.2 ms at the H100 SXM's published
 // 3.35 TB/s) against 2*M*K*N FLOPs; at decode (M = 4) that is far below the
 // FP32 ridge, so bytes bound it, and the per-element hash (~25 integer
-// operations) is the second cost.  At a chunk step (M = 64) the FP32 FLOPs
-// (1.9 ms a step at the published 67 TFLOP/s) are within 1.6x of the
-// bytes, so tensor cores would buy less than that; they are not used:
-// 3xTF32 would not return w' exactly, and x = I must give fluctuate(w) bit
-// for bit.
+// operations) is the second cost.
 //
 // Design:
 // * M <= 16 (decode): a GEMV-style kernel templated on M (1-4, 8, 16) with
@@ -30,18 +27,12 @@
 //   and FMAs this step's.  Threads that share columns reduce once, at the
 //   end of the slab (shared memory in warp order for n-major, a shuffle
 //   butterfly for k-major).
-// * M > 16 (chunk and prefill steps): a 64 x 64 tiled kernel
-//   (emt_tiled.cuh), 32-deep K tiles,
-//   float4 loads in both layouts.  The raw weight and x tiles of the
-//   next K tile are loaded into registers while this tile's FMAs run, then
-//   hashed into the other of two shared-memory buffers (one barrier a
-//   tile); every weight element is hashed once per 64-row tile.
-// * Split-K for both, planned in Python from the SM count
-//   (repro_torch/kernels/splitk.py): slabs of whole chunks/tiles write
+// * Split-K, planned in Python from the SM count
+//   (repro_torch/kernels/splitk.py): slabs of whole chunks write
 //   partials to a workspace, and repro::split_sum adds them in slab order
 //   (deterministic, no atomics).
 // * int8 weights (store_int8 serving, emt_matmul_i8): the weight loader is
-//   a template parameter (I8) of all three kernels.  The int8 loader reads
+//   a template parameter (I8) of the GEMV kernels.  The int8 loader reads
 //   16 levels in one 16-byte load, dequantizes them in registers as
 //   fl(float(q) * scale[n]) (one rounding, the reference's
 //   w_int8.astype(f32) * w_scale), noises them with the same rounding and
@@ -50,8 +41,9 @@
 //   per element does not (at a gemma3-1b decode step the ALU pipe, not the
 //   bytes, then bounds the step: PERF.md).
 // * A stack of E experts (emt_matmul_experts_f32; the MoE layer's three
-//   projections, JAX's moe._emt_stacked + einsum): the GEMV n-major and
-//   tiled kernels with an expert grid axis (template EX; GEMV z = e, tiled
+//   projections, JAX's moe._emt_stacked + einsum), at any M: the GEMV
+//   n-major kernel and, above 16 rows, the tiled kernel of emt_tiled.cuh,
+//   each with an expert grid axis (template EX; GEMV z = e, tiled
 //   z = e * splits + slab).  Expert e reads x + e * sxe and w + e * swe and
 //   hashes its element (k, n) at row e * K + k: the folded (E * K, N) draw
 //   of the reference, the TPU kernel's row base k0_base.  One launch
@@ -466,12 +458,14 @@ void launch_gemv(const Args& a, bool kc, int splits, cudaStream_t s) {
 
 template <int NS, bool I8, bool EX>
 void launch(const Args& a, bool kc, int splits, int xvec, cudaStream_t s) {
-  if (a.M > kGemvMaxM) {
-    repro::launch_tiled<NS, I8, EX>(a.x, a.w, a.scale, a.out, a.sig, a.M,
-                                    a.N, a.K, a.k_slab, a.sxm, a.sxk, a.swk,
-                                    a.swn, a.vw, xvec, a.seed, a.plane, a.np,
-                                    kc, splits, a.E, a.ex, s);
-    return;
+  if constexpr (EX) {
+    if (a.M > kGemvMaxM) {
+      repro::launch_tiled<NS>(a.x, static_cast<const float*>(a.w), a.out,
+                              a.sig, a.M, a.N, a.K, a.k_slab, a.sxm, a.sxk,
+                              a.swk, a.vw, xvec, a.seed, a.plane, a.np,
+                              splits, a.E, a.ex, s);
+      return;
+    }
   }
   switch (a.M) {
     case 1: launch_gemv<1, NS, I8, EX>(a, kc, splits, s); break;
@@ -490,8 +484,8 @@ bool aligned(const void* p, int bytes) {
 
 
 // The shared body of the C entries: check the plan, pick the weight
-// loads' width, launch, and sum the slabs.  EX: a stack of E experts at
-// the strides of `ex` (n-major weights only).
+// loads' width, launch, and sum the slabs.  M <= 16, or EX: a stack of E
+// experts at the strides of `ex` (n-major weights only), at any M.
 template <bool I8, bool EX>
 int run(const float* x, const void* w, const float* scale, float* y,
         float* part, const float* sig, const long long* dims,
@@ -505,7 +499,8 @@ int run(const float* x, const void* w, const float* scale, float* y,
   const bool gemv = M <= kGemvMaxM;
   const int bk = !gemv ? repro::kTBK : kc ? kGemvBKk : kGemvBK;
   const int mt = M <= 4 ? M : M <= 8 ? 8 : 16;     // the GEMV row template
-  if (M < 1 || N < 1 || !repro::split_plan_ok(K, splits, k_slab, bk) ||
+  if (M < 1 || N < 1 || (!EX && !gemv) ||
+      !repro::split_plan_ok(K, splits, k_slab, bk) ||
       (gemv && (long long)sizeof(float) * mt * k_slab > kGemvXBytes) ||
       (EX && (kc || E < 1 || (long long)splits * E > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -567,13 +562,13 @@ __global__ void stats_finish(const double* __restrict__ part, long long n,
 
 }  // namespace
 
-// y (M, N) = x (M, K) @ noisy(w (K, N)); any strides.
+// y (M, N) = x (M, K) @ noisy(w (K, N)) at M <= 16 (M > 16:
+// emt_matmul_fwd.cu's emt_matmul_tc_f32); any strides.
 // dims = {M, N, K, splits, k_slab, sxm, sxk, swk, swn} (one host array, so
 // a ctypes call converts 10 arguments, not 18).  `splits` CTAs per output
-// tile along K, each over `k_slab` rows: multiples of 32 rows (GEMV,
-// M <= 16, n-major weight; x rows of a slab <= 24 KB), of 128 rows (GEMV,
-// other weights) or 32-row tiles (M > 16), as planned by
-// repro_torch/kernels/emt_matmul.py::plan.
+// tile along K, each over `k_slab` rows: multiples of 32 rows (n-major
+// weight; x rows of a slab <= 24 KB) or of 128 rows (other weights), as
+// planned by repro_torch/kernels/emt_matmul.py::plan.
 // With splits > 1 the partials go to `part` (splits * M * N floats) and are
 // summed into y in slab order.
 extern "C" int emt_matmul_f32(const float* x, const float* w, float* y,
@@ -589,7 +584,8 @@ extern "C" int emt_matmul_f32(const float* x, const float* w, float* y,
 // and `scale` (N contiguous floats) their per-column scale: the kernels
 // read the levels (16 a load where the strides allow) and dequantize them
 // in registers, w = fl(float(q) * scale[n]), before the noise.  The plan
-// is the float weight's (same slabs).
+// is the float weight's (same slabs); M <= 16 (M > 16:
+// emt_matmul_tc_i8).
 extern "C" int emt_matmul_i8(const float* x, const int8_t* w,
                              const float* scale, float* y, float* part,
                              const float* sig, const long long* dims,
@@ -602,10 +598,11 @@ extern "C" int emt_matmul_i8(const float* x, const int8_t* w,
 // A stack of E experts: y (E, M, N) = x (E, M, K) @ noisy(w (E, K, N))
 // per expert, expert e's element (k, n) hashed at row e * K + k; w
 // n-major (swn == 1).  dims = {M, N, K, splits, k_slab, sxm, sxk, swk, swn,
-// E, sxe, swe, slots}: the plan is emt_matmul.py::plan's with the experts'
-// tiles counted, `part` holds splits * E * M * N floats, `parts` 2 * slots
-// float64 values, slots being the grid's CTAs (checked), and `stats`
-// receives {sum |w'|, max |w'|} of the noisy stack.
+// E, sxe, swe, slots}: the plan is emt_matmul.py::plan's for the experts
+// entry (the tiled kernel above 16 rows), its tiles counted; `part` holds
+// splits * E * M * N floats, `parts` 2 * slots float64 values, slots
+// being the grid's CTAs (checked), and `stats` receives {sum |w'|,
+// max |w'|} of the noisy stack.
 extern "C" int emt_matmul_experts_f32(const float* x, const float* w,
                                       float* y, float* part, double* parts,
                                       float* stats, const float* sig,

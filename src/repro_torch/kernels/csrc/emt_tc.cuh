@@ -1,50 +1,63 @@
 // A 3xTF32 GEMM template for Hopper's tensor cores (sm_90a) whose operand
 // and epilogue stages take the noise; K3's backward kernels
-// (emt_matmul_bwd.cu) are its two users.
+// (emt_matmul_bwd.cu) and K3's forward at M > 16 (emt_matmul_fwd.cu) are
+// its users.
 //
 // out tile (128 x 128) = A (rows x R) . B (cols x R)^T, both operands
 // reduced along their second index c, each read with any strides
-// (Operand).  A CTA computes one output tile over one slab of the
-// reduction (the host's plan, repro_torch/kernels/splitk.py plan_waves;
-// slab z of a split writes its own partial tile).  Warp-specialized, four
-// warpgroups:
+// (Operand), B also as int8 levels dequantized by a per-row scale.  A CTA
+// computes one output tile over one slab of the reduction (the host's
+// plan, repro_torch/kernels/splitk.py plan_waves; slab z of a split
+// writes its own partial tile).  Warp-specialized, four warpgroups:
 //
 // * Producers (warpgroups 2-3, 256 threads): each thread owns four 4-wide
 //   reduction groups of A and four of B in every 32-deep k-tile.  It copies
-//   their raw FP32 values by cp.async into its own slots of a ring of three
-//   raw stages (16-byte copies along whichever stride is 1, else 4-byte
+//   their raw FP32 values by cp.async into its own slots of a ring of raw
+//   stages (16-byte copies along whichever stride is 1, else 4-byte
 //   copies coalesced along the rows; zeros past the tensor or the slab),
-//   two tiles ahead, and reads back only what it copied, so the ring needs
-//   no barrier.  The transform applies the stage's operand function (K3-dx:
-//   the noisy weight w * f at w's logical (k, n), from a per-row word the
-//   stage hands it a tile ahead), splits each value into TF32
-//   hi = rna(x) and lo = rna(x - hi) and stores both K-major in the
-//   128-byte swizzled layout wgmma reads (the only layout `.tf32` allows:
-//   its transpose flags exist for 16-bit types only), so operands lying
-//   MN-major in memory (the tied unembed's table.T, both operands of
-//   dw = x^T g) are transposed on the way in.  Two such split stages
-//   (64 KB each), handed over by mbarriers: "full" when the 256 producers
+//   a tile or two ahead, and reads back only what it copied, so the ring
+//   needs no barrier (int8 levels of B are loaded into registers a tile
+//   ahead instead, 4 a load).  The transform applies the stage's operand
+//   function (the noisy weight w * f at w's logical (k, n), from a per-row
+//   word the stage hands it a tile ahead), splits each value into TF32
+//   pieces and stores them K-major in the 128-byte swizzled layout wgmma
+//   reads (the only layout `.tf32` allows: its transpose flags exist for
+//   16-bit types only), so operands lying MN-major in memory (the n-major
+//   projections' w and the tied unembed's table.T in the forward, both
+//   operands of dw = x^T g) are transposed on the way in.  A splits into
+//   hi = rna(x) and lo = rna(x - hi); B the same (kBPieces 2) or, where the
+//   stage asks for 3 pieces, by truncation into hi (the top 11 significant
+//   bits), mid (the next 11) and lo (the last 2): disjoint bits of one
+//   sign, so every partial sum of them is exact in FP32 and no larger than
+//   the value.  Two such split stages (64 KB each with 2 pieces of B, 80
+//   KB with 3), handed over by mbarriers: "full" when the 256 producers
 //   have stored a stage, "empty" when the 256 consumers' products that
 //   read it have completed.
 // * Consumers (warpgroups 0-1, 64 output rows each): per 8-deep k-step
-//   three wgmma.m64n128k8.f32.tf32 (lo.hi, hi.lo, hi.hi).  Each pair of
-//   k-tiles' sum starts from zero and is added into the running sum with
-//   an FP32 add rounded to nearest: the tensor cores' own accumulation
-//   loses low bits (without this promotion the tied unembed's dx, 262,144
-//   terms, was 1.6e-4 from float64 on an H100 80GB HBM3 at 700 W; with it,
-//   7e-7).  Then the stage's epilogue (store a tile or a slab's partial
-//   tile, or K3-dw's noise epilogue); no atomics anywhere.
+//   three wgmma.m64n128k8.f32.tf32 (lo.hi, hi.lo, hi.hi), or with B in
+//   three pieces four (lo.hi, hi.lo, hi.mid, hi.hi): on x = I that sum is
+//   hi + mid + lo, the value itself, where 3xTF32's hi + lo is not (a
+//   residual of up to 13 significant bits in an 11-bit piece).  Each pair
+//   of k-tiles' sum starts from zero and is added into the running sum
+//   with an FP32 add rounded to nearest: the tensor cores' own
+//   accumulation loses low bits (without this promotion the tied
+//   unembed's dx, 262,144 terms, was 1.6e-4 from float64 on an H100 80GB
+//   HBM3 at 700 W; with it, 7e-7).  Then the stage's epilogue (store a
+//   tile or a slab's partial tile, or K3-dw's noise epilogue); no atomics
+//   anywhere.
 //
-// Bounds on an H100 SXM: 3 x 2 MNR FLOPs over the tensor cores' 495 TFLOP/s
-// TF32 rate, and the operands' path to them: a k-tile moves 272 KB through
-// shared memory (the raw ring 64 KB, the split stores 64 KB, the products'
-// reads 144 KB).  What sets the pace at gemma3-1b's shapes is the
-// producers' transform (timed variants, PERF.md): without it the
-// consumers run a k-tile in ~1.2 us, with it ~2.3 us.  One CTA per SM
-// (225 KB of shared memory; setmaxnreg gives the consumers' 128 FP32
-// accumulators their registers).
+// Bounds on an H100 SXM: 3 (or 4) x 2 MNR FLOPs over the tensor cores'
+// 495 TFLOP/s TF32 rate, and the operands' path to them: a k-tile moves
+// 272 KB through shared memory (the raw ring 64 KB, the split stores 64
+// KB, the products' reads 144 KB; with B in three pieces 336 KB).  What
+// sets the pace at gemma3-1b's shapes is the producers' transform (timed
+// variants, PERF.md): without it the consumers run a k-tile in ~1.2 us,
+// with it ~2.3 us.  One CTA per SM (225 KB of shared memory: three raw
+// stages with B in two pieces, two with B in three; setmaxnreg gives the
+// consumers' 128 FP32 accumulators their registers).
 #pragma once
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -54,14 +67,25 @@ namespace tc {
 constexpr int kBM = 128, kBN = 128, kBK = 32;
 constexpr int kConsumers = 256, kProducers = 256;
 constexpr int kThreads = kConsumers + kProducers;
-// stages of split operands (A hi, A lo, B hi, B lo: 64 KB) and of raw
-// ones (A, B: 32 KB)
-constexpr int kStages = 2, kRaw = 3;
+// stages of split operands (A hi, A lo, then B's pieces: 64 or 80 KB)
+constexpr int kStages = 2;
 constexpr int kTileFloats = kBM * kBK;           // one operand tile, 16 KB
 constexpr int kTileBytes = 4 * kTileFloats;
-// 1 KB to align the swizzled tiles to the 1024-byte atom the descriptors
-// assume
-constexpr int kSmemBytes = (kStages * 4 + kRaw * 2) * kTileBytes + 1024;
+// stages of raw operands (A, B: 32 KB) beside the split stages of B in P
+// pieces: three with 2 pieces, two with 3 (a third raw stage would take
+// the 3-piece layout to 257 KB)
+template <int P>
+__host__ __device__ constexpr int raw_stages() {
+  return P == 2 ? 3 : 2;
+}
+template <int P>
+__host__ __device__ constexpr int smem_bytes() {
+  // 1 KB to align the swizzled tiles to the 1024-byte atom the
+  // descriptors assume
+  return (kStages * (2 + P) + raw_stages<P>() * 2) * kTileBytes + 1024;
+}
+constexpr int kSmemBytes = smem_bytes<2>();
+static_assert(smem_bytes<3>() == kSmemBytes, "one CTA per SM either way");
 // registers a thread: consumers and producers share 2 x 128 after
 // setmaxnreg (the stage's kConsumerRegs to the consumers, which hold 128
 // accumulators)
@@ -71,9 +95,29 @@ constexpr int kGroups = kTileFloats / 4 / kProducers;
 
 static_assert(kBM == kBN, "A and B tiles share one shape");
 
+// B's pieces of a stage: its kBPieces (3: hi/mid/lo by truncation) where
+// it declares one, else 2 (rna hi/lo).
+template <class S, class = void>
+struct BPieces : std::integral_constant<int, 2> {};
+template <class S>
+struct BPieces<S, std::void_t<decltype(S::kBPieces)>>
+    : std::integral_constant<int, S::kBPieces> {};
+
+// Whether A ends in the first half of every row tile (a stage's
+// kHalfRows, set only where the host guarantees M <= 64): then the second
+// consumer warpgroup multiplies nothing and the producers neither copy nor
+// transform A's second half.  Else false.
+template <class S, class = void>
+struct HalfRows : std::false_type {};
+template <class S>
+struct HalfRows<S, std::void_t<decltype(S::kHalfRows)>>
+    : std::integral_constant<bool, S::kHalfRows> {};
+
 // Element (r, c) at p[r * s_row + c * s_red], r < rows the output index
 // (A: the output row, B: the output column), c the reduction index.
-// mode: how the producers copy it (kScalar, kAlongC, kAlongR).
+// mode: how the producers copy it (kScalar, kAlongC, kAlongR), with kInt8
+// set for int8 levels (B only: p then points at the levels, strides in
+// bytes, and the stage's b_scale(r) dequantizes row r).
 struct Operand {
   const float* p;
   long long s_row, s_red;
@@ -83,8 +127,11 @@ struct Operand {
 
 // kAlongC: s_red == 1 and the rows 16-byte aligned (16-byte copies along
 // c); kAlongR: s_row == 1 and the columns aligned (16-byte copies along r);
-// kScalar: any strides (4-byte copies).
-constexpr int kScalar = 0, kAlongC = 1, kAlongR = 2;
+// kScalar: any strides (4-byte copies).  With kInt8 the same layouts with
+// 4-byte aligned rows or columns (4-level loads), or any strides (bytes).
+constexpr int kScalar = 0, kAlongC = 1, kAlongR = 2, kInt8 = 4;
+constexpr int kQScalar = kInt8 | kScalar, kQAlongC = kInt8 | kAlongC,
+              kQAlongR = kInt8 | kAlongR;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -166,18 +213,20 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copy the raw values of the thread's groups of the tile at rows r0..,
-// reduction columns c0.. (zeros at r >= rows or c >= ce) into its own
-// slots of a raw stage, thread index fastest (conflict-free): float4
-// (i, pt) for 16-byte copies (kAlongR: copy i holds column 4 cg + i of
-// the block), float (i, j, pt) otherwise.  Each producer reads back only
-// what it copied, so no barrier guards the raw ring.
-template <int LM>
+// reduction columns c0.. (zeros at r >= rows or c >= ce; none at tile rows
+// >= kLive, which no product reads) into its own slots of a raw stage,
+// thread index fastest (conflict-free): float4 (i, pt) for 16-byte copies
+// (kAlongR: copy i holds column 4 cg + i of the block), float (i, j, pt)
+// otherwise.  Each producer reads back only what it copied, so no barrier
+// guards the raw ring.
+template <int LM, int kLive = kBM>
 __device__ __forceinline__ void copy_groups(float* raw, const Operand& o,
                                             int r0, int c0, int ce, int pt) {
 #pragma unroll
   for (int i = 0; i < kGroups; ++i) {
     int r, cg;
     group_of<LM>(pt, i, r, cg);
+    if (kLive < kBM && r >= kLive) continue;
     if (LM == kAlongR) {
       // copy i: the block's column c0 + 4 cg + i, its rows from r0 + r - i
       const int br = r0 + r - i, bc = c0 + 4 * cg + i;
@@ -228,38 +277,125 @@ __device__ __forceinline__ void read_groups(float (&v)[kGroups][4],
   }
 }
 
+// -- int8 levels (B only) ---------------------------------------------------
+// p[0], p[step], p[2 step], p[3 step] (0 past `valid`) as one word, level
+// j in byte j: one 4-byte load when `vec` and all four are valid.
+__device__ __forceinline__ uint32_t load_q4(const int8_t* p, long long step,
+                                            int valid, bool vec) {
+  if (vec && valid == 4)
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  uint32_t v = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < valid) v |= (uint32_t)(uint8_t)__ldg(p + j * step) << (8 * j);
+  return v;
+}
+
+// The levels of the thread's groups of the tile at rows r0.., reduction
+// columns c0.. (zeros at r >= rows or c >= ce): word i holds group i's
+// four (LM kAlongC, kScalar) or, under kAlongR, the thread's 4 x 4 block's
+// column i (its four rows, one load along r).
+template <int LM>
+__device__ __forceinline__ void load_levels(uint32_t (&q)[kGroups],
+                                            const Operand& o, int r0, int c0,
+                                            int ce, int pt) {
+  const int8_t* p = reinterpret_cast<const int8_t*>(o.p);
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    int r, cg;
+    group_of<LM>(pt, i, r, cg);
+    if (LM == kAlongR) {
+      const int br = r0 + r - i, bc = c0 + 4 * cg + i;
+      const int valid = bc < ce ? min(max(o.rows - br, 0), 4) : 0;
+      q[i] = load_q4(valid ? p + br + bc * o.s_red : p, 1, valid, true);
+    } else {
+      const int gr = r0 + r, gc = c0 + 4 * cg;
+      const int valid = gr < o.rows ? min(max(ce - gc, 0), 4) : 0;
+      q[i] = load_q4(valid ? p + gr * o.s_row + gc * o.s_red : p, o.s_red,
+                     valid, LM == kAlongC);
+    }
+  }
+}
+
+// The dequantized groups fl(float(q) * scale) (sc[i]: group i's row's
+// scale), as read_groups lays out raw values.
+template <int LM>
+__device__ __forceinline__ void dequant_groups(float (&v)[kGroups][4],
+                                               const uint32_t (&q)[kGroups],
+                                               const float (&sc)[kGroups]) {
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[i][j] = LM == kAlongR ? repro::dequant(q[j], i, sc[i])
+                              : repro::dequant(q[i], j, sc[i]);
+}
+
 __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return __uint_as_float(r);
 }
 
-// The thread's groups -> hi and lo tiles, K-major with the 128-byte
-// swizzle: element (r, c) at float r * 32 + ((c / 4) ^ (r % 8)) * 4 + c % 4
-// (eight consecutive threads store to eight distinct 16-byte bank groups
-// under each mapping).  OP selects the stage's operand function (0: A,
-// 1: B), applied at the element's global (row, reduction) index.
-template <int LM, int OP, class Stage>
+// x truncated to TF32: its top 11 significant bits (the low 13 of the
+// FP32 significand cleared).
+__device__ __forceinline__ float tf32_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
+}
+
+// The thread's groups -> the operand's P piece tiles (piece p at
+// t + p * kTileFloats), K-major with the 128-byte swizzle: element (r, c)
+// at float r * 32 + ((c / 4) ^ (r % 8)) * 4 + c % 4 (eight consecutive
+// threads store to eight distinct 16-byte bank groups under each
+// mapping).  P = 2: hi = rna(x) and lo = rna(x - hi); P = 3: hi, mid and
+// lo by truncation (hi + mid + lo == x, each partial sum exact).  OP
+// selects the stage's operand function (0: A, 1: B), applied at the
+// element's global (row, reduction) index.  Groups at tile rows >= kLive
+// are not stored.
+template <int LM, int OP, int P, int kLive = kBM, class Stage>
 __device__ __forceinline__ void store_groups(const float (&v)[kGroups][4],
-                                             float* hi, float* lo, int r0,
-                                             int c0, int pt, const Stage& st,
+                                             float* t, int r0, int c0, int pt,
+                                             const Stage& st,
                                              const uint32_t (&aux)[kGroups]) {
 #pragma unroll
   for (int i = 0; i < kGroups; ++i) {
     int r, cg;
     group_of<LM>(pt, i, r, cg);
-    float h[4], l[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 4 * cg + j;
-      const float x = OP == 0 ? st.a(v[i][j], r0 + r, c)
-                              : st.b(v[i][j], r0 + r, c, aux[i]);
-      h[j] = tf32_rna(x);
-      l[j] = tf32_rna(__fsub_rn(x, h[j]));
-    }
+    if (kLive < kBM && r >= kLive) continue;
     const int off = r * kBK + ((cg ^ (r & 7)) << 2);
-    *reinterpret_cast<float4*>(hi + off) = make_float4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<float4*>(lo + off) = make_float4(l[0], l[1], l[2], l[3]);
+    if constexpr (P == 2) {
+      float h[4], l[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + 4 * cg + j;
+        const float x = OP == 0 ? st.a(v[i][j], r0 + r, c)
+                                : st.b(v[i][j], r0 + r, c, aux[i]);
+        h[j] = tf32_rna(x);
+        l[j] = tf32_rna(__fsub_rn(x, h[j]));
+      }
+      *reinterpret_cast<float4*>(t + off) =
+          make_float4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<float4*>(t + kTileFloats + off) =
+          make_float4(l[0], l[1], l[2], l[3]);
+    } else {
+      float h[4], m[4], l[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + 4 * cg + j;
+        const float x = OP == 0 ? st.a(v[i][j], r0 + r, c)
+                                : st.b(v[i][j], r0 + r, c, aux[i]);
+        h[j] = tf32_trunc(x);
+        const float rest = __fsub_rn(x, h[j]);
+        m[j] = tf32_trunc(rest);
+        l[j] = __fsub_rn(rest, m[j]);
+      }
+      *reinterpret_cast<float4*>(t + off) =
+          make_float4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<float4*>(t + kTileFloats + off) =
+          make_float4(m[0], m[1], m[2], m[3]);
+      *reinterpret_cast<float4*>(t + 2 * kTileFloats + off) =
+          make_float4(l[0], l[1], l[2], l[3]);
+    }
   }
 }
 
@@ -362,18 +498,38 @@ __device__ __forceinline__ TileIdx tile_idx(int item, int tm, int tn,
   return TileIdx{mt * kBM, nt * kBN, mt * tn + nt, z};
 }
 
+// int8 levels of B in flight a tile ahead (q: tile t, qn: tile t + 1) and
+// each group's row's scale; nothing for float operands.
+template <bool Q8>
+struct Levels {};
+template <>
+struct Levels<true> {
+  uint32_t q[kGroups] = {}, qn[kGroups] = {};
+  float sc[kGroups] = {};
+};
+
 // Stage: constructed in the kernel from its Args; kConsumerRegs, the
 // consumers' registers (a multiple of 8; the producers get the rest of
-// kRegPair); a(v, r, c) and
+// kRegPair); kBPieces and kHalfRows, optional (BPieces, HalfRows);
+// a(v, r, c) and
 // b(v, r, c, aux) the operand functions, aux = b_aux(r, c0) the stage's
 // word for B's row r in the k-tile at c0 (loaded by the producers a tile
-// ahead); epilogue(acc, tile, tid) consumes the 128 x 128 tile with
-// consumer thread tid's accumulators.  AM / BM: the
-// operands' copy modes (Operand::mode).
+// ahead); b_scale(r), for int8 levels of B only, row r's scale;
+// epilogue(acc, tile, tid) consumes the 128 x 128 tile with consumer
+// thread tid's accumulators.  AM / BM: the operands' copy modes
+// (Operand::mode; kInt8 for B only).  The body of every kernel on the
+// template (each user names its own __global__, so a profile tells them
+// apart).
 template <int AM, int BM, class Stage>
-__global__ void __launch_bounds__(kThreads, 1)
-gemm_3xtf32(const Operand A, const Operand B, int R, int k_slab, int a_fast,
-            const typename Stage::Args args) {
+__device__ __forceinline__ void gemm_body(const Operand& A, const Operand& B,
+                                          int R, int k_slab, int a_fast,
+                                          const typename Stage::Args& args) {
+  constexpr int P = BPieces<Stage>::value;
+  constexpr int kRaw = raw_stages<P>();
+  constexpr int BL = BM & ~kInt8;                 // B's layout
+  constexpr bool Q8 = (BM & kInt8) != 0;
+  constexpr int kLive = HalfRows<Stage>::value ? kBM / 2 : kBM;
+  static_assert(!(AM & kInt8), "A is float32");
   extern __shared__ unsigned char smem_dyn[];
   __shared__ uint64_t full[kStages], empty[kStages];
   const uint32_t pad = (1024 - (smem_u32(smem_dyn) & 1023)) & 1023;
@@ -396,26 +552,38 @@ gemm_3xtf32(const Operand A, const Operand B, int R, int k_slab, int a_fast,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         kRegPair - Stage::kConsumerRegs));
     const int pt = tid - kConsumers;
-    float* raw = base + kStages * 4 * kTileFloats;
+    float* raw = base + kStages * (2 + P) * kTileFloats;
     // raw stage u: A's values at raw + 2 u kTileFloats, B's after them
+    // (unused for int8 levels, which load_levels brings into registers)
     auto copy = [&](int t) {
       float* r = raw + 2 * (t % kRaw) * kTileFloats;
       if (t < nt) {
-        copy_groups<AM>(r, A, ti.m0, kb + t * kBK, ke, pt);
-        copy_groups<BM>(r + kTileFloats, B, ti.n0, kb + t * kBK, ke, pt);
+        copy_groups<AM, kLive>(r, A, ti.m0, kb + t * kBK, ke, pt);
+        if constexpr (!Q8)
+          copy_groups<BL>(r + kTileFloats, B, ti.n0, kb + t * kBK, ke, pt);
       }
       cp_async_commit();
     };
-    // the stage's word for each B group's row at tile t (K3-dx: the
-    // weight's noise-state bits), loaded a tile ahead
+    // the stage's word for each B group's row at tile t (the weight's
+    // noise-state bits), loaded a tile ahead
     auto load_aux = [&](int t, uint32_t (&x)[kGroups]) {
 #pragma unroll
       for (int i = 0; i < kGroups; ++i) {
         int r, cg;
-        group_of<BM>(pt, i, r, cg);
+        group_of<BL>(pt, i, r, cg);
         x[i] = t < nt ? st.b_aux(ti.n0 + r, kb + t * kBK) : 0u;
       }
     };
+    Levels<Q8> lv;
+    if constexpr (Q8) {
+#pragma unroll
+      for (int i = 0; i < kGroups; ++i) {
+        int r, cg;
+        group_of<BL>(pt, i, r, cg);
+        lv.sc[i] = ti.n0 + r < B.rows ? st.b_scale(ti.n0 + r) : 0.f;
+      }
+      if (nt > 0) load_levels<BL>(lv.q, B, ti.n0, kb, ke, pt);
+    }
     uint32_t aux[kGroups];
     load_aux(0, aux);
 #pragma unroll
@@ -425,21 +593,30 @@ gemm_3xtf32(const Operand A, const Operand B, int R, int k_slab, int a_fast,
       copy(t + kRaw - 1);               // into the stage read at t - 1
       uint32_t next[kGroups];
       load_aux(t + 1, next);
+      if constexpr (Q8)
+        if (t + 1 < nt)
+          load_levels<BL>(lv.qn, B, ti.n0, c0 + kBK, ke, pt);
       cp_async_wait<kRaw - 1>();        // this thread's copies of tile t
       float va[kGroups][4], vb[kGroups][4];
       const float* r = raw + 2 * (t % kRaw) * kTileFloats;
       read_groups<AM>(va, r, pt);
-      read_groups<BM>(vb, r + kTileFloats, pt);
+      if constexpr (Q8)
+        dequant_groups<BL>(vb, lv.q, lv.sc);
+      else
+        read_groups<BL>(vb, r + kTileFloats, pt);
       bar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
-      float* sp = base + 4 * s * kTileFloats;
-      store_groups<AM, 0>(va, sp, sp + kTileFloats, ti.m0, c0, pt, st, aux);
-      store_groups<BM, 1>(vb, sp + 2 * kTileFloats, sp + 3 * kTileFloats,
-                          ti.n0, c0, pt, st, aux);
+      float* sp = base + (2 + P) * s * kTileFloats;
+      store_groups<AM, 0, 2, kLive>(va, sp, ti.m0, c0, pt, st, aux);
+      store_groups<BL, 1, P>(vb, sp + 2 * kTileFloats, ti.n0, c0, pt, st,
+                             aux);
       // the generic-proxy stores, made visible to wgmma's async proxy
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       bar_arrive(&full[s]);
 #pragma unroll
       for (int i = 0; i < kGroups; ++i) aux[i] = next[i];
+      if constexpr (Q8)
+#pragma unroll
+        for (int i = 0; i < kGroups; ++i) lv.q[i] = lv.qn[i];
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
@@ -448,29 +625,37 @@ gemm_3xtf32(const Operand A, const Operand B, int R, int k_slab, int a_fast,
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.f;
     const uint32_t a_off = (tid >> 7) * 64 * kBK * 4;  // this warpgroup's rows
+    // the second warpgroup's rows all past A (uniform in the warpgroup)
+    const bool idle = kLive < kBM && (tid >> 7);
     const uint32_t sbase = smem_u32(base);
-    // one k-tile's 12 products on stage t % kStages into d (from zero if
-    // `fresh`), committed as one group
+    // one k-tile's products (12, or 16 with B in three pieces) on stage
+    // t % kStages into d (from zero if `fresh`), committed as one group
     auto mma = [&](int t, bool fresh) {
       const int s = t % kStages;
       bar_wait(&full[s], (t / kStages) & 1);
-      const uint32_t sp = sbase + 4 * s * kTileBytes;
+      const uint32_t sp = sbase + (2 + P) * s * kTileBytes;
       const uint32_t a_hi = sp + a_off, a_lo = a_hi + kTileBytes;
-      const uint32_t b_hi = sp + 2 * kTileBytes, b_lo = b_hi + kTileBytes;
+      // B's pieces: hi, then lo (P = 2) or mid, lo (P = 3)
+      const uint32_t b_hi = sp + 2 * kTileBytes, b_1 = b_hi + kTileBytes;
+      const uint32_t b_lo = P == 2 ? b_1 : b_1 + kTileBytes;
       fence_regs(d);
-      wgmma_fence();
+      if (!idle) {
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 8; ++kk) {
-        const uint32_t o = 32 * kk;       // 8 TF32 values = 32 bytes
-        wgmma_tf32(d, desc(a_lo + o), desc(b_hi + o), !fresh || kk > 0);
-        wgmma_tf32(d, desc(a_hi + o), desc(b_lo + o), 1);
-        wgmma_tf32(d, desc(a_hi + o), desc(b_hi + o), 1);
+        for (int kk = 0; kk < kBK / 8; ++kk) {
+          const uint32_t o = 32 * kk;     // 8 TF32 values = 32 bytes
+          wgmma_tf32(d, desc(a_lo + o), desc(b_hi + o), !fresh || kk > 0);
+          wgmma_tf32(d, desc(a_hi + o), desc(b_lo + o), 1);
+          if constexpr (P == 3)
+            wgmma_tf32(d, desc(a_hi + o), desc(b_1 + o), 1);
+          wgmma_tf32(d, desc(a_hi + o), desc(b_hi + o), 1);
+        }
       }
       wgmma_commit();
     };
     // k-tiles in pairs: the second's products queue behind the first's,
     // whose stage is released as soon as they complete; the pair's sum
-    // (24 products a k-step column) is added into acc once both have
+    // (24 or 32 products a k-step column) is added into acc once both have
     for (int t = 0; t < nt; t += 2) {
       const bool two = t + 1 < nt;
       mma(t, true);
@@ -489,15 +674,21 @@ gemm_3xtf32(const Operand A, const Operand B, int R, int k_slab, int a_fast,
   }
 }
 
-// Launch gemm_3xtf32<AM, BM, Stage> over the (A.rows x B.rows) output in
-// `splits` slabs of `k_slab` reduction columns, A's row tiles fastest if
-// `a_fast`: one CTA per work item.  The caller dispatches on the operands'
-// modes.
+// K3's backward kernels (emt_matmul_bwd.cu).
 template <int AM, int BM, class Stage>
-cudaError_t launch(const Operand& A, const Operand& B, int R, int k_slab,
-                   int splits, bool a_fast, const typename Stage::Args& args,
-                   cudaStream_t s) {
-  auto kern = gemm_3xtf32<AM, BM, Stage>;
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_3xtf32(const Operand A, const Operand B, int R, int k_slab, int a_fast,
+            const typename Stage::Args args) {
+  gemm_body<AM, BM, Stage>(A, B, R, k_slab, a_fast, args);
+}
+
+// Launch `kern` (a __global__ on gemm_body) over the (A.rows x B.rows)
+// output in `splits` slabs of `k_slab` reduction columns, A's row tiles
+// fastest if `a_fast`: one CTA per work item.
+template <auto kern, class Args>
+cudaError_t launch_kernel(const Operand& A, const Operand& B, int R,
+                          int k_slab, int splits, bool a_fast,
+                          const Args& args, cudaStream_t s) {
   // the shared-memory opt-in, once per device (0-63)
   static unsigned long long opted = 0;
   int dev = 0;
@@ -515,6 +706,16 @@ cudaError_t launch(const Operand& A, const Operand& B, int R, int k_slab,
   kern<<<(unsigned)items, kThreads, kSmemBytes, s>>>(A, B, R, k_slab,
                                                      (int)a_fast, args);
   return cudaGetLastError();
+}
+
+// gemm_3xtf32<AM, BM, Stage> through launch_kernel.  The caller
+// dispatches on the operands' modes.
+template <int AM, int BM, class Stage>
+cudaError_t launch(const Operand& A, const Operand& B, int R, int k_slab,
+                   int splits, bool a_fast, const typename Stage::Args& args,
+                   cudaStream_t s) {
+  return launch_kernel<gemm_3xtf32<AM, BM, Stage>>(A, B, R, k_slab, splits,
+                                                    a_fast, args, s);
 }
 
 }  // namespace tc

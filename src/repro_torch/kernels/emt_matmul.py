@@ -5,8 +5,11 @@ Replaces ``repro/kernels/emt_matmul.py::emt_matmul_pallas``: computes
 ``y = x @ (w * (1 + a_l * sigma))`` with the RTN offsets hashed inside the
 weight tile from each element's global (row, col), the runtime step seed and
 the layer plane, so no noise tensor reaches device memory.  The source and
-its design note: ``csrc/emt_matmul.cu`` (a GEMV-style kernel for M <= 16,
-a tiled one above; both split K by :func:`plan`).
+its design note: ``csrc/emt_matmul.cu`` (a GEMV-style kernel for M <= 16)
+and ``csrc/emt_matmul_fwd.cu`` (M > 16, on the tensor cores: the 3xTF32
+template ``csrc/emt_tc.cuh`` with the noisy weight split into three TF32
+pieces, so x = I still returns it bit for bit); both split K by
+:func:`plan`.
 
 :func:`emt_matmul` is differentiable with the VJP XLA gives JAX's
 ``fluctuate`` + ``@``: ``dx = g @ (w f)^T``, ``dw = (x^T g) f`` and
@@ -20,17 +23,19 @@ with the noise in its epilogue).
 The weight operand may also be int8 conductance levels with a float32
 scale per column, ``(w_int8, w_scale)``, the ``store_int8`` serving form
 (``core/emt_linear.py``): the kernels read the levels and dequantize them
-in registers (``emt_matmul_i8`` in ``csrc/emt_matmul.cu``), and the plain
-version dequantizes first.  It is serve-only: a gradient through it
-raises, and K3-dx and K3-dw take float32 weights only.
+in registers (``emt_matmul_i8`` in ``csrc/emt_matmul.cu``,
+``emt_matmul_tc_i8`` in ``csrc/emt_matmul_fwd.cu``), and the plain version
+dequantizes first.  It is serve-only: a gradient through it raises, and
+K3-dx and K3-dw take float32 weights only.
 
 :func:`emt_matmul_experts` computes a stack of E experts' products in one
-launch (``emt_matmul_experts_f32``: the same kernels with an expert grid
-axis), expert e's weight hashed at rows e * K + k of the folded (E * K, N)
-stack, as JAX's MoE layer draws its noise (``repro/models/moe.py``
-``_emt_stacked``; the TPU kernel's row base ``k0_base``), and returns the
-noisy stack's sum |w~| and max |w~| beside the product, from per-CTA
-partials over disjoint weight regions summed in a fixed order (float64).
+launch (``emt_matmul_experts_f32``: the GEMV and, above 16 rows, the
+tiled kernel of ``csrc/emt_tiled.cuh``, with an expert grid axis), expert
+e's weight hashed at rows e * K + k of the folded (E * K, N) stack, as
+JAX's MoE layer draws its noise (``repro/models/moe.py`` ``_emt_stacked``;
+the TPU kernel's row base ``k0_base``), and returns the noisy stack's
+sum |w~| and max |w~| beside the product, from per-CTA partials over
+disjoint weight regions summed in a fixed order (float64).
 It is serve-only on the card: a gradient through it raises.
 
 On a CPU tensor each wrapper computes its plain version
@@ -38,7 +43,8 @@ On a CPU tensor each wrapper computes its plain version
 raises.  ``emt_matmul.launches`` (float32 weights),
 ``_forward_int8.launches`` (int8 weights), ``emt_matmul_experts.launches``,
 ``emt_matmul_dx.launches`` and ``emt_matmul_dw.launches`` count kernel
-launches.
+launches, one a call; ``_forward_tc.launches`` counts the calls of the
+first two that ran on the tensor-core kernel (M > 16).
 """
 from __future__ import annotations
 
@@ -61,9 +67,10 @@ MAX_STATES = 8
 # on 1-4, 8 and 16); its CTA covers 128 columns of an n-major weight (slabs
 # in multiples of 32 rows), or 32 columns of any other weight (multiples of
 # 128), and stages its slab's x rows, at most GEMV_X_BYTES, in shared
-# memory; the tiled kernel covers 64 x 64 outputs in 32-row K tiles.
-# K3's backward (csrc/emt_tc.cuh) covers 128 x 128 outputs in 32-deep
-# reduction tiles, one CTA per SM.
+# memory; the experts' tiled kernel covers 64 x 64 outputs in 32-row K
+# tiles.  K3's forward above GEMV_MAX_M rows and its backward (the
+# template csrc/emt_tc.cuh) cover 128 x 128 outputs in 32-deep reduction
+# tiles, one CTA per SM.
 GEMV_MAX_M = 16
 GEMV_X_BYTES = 24 * 1024
 GEMV_N = dict(bn=128, bk=32, min_slab=64)
@@ -138,27 +145,43 @@ def _fn(lib: str, entry: str, pointers: int = 6):
 
 
 def plan(M: int, N: int, K: int, sms: int, n_major: bool,
-         experts: int = 1) -> splitk.Plan:
-    """The kernel's cut of (M, K) @ (K, N): K split until the grid holds two
-    CTAs per SM (what ~128 registers per thread allow), in whole chunks or
-    tiles.  `n_major`: the weight's N stride is 1.
+         experts: int = 1, tiled: bool = False) -> splitk.Plan:
+    """The kernel's cut of (M, K) @ (K, N).  At M <= 16 (the GEMV): K split
+    until the grid holds two CTAs per SM (what ~128 registers per thread
+    allow), in whole chunks.  Above: the tensor-core kernel's 128 x 128
+    tiles, K split by splitk.plan_waves (one CTA per SM) in whole 32-row
+    k-tiles.  `n_major`: the weight's N stride is 1.
 
     An int8 weight takes the same cut: its loader's step (32 rows n-major,
-    128 k-major, the 32-row tile) is the float loader's slab granularity,
+    128 k-major, the 32-row k-tile) is the float loader's slab granularity,
     and the split counts CTAs, not bytes, because at int8 the hash's
     operations, not the weight's bytes, bound the product (a gemma3-1b
     decode step: 1.016 ms on the ALU pipe against 0.570 ms of bytes), so
     the split that fills every SM stays.
 
-    A stack of `experts` products (:func:`emt_matmul_experts`) is one grid
-    of every expert's tiles: the split counts them all."""
+    `experts`: a stack of that many products in one grid (the experts
+    entry, :func:`emt_matmul_experts`), whose split counts every
+    expert's tiles.  `tiled`: the tiled kernel's plan above 16 rows (64 x
+    64 tiles, two CTAs per SM), which the experts entry keeps."""
     if M <= GEMV_MAX_M:
         kw = GEMV_N if n_major else GEMV_K
         rows = M if M <= 4 else 8 if M <= 8 else 16      # the row template
         max_slab = GEMV_X_BYTES // (4 * rows) // kw["bk"] * kw["bk"]
         return splitk.plan(M, N, K, bm=M, sms=sms, max_slab=max_slab,
                            experts=experts, **kw)
-    return splitk.plan(M, N, K, sms=sms, experts=experts, **TILED)
+    if tiled:
+        return splitk.plan(M, N, K, sms=sms, experts=experts, **TILED)
+    if experts != 1:
+        raise ValueError("the tensor-core plan takes one product a grid")
+    return splitk.plan_waves(M, N, K, sms=sms, **TC)
+
+
+def tc_bits_words(M: int, N: int, K: int) -> int:
+    """The words of noise-state bits the tensor-core forward reads for a
+    two-state table (one bit a weight element, N rows of ceil(K / 32)):
+    where x has more than one 128-row tile, so that each element is hashed
+    once a call, not once a row tile; 0 (the producers hash) at one."""
+    return N * splitk.cdiv(K, 32) if M > TC["bm"] else 0
 
 
 def plan_dx(M: int, K: int, N: int, sms: int) -> splitk.Plan:
@@ -189,6 +212,33 @@ def _launch(index, M, N, K, sxm, sxk, swk, swn):
     dims = (ctypes.c_longlong * 9)(M, N, K, p.splits, p.k_slab, sxm, sxk,
                                    swk, swn)
     return p, dims, ctypes.addressof(dims)
+
+
+def _forward_tc(x, w, scale, y, part, sig, dims, *, device: DeviceModel,
+                seed: int, plane: int, index: int):
+    """K3 at M > 16 on the tensor cores (``csrc/emt_matmul_fwd.cu``): the
+    float32 weight w, or int8 levels w with their scale, into y (and the
+    slabs' `part`), after _check or _check_int8."""
+    npar = noise_params(device)
+    seed, plane = int(seed) & 0xFFFFFFFF, int(plane) & 0xFFFFFFFF
+    if scale is None:
+        M, K = x.shape
+        words = (tc_bits_words(M, w.shape[1], K)
+                 if npar.n_states == 2 else 0)
+        # a two-state table's noise-state bits (freed on return)
+        bits = (torch.empty(words, dtype=torch.int32, device=x.device)
+                if words else None)
+        err = _fn("emt_matmul_fwd", "emt_matmul_tc_f32", 7)(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), part,
+            None if bits is None else bits.data_ptr(), sig.data_ptr(), dims,
+            seed, plane, ctypes.addressof(npar), _build.stream(index))
+    else:
+        err = _fn("emt_matmul_fwd", "emt_matmul_tc_i8", 7)(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(), part,
+            sig.data_ptr(), dims, seed, plane, ctypes.addressof(npar),
+            _build.stream(index))
+    _build.check(err, "emt_matmul_tc")
+    _forward_tc.launches += 1
 
 
 @functools.lru_cache(maxsize=4096)
@@ -266,30 +316,39 @@ def _forward(x, w, sig, *, device: DeviceModel, seed: int = 0,
     N = w.shape[1]
     p, _, dims = _launch(index, M, N, K, *x.stride(), *w.stride())
     y, part = splitk.outputs(p, x)
-    err = _fn("emt_matmul", "emt_matmul_f32")(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), part, sig.data_ptr(), dims,
-        int(seed) & 0xFFFFFFFF, int(plane) & 0xFFFFFFFF,
-        ctypes.addressof(noise_params(device)), _build.stream(index))
-    _build.check(err, "emt_matmul")
+    if M > GEMV_MAX_M:
+        _forward_tc(x, w, None, y, part, sig, dims, device=device, seed=seed,
+                    plane=plane, index=index)
+    else:
+        err = _fn("emt_matmul", "emt_matmul_f32")(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), part, sig.data_ptr(),
+            dims, int(seed) & 0xFFFFFFFF, int(plane) & 0xFFFFFFFF,
+            ctypes.addressof(noise_params(device)), _build.stream(index))
+        _build.check(err, "emt_matmul")
     emt_matmul.launches += 1
     return y
 
 
 def _forward_int8(x, q, scale, sig, *, device: DeviceModel, seed: int,
                   plane: int):
-    """The int8 kernels (``emt_matmul_i8``): levels q (K, N) int8 of any
-    strides, scale N contiguous float32 values."""
+    """The int8 kernels (``emt_matmul_i8``, ``emt_matmul_tc_i8`` at
+    M > 16): levels q (K, N) int8 of any strides, scale N contiguous
+    float32 values."""
     index = _check_int8(x, q, scale, sig)
     M, K = x.shape
     N = q.shape[1]
     p, _, dims = _launch(index, M, N, K, *x.stride(), *q.stride())
     y, part = splitk.outputs(p, x)
-    err = _fn("emt_matmul", "emt_matmul_i8", 7)(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), part,
-        sig.data_ptr(), dims, int(seed) & 0xFFFFFFFF,
-        int(plane) & 0xFFFFFFFF, ctypes.addressof(noise_params(device)),
-        _build.stream(index))
-    _build.check(err, "emt_matmul_int8")
+    if M > GEMV_MAX_M:
+        _forward_tc(x, q, scale, y, part, sig, dims, device=device,
+                    seed=seed, plane=plane, index=index)
+    else:
+        err = _fn("emt_matmul", "emt_matmul_i8", 7)(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), part,
+            sig.data_ptr(), dims, int(seed) & 0xFFFFFFFF,
+            int(plane) & 0xFFFFFFFF, ctypes.addressof(noise_params(device)),
+            _build.stream(index))
+        _build.check(err, "emt_matmul_int8")
     _forward_int8.launches += 1
     return y
 
@@ -298,7 +357,7 @@ def _forward_int8(x, q, scale, sig, *, device: DeviceModel, seed: int,
 def _launch_experts(index, E, M, N, K, sxe, sxm, sxk, swe, swk):
     """(plan, the experts entry's int64 dims array, its address) for one
     call shape; dims[12] is the number of per-CTA statistics slots."""
-    p = plan(M, N, K, splitk.sm_count(index), True, experts=E)
+    p = plan(M, N, K, splitk.sm_count(index), True, experts=E, tiled=True)
     dims = (ctypes.c_longlong * 13)(M, N, K, p.splits, p.k_slab, sxm, sxk,
                                     swk, 1, E, sxe, swe, p.ctas)
     return p, dims, ctypes.addressof(dims)
@@ -531,6 +590,7 @@ def emt_matmul(x: torch.Tensor, w, sig: torch.Tensor, *,
 
 emt_matmul.launches = 0
 _forward_int8.launches = 0
+_forward_tc.launches = 0
 emt_matmul_experts.launches = 0
 emt_matmul_dx.launches = 0
 emt_matmul_dw.launches = 0

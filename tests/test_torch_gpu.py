@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_launches import launched
 from repro_torch.core import noise
 from repro_torch.core.device import DeviceModel, four_state_device
 from repro_torch.kernels import emt_bitserial as k5
@@ -43,17 +44,43 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
-# (M, K, N, transposed): every GEMV row template (1-4, 8, 16) and the tiled
-# kernel (M > 16); K a multiple of neither the K chunk nor the split; both
-# weight layouts; ragged N (row strides that allow 16-, 8- and 4-byte loads);
-# most cases split K (the plan's split count is printed on failure); a
-# MoE router's 64 columns (half a GEMV CTA's 128) at decode and chunk rows.
+# (M, K, N, transposed): every GEMV row template (1-4, 8, 16) and the
+# tensor-core kernel (M > 16: the verify step's 20, one row tile at 64 and
+# 128, two at 129, a training step's 1,024, the CNN's K = 27 at 4,096
+# rows); K a multiple of neither the K chunk, the 32-row k-tile nor the
+# split; both weight layouts; ragged N (row strides that allow 16-, 8- and
+# 4-byte loads, and 1, 2 or 129 columns past a 128-column tile); most
+# cases split K (the plan's split count is printed on failure); a MoE
+# router's 64 columns (half a GEMV CTA's 128) at decode and chunk rows.
 K3_CASES = [(4, 96, 200, False), (64, 256, 130, False), (3, 64, 300, True),
             (1, 1000, 260, False), (2, 555, 1001, False),
             (4, 1000, 262, True), (6, 4100, 64, True),
             (16, 777, 514, False), (16, 300, 200, True),
             (17, 1000, 130, False), (64, 1000, 300, True),
-            (4, 2048, 64, False), (64, 2048, 64, False)]
+            (4, 2048, 64, False), (64, 2048, 64, False),
+            (20, 1000, 130, False), (20, 300, 200, True),
+            (128, 512, 256, False), (128, 256, 385, True),
+            (129, 300, 257, False), (129, 512, 130, True),
+            (1024, 1152, 1024, False), (1024, 1152, 1000, True),
+            (4096, 27, 64, False), (200, 77, 129, False),
+            (64, 333, 257, False), (129, 333, 300, True)]
+# cases whose weight is built so that its noisy values lie at or just below
+# powers of two (rna to TF32 would round them up: the three-piece split
+# must still return them bit for bit on x = I)
+K3_BELOW_POW2 = {(64, 333, 257, False), (129, 333, 300, True)}
+
+
+def _below_pow2(cuda, K, N, rho, dev, g):
+    """A (K, N) weight whose noisy value fl(w * f) is within an ulp of
+    s (2 - j 2^-23) 2^e (j in 1..4, e in -8..8, s a random sign): w = that
+    over the element's factor f (fluctuate of ones)."""
+    f = noise.fluctuate(torch.ones((K, N), device=cuda), rho, dev,
+                        noise.NoiseConfig(), seed=99, plane=1234)
+    j = torch.randint(1, 5, (K, N), generator=g, device=cuda).double()
+    e = torch.randint(-8, 9, (K, N), generator=g, device=cuda).double()
+    sign = torch.randint(0, 2, (K, N), generator=g, device=cuda) * 2.0 - 1
+    t = sign * (2 - j * 2.0 ** -23) * torch.pow(2.0, e)
+    return (t / f.double()).float()
 
 
 @pytest.mark.parametrize("M,K,N,transposed", K3_CASES)
@@ -62,20 +89,31 @@ K3_CASES = [(4, 96, 200, False), (64, 256, 130, False), (3, 64, 300, True),
 def test_k3_matches_plain_and_noise_bit_exact(cuda, M, K, N, transposed, dev):
     """Within 1e-5 of the plain version; two calls bit-identical (the split
     sum is ordered); rows of I give the noisy weight's rows bit for bit on
-    the path M selects, and I itself (the tiled path) the whole of it."""
+    the path M selects, and I itself (the tensor-core path) the whole of
+    it; M > 16 launches the tensor-core kernel (emt_matmul_tc), M <= 16
+    the GEMV."""
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = torch.randn((M, K), generator=g, device=cuda)
-    w = torch.randn((N, K) if transposed else (K, N), generator=g,
-                    device=cuda)
-    w = w.T if transposed else w
     rho = torch.tensor(3.5, device=cuda)
+    if (M, K, N, transposed) in K3_BELOW_POW2:
+        w = _below_pow2(cuda, K, N, rho, dev, g)
+        w = w.T.contiguous().T if transposed else w
+    else:
+        w = torch.randn((N, K) if transposed else (K, N), generator=g,
+                        device=cuda)
+        w = w.T if transposed else w
     sig = dev.sigma_rel(rho)
     p = k3.plan(M, N, K, torch.cuda.get_device_properties(cuda)
                 .multi_processor_count, not transposed)
     kw = dict(device=dev, seed=99, plane=1234)
-    before = k3.emt_matmul.launches
+    before = (k3.emt_matmul.launches, k3._forward_tc.launches)
     y = k3.emt_matmul(x, w, sig, **kw)
-    assert k3.emt_matmul.launches == before + 1
+    assert k3.emt_matmul.launches == before[0] + 1
+    assert k3._forward_tc.launches == before[1] + (M > k3.GEMV_MAX_M)
+    want = "emt_matmul_tc" if M > k3.GEMV_MAX_M else "emt_matmul_gemv"
+    names = launched(lambda: k3.emt_matmul(x, w, sig, **kw), want)
+    assert any(want in n for n in names), names
+    assert not any("emt_tiled" in n for n in names), names
     assert _rel(y, k3.plain(x, w, sig, **kw)) <= 1e-5, p
     assert torch.equal(y, k3.emt_matmul(x, w, sig, **kw)), p
     ref = noise.fluctuate(w, rho, dev, noise.NoiseConfig(), seed=99,
@@ -105,7 +143,9 @@ def test_k3_experts_matches_plain(cuda, E, M, K, N, strided, dev):
     """Within 1e-5 of the plain version (fluctuate of the folded (E * K, N)
     stack, then bmm); the statistics max exact and sum within rtol 1e-6;
     one launch a call; two calls bit-identical; rows of I give each
-    expert's noisy rows bit for bit (expert e hashed at rows e * K + k)."""
+    expert's noisy rows bit for bit (expert e hashed at rows e * K + k);
+    above 16 rows the tiled kernel (emt_tiled) runs, not the tensor-core
+    one."""
     g = torch.Generator(device=cuda).manual_seed(E + M + K + N)
     if strided:
         x = torch.randn((E, M, K + 3), generator=g, device=cuda)[..., :K]
@@ -114,7 +154,7 @@ def test_k3_experts_matches_plain(cuda, E, M, K, N, strided, dev):
     w = torch.randn((E, K, N), generator=g, device=cuda)
     sig = dev.sigma_rel(torch.tensor(3.5, device=cuda))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    p = k3.plan(M, N, K, sms, True, experts=E)
+    p = k3.plan(M, N, K, sms, True, experts=E, tiled=True)
     kw = dict(device=dev, seed=99, plane=1234)
     before = k3.emt_matmul_experts.launches
     y, s, m = k3.emt_matmul_experts(x, w, sig, **kw)
@@ -126,6 +166,10 @@ def test_k3_experts_matches_plain(cuda, E, M, K, N, strided, dev):
                                                            float(sp), p)
     y2, s2, m2 = k3.emt_matmul_experts(x, w, sig, **kw)
     assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(m, m2)
+    want = "emt_tiled" if M > k3.GEMV_MAX_M else "emt_matmul_gemv"
+    names = launched(lambda: k3.emt_matmul_experts(x, w, sig, **kw), want)
+    assert any(want in n for n in names), names
+    assert not any("emt_matmul_tc" in n for n in names), names
     rows = torch.randint(0, K, (E, M), generator=g, device=cuda)
     eye = torch.eye(K, device=cuda)[rows]
     wn = noise.fluctuate(w.reshape(E * K, N), torch.tensor(3.5, device=cuda),
@@ -140,7 +184,10 @@ def test_k3_experts_matches_plain(cuda, E, M, K, N, strided, dev):
                                    (17, 1000, 130)])
 def test_k3_experts_row_base_zero_is_k3(cuda, M, K, N):
     """A stack of one expert (row base 0) is plain K3 on its weight, bit
-    for bit, on the GEMV and the tiled kernel alike; a gradient through
+    for bit, on the GEMV (M <= 16); above 16 rows, where the experts'
+    tiled kernel (FP32 FMAs) and K3's tensor-core kernel (3xTF32 with a
+    three-piece weight) sum in different ways, within 1e-5, and bit for
+    bit on rows of I (both the noisy weight itself); a gradient through
     the experts entry on the card raises (serve-only)."""
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = torch.randn((1, M, K), generator=g, device=cuda)
@@ -149,7 +196,14 @@ def test_k3_experts_row_base_zero_is_k3(cuda, M, K, N):
     sig = dev.sigma_rel(torch.tensor(3.5, device=cuda))
     kw = dict(device=dev, seed=7, plane=77)
     y, _, _ = k3.emt_matmul_experts(x, w, sig, **kw)
-    assert torch.equal(y[0], k3.emt_matmul(x[0], w[0], sig, **kw))
+    y1 = k3.emt_matmul(x[0], w[0], sig, **kw)
+    if M <= k3.GEMV_MAX_M:
+        assert torch.equal(y[0], y1)
+    else:
+        assert _rel(y[0], y1) <= 1e-5
+        eye = torch.eye(K, device=cuda)[:M]
+        ye = k3.emt_matmul_experts(eye[None], w, sig, **kw)[0]
+        assert torch.equal(ye[0], k3.emt_matmul(eye, w[0], sig, **kw))
     xg = x.clone().requires_grad_(True)
     y, _, _ = k3.emt_matmul_experts(xg, w, sig, **kw)
     with pytest.raises(NotImplementedError, match="MoE training"):

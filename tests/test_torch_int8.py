@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_launches import launched
 from repro.ckpt.checkpoint import _tree_to_arrays
 from repro.core import emt_linear as jel
 from repro.models import lm as jlm
@@ -288,15 +289,20 @@ def test_int8_operand_is_serve_only():
         k3.emt_matmul(xr, (q, scale), sig, **kw).sum().backward()
 
 
-# (M, K, N, transposed): every GEMV row template (1-4, 8, 16), the tiled
-# kernel (M > 16: the verify chunk's M = 20 among them), both layouts,
-# ragged N and K (the byte loads), most cases split along K.
+# (M, K, N, transposed): every GEMV row template (1-4, 8, 16), the
+# tensor-core kernel (M > 16: the verify chunk's M = 20 and the chunk
+# step's 64 among them, two row tiles at 129), both layouts (4-level loads
+# along N or K, byte loads where the rows are not 4-byte aligned), ragged
+# N and K, most cases split along K.
 K3_INT8_CASES = [(4, 96, 200, False), (4, 1152, 1024, False),
                  (20, 1152, 256, False), (64, 256, 130, False),
                  (3, 64, 300, True), (1, 1000, 262, False),
                  (2, 555, 1001, False), (6, 4100, 64, True),
                  (16, 777, 514, False), (16, 300, 208, True),
-                 (17, 1000, 130, False), (64, 1000, 320, True)]
+                 (17, 1000, 130, False), (64, 1000, 320, True),
+                 (20, 1000, 130, True), (20, 333, 257, False),
+                 (64, 1152, 1024, False), (64, 333, 257, True),
+                 (129, 300, 130, False)]
 
 
 @pytest.mark.gpu
@@ -305,8 +311,10 @@ K3_INT8_CASES = [(4, 96, 200, False), (4, 1152, 1024, False),
                          ids=["two", "four"])
 def test_k3_int8_matches_plain_and_noise_bit_exact(M, K, N, transposed, dev):
     """The int8 kernel within 1e-5 of its plain version, counted on
-    ``_forward_int8.launches``; two calls bit-identical; I gives the
-    noisy dequantized weight bit for bit (fluctuate of fl(q * scale))."""
+    ``_forward_int8.launches`` (and above 16 rows on
+    ``_forward_tc.launches``: the tensor-core kernel, emt_matmul_tc); two
+    calls bit-identical; I gives the noisy dequantized weight bit for bit
+    (fluctuate of fl(q * scale))."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the H100)")
     from repro_torch.core import noise
@@ -320,10 +328,15 @@ def test_k3_int8_matches_plain_and_noise_bit_exact(M, K, N, transposed, dev):
     rho = torch.tensor(3.5, device=cuda)
     sig = dev.sigma_rel(rho)
     kw = dict(device=dev, seed=99, plane=1234)
-    before = (k3._forward_int8.launches, k3.emt_matmul.launches)
+    before = (k3._forward_int8.launches, k3.emt_matmul.launches,
+              k3._forward_tc.launches)
     y = k3.emt_matmul(x, (q, scale), sig, **kw)
-    assert (k3._forward_int8.launches, k3.emt_matmul.launches) == (
-        before[0] + 1, before[1])
+    assert (k3._forward_int8.launches, k3.emt_matmul.launches,
+            k3._forward_tc.launches) == (before[0] + 1, before[1],
+                                         before[2] + (M > k3.GEMV_MAX_M))
+    want = "emt_matmul_tc" if M > k3.GEMV_MAX_M else "emt_matmul_gemv"
+    names = launched(lambda: k3.emt_matmul(x, (q, scale), sig, **kw), want)
+    assert any(want in n for n in names), names
     p = k3.plan(M, N, K, torch.cuda.get_device_properties(cuda)
                 .multi_processor_count, not transposed)
     assert _rel(y.cpu(), k3.plain(x, (q, scale), sig, **kw).cpu()) <= 1e-5, p

@@ -2,11 +2,14 @@
 the noisy matmul kernels (K3 ``emt_matmul``, K5 ``emt_bitserial``) and the
 chunked prefill kernel (K2 ``paged_prefill``) make from it, the decode
 attention kernels' cluster split (K1/K4 ``paged_attention``) and the
-two-state integer threshold of the noisy weight, on the CPU, at
-every main-path shape: gemma3-1b at M = 4 (decode) and 64 (a chunk step),
-seamless-m4t-medium at M = 4, 64 and 128 (decode and the legacy prefill
-buckets), its ragged 256,206-wide lm_head included.  The shapes come from
+two-state integer threshold of the noisy weight, and the three-piece TF32
+split of K3's tensor-core forward, on the CPU, at every main-path shape:
+gemma3-1b at M = 4 (decode), 20 (a verify step), 64 (a chunk step) and
+1,024 (a training step), seamless-m4t-medium at M = 4, 20, 64, 128 (decode
+and the legacy prefill buckets) and 1,024, its ragged 256,206-wide lm_head
+included, and vgg16_cifar's convolutions and head.  The shapes come from
 the models' own parameter specs; the SM count is the H100's 132."""
+import numpy as np
 import pytest
 import torch
 
@@ -43,8 +46,8 @@ def _projections(arch):
 
 GEMMA = _projections("gemma3-1b")
 SEAMLESS = _projections("seamless-m4t-medium")
-CASES = ([("gemma3-1b", M, s) for M in (4, 64) for s in GEMMA]
-         + [("seamless-m4t-medium", M, s) for M in (4, 64, 128)
+CASES = ([("gemma3-1b", M, s) for M in (4, 20, 64, 1024) for s in GEMMA]
+         + [("seamless-m4t-medium", M, s) for M in (4, 20, 64, 128, 1024)
             for s in SEAMLESS])
 
 
@@ -89,18 +92,45 @@ def _check_cover(p: splitk.Plan):
     assert all(b > a for a, b in slabs)
 
 
+def _check_waves(p: splitk.Plan):
+    """A one-CTA-per-SM plan (splitk.plan_waves, 128 x 128 tiles): the
+    grid fills at least one wave of the SMs, or holds as many CTAs as fit
+    in one wave whole slabs allow (the next finer cut would pass it, or
+    there is none); the slab count is the argmin of the cost model."""
+    assert (p.bm, p.bn, p.bk) == (128, 128, 32)
+    assert p.tiles == splitk.cdiv(p.M, 128) * splitk.cdiv(p.N, 128)
+    finer = _next_cut(p)
+    assert p.ctas >= SMS or finer is None or p.tiles * finer > SMS
+    kt = splitk.cdiv(p.K, 32)
+
+    def cost(s):
+        per = splitk.cdiv(kt, s)
+        return (splitk.cdiv(p.tiles * s, SMS) * (per + splitk.WAVE_FILL)
+                + (splitk.WAVE_IO * s * p.tiles / SMS if s > 1 else 0.0))
+    assert all(cost(p.splits) <= cost(s) for s in range(1, kt + 1))
+
+
 @pytest.mark.parametrize("arch,M,shape", CASES,
                          ids=[f"{a}-M{M}-{K}x{N}{'' if n else 'T'}"
                               for a, M, (K, N, n) in CASES])
 def test_k3_plan(arch, M, shape):
+    """At M <= 16 the GEMV's cut (about two CTAs per SM, whole chunks, the
+    staged x rows within budget); above, the tensor-core forward's: whole
+    32-row k-steps, the cost model's argmin, a wave of the SMs where whole
+    slabs allow.  Either way the slabs cover K and the workspace has one
+    (M, N) slab per split."""
     K, N, n_major = shape
     p = k3.plan(M, N, K, SMS, n_major)
+    assert p == k3.plan(M, N, K, SMS, n_major)
     _check_cover(p)
-    gemv = M <= k3.GEMV_MAX_M
-    kw = (k3.GEMV_N if n_major else k3.GEMV_K) if gemv else k3.TILED
-    assert (p.bn, p.bk) == (kw["bn"], kw["bk"])
-    assert p.bm == (M if gemv else k3.TILED["bm"])
     _check_workspace(p)
+    if M > k3.GEMV_MAX_M:
+        assert (p.bm, p.bn, p.bk) == (k3.TC["bm"], k3.TC["bn"], k3.TC["bk"])
+        _check_waves(p)
+        return
+    kw = k3.GEMV_N if n_major else k3.GEMV_K
+    assert (p.bn, p.bk) == (kw["bn"], kw["bk"])
+    assert p.bm == M
     # the grid: about two CTAs per SM, or as many slabs as K allows
     target = splitk.CTAS_PER_SM * SMS
     limit = max(1, K // kw["min_slab"])
@@ -113,23 +143,36 @@ def test_k3_plan(arch, M, shape):
         # would need more slabs than that
         assert p.k_slab == p.bk or splitk.cdiv(K, p.k_slab - p.bk) > want
         assert p.ctas >= SMS or p.splits == limit
-    if gemv:
-        # the x rows of one slab fit the kernel's shared-memory budget
-        rows = M if M <= 4 else 8 if M <= 8 else 16
-        assert 4 * rows * p.k_slab <= k3.GEMV_X_BYTES
+    # the x rows of one slab fit the kernel's shared-memory budget
+    rows = M if M <= 4 else 8 if M <= 8 else 16
+    assert 4 * rows * p.k_slab <= k3.GEMV_X_BYTES
 
 
 def test_k3_main_path_grids():
     """The decode step's narrow projections (4-18 output stripes of 64
     columns each) fill the card once K is split; the unembed needs no
-    split."""
+    split.  At a chunk step the tensor-core forward cuts the down
+    projection's K (9 output tiles) into 14 slabs of 512 rows (126 CTAs:
+    15 would pass one wave), and at a training step into 7 (504 CTAs);
+    the unembed's 2,048 and 16,384 tiles need no split.  The experts entry
+    keeps the tiled kernel's 64 x 64 tiles above 16 rows."""
     for K, N in ((1152, 1024), (1024, 1152), (1152, 6912), (6912, 1152)):
         assert k3.plan(4, N, K, SMS, True).ctas >= SMS
     unembed = k3.plan(4, 262144, 1152, SMS, False)
     assert unembed.splits == 1 and unembed.ctas == 8192
     lm_head = k3.plan(4, 256206, 1024, SMS, True)
     assert lm_head.splits == 1 and lm_head.tiles == 2002
-    assert k3.plan(64, 1152, 6912, SMS, True).ctas >= SMS
+    down = k3.plan(64, 1152, 6912, SMS, True)
+    assert (down.tiles, down.splits, down.k_slab) == (9, 14, 512)
+    assert k3.plan(1024, 1152, 6912, SMS, True).ctas == 504
+    assert k3.plan(64, 262144, 1152, SMS, False).ctas == 2048
+    assert k3.plan(1024, 262144, 1152, SMS, False).ctas == 16384
+    chunk = k3.plan(20, 2048, 1408, SMS, True, experts=64, tiled=True)
+    assert (chunk.bm, chunk.bn, chunk.E) == (64, 64, 64)
+    assert chunk == splitk.plan(20, 2048, 1408, sms=SMS, experts=64,
+                                **k3.TILED)
+    with pytest.raises(ValueError):     # the tensor-core plan: one product
+        k3.plan(20, 2048, 1408, SMS, True, experts=64)
 
 
 @pytest.mark.parametrize("M", [4, 64])
@@ -327,6 +370,34 @@ CNN = _cnn_shapes()
 K3_BWD_SHAPES = ([(1024, K, N) for K, N, _ in GEMMA] + CNN)
 
 
+# K3's forward on the tensor cores at every main-path weight of the three
+# models, at a verify step's M = 20, a chunk step's 64, a training step's
+# 1,024 and the CNN's first stage's 32,768 rows (each projection's layout:
+# the tied unembed k-major)
+K3_FWD_CASES = [(M, K, N, n) for M in (20, 64, 1024, 32768)
+                for K, N, n in GEMMA + SEAMLESS + [(K, N, True)
+                                                   for _, K, N in CNN]]
+
+
+@pytest.mark.parametrize("M,K,N,n_major", K3_FWD_CASES,
+                         ids=[f"M{M}-{K}x{N}{'' if n else 'T'}"
+                              for M, K, N, n in K3_FWD_CASES])
+def test_k3_forward_plan(M, K, N, n_major):
+    """The tensor-core forward's cut of (M, K) @ (K, N): plan_waves over
+    (M, N) outputs and K, slabs covering K in whole k-steps, the wave and
+    argmin conditions, one workspace slab per split; the two-state noise
+    bits only where x has more than one 128-row tile (N rows of
+    ceil(K / 32) words)."""
+    p = k3.plan(M, N, K, SMS, n_major)
+    assert p == splitk.plan_waves(M, N, K, sms=SMS, **k3.TC)
+    assert (p.M, p.N, p.K) == (M, N, K)
+    _check_cover(p)
+    _check_waves(p)
+    _check_workspace(p)
+    words = k3.tc_bits_words(M, N, K)
+    assert words == (N * splitk.cdiv(K, 32) if M > 128 else 0)
+
+
 def test_k3_backward_main_path_shapes():
     assert (32768, 27, 64) in CNN and (32768, 576, 64) in CNN
     assert (2048, 2304, 256) in CNN and len(CNN) == 7
@@ -349,27 +420,17 @@ def test_k3_backward_plan(which, M, K, N):
     slabs of whole 32-deep k-steps covering the reduction (dx: N, dw: M);
     the grid fills at least one wave of 132 SMs, or holds as many CTAs
     as fit in one wave whole slabs allow (the next finer cut would pass
-    it, or there is none); the plan is the argmin of plan_waves' cost model; the buffers
-    have the sizes the C entries read; dw's partials of dsigma are four
-    per output tile (its 32-row quarters), whatever the SM count."""
+    it, or there is none); the plan is the argmin of plan_waves' cost
+    model; the buffers have the sizes the C entries read; dw's partials of
+    dsigma are four per output tile (its 32-row quarters), whatever the SM
+    count."""
     plan = k3.plan_dx if which == "dx" else k3.plan_dw
     p = plan(M, K, N, SMS)
     assert p == plan(M, K, N, SMS)
     _check_cover(p)
-    assert (p.bm, p.bn, p.bk) == (128, 128, 32)
     out, red = ((M, K), N) if which == "dx" else ((K, N), M)
     assert (p.M, p.N, p.K) == (*out, red)
-    assert p.tiles == splitk.cdiv(out[0], 128) * splitk.cdiv(out[1], 128)
-    finer = _next_cut(p)
-    assert p.ctas >= SMS or finer is None or p.tiles * finer > SMS
-
-    kt = splitk.cdiv(red, 32)
-
-    def cost(s):
-        per = splitk.cdiv(kt, s)
-        return (splitk.cdiv(p.tiles * s, SMS) * (per + splitk.WAVE_FILL)
-                + (splitk.WAVE_IO * s * p.tiles / SMS if s > 1 else 0.0))
-    assert all(cost(p.splits) <= cost(s) for s in range(1, kt + 1))
+    _check_waves(p)
     if which == "dx":
         _check_workspace(p)
         return
@@ -391,3 +452,91 @@ def test_k3_backward_main_path_grids():
     assert (first.tiles, first.splits, first.k_slab) == (1, 128, 256)
     assert k3.plan_dw(1024, 1152, 262144, SMS).splits == 1
     assert k3.plan_dx(1024, 6912, 1152, SMS).splits == 1
+
+
+def _split3(w: np.ndarray):
+    """K3's tensor-core forward's split of its weight operand
+    (csrc/emt_tc.cuh split<3>), mirrored in numpy's float32: hi = w with
+    the low 13 significand bits cleared, mid the same of r = w - hi, lo =
+    r - mid (float32 subtractions, rounded to nearest)."""
+    mask = np.uint32(0xFFFFE000)
+    hi = (w.view(np.uint32) & mask).view(np.float32)
+    r = w - hi
+    mid = (r.view(np.uint32) & mask).view(np.float32)
+    return hi, mid, r - mid
+
+
+def _significant_bits(v: np.ndarray) -> np.ndarray:
+    """The significant bits of each float32 value (0 for zeros): the span
+    of its significand from the leading to the last set bit."""
+    mant, _ = np.frexp(np.abs(v.astype(np.float64)))
+    ints = np.round(mant * 2.0 ** 24).astype(np.int64)
+    bits = np.zeros(v.shape, dtype=np.int64)
+    nz = ints != 0
+    low = ints[nz] & -ints[nz]
+    bits[nz] = 24 - np.round(np.log2(low)).astype(np.int64)
+    return bits
+
+
+def test_tf32_three_piece_split_is_exact():
+    """On ~10^5 random float32 values over the whole range and the edge
+    cases (+-0, subnormals, powers of two, FLT_MAX, values rna would round
+    up to the next power of two): hi + mid + lo == w bit for bit in any
+    order (-0 gives +0); every partial sum is exact (equal to its float64
+    sum) and no larger in magnitude than w; the pieces have w's sign.
+    Where all three pieces are normal (|w| >= 2^-103), hi and mid have at
+    most 11 significant bits and lo at most 2, so each is a TF32 value
+    (its low 13 significand bits clear) and x_hi * (hi + mid + lo) is
+    exact in TF32 products; a subnormal keeps its low 13 bits whole in lo
+    (TF32 holds nothing below 2^-136), far below any weight the kernels
+    see."""
+    rng = np.random.default_rng(0)
+    rand = rng.integers(0, 2 ** 32, 100_000, dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    f32 = np.finfo(np.float32)
+    powers = np.ldexp(np.float32(1), np.arange(-149, 128)).astype(np.float32)
+    below = np.nextafter(powers[1:], np.float32(0))      # rna rounds up
+    edges = np.array([0.0, -0.0, f32.max, -f32.max, f32.tiny, -f32.tiny,
+                      f32.smallest_subnormal, 1.0 - 2.0 ** -24,
+                      2.0 - 2.0 ** -23, 1.0 + 2.0 ** -23 + 2.0 ** -22],
+                     dtype=np.float32)
+    subnormal = np.arange(1, 2 ** 13, 37, dtype=np.uint32).view(np.float32)
+    w = np.concatenate([rand, powers, -powers, below, -below, edges,
+                        subnormal, -subnormal])
+    w = w[np.isfinite(w)]
+    hi, mid, lo = _split3(w)
+    bits = w.view(np.uint32)
+    pieces = (hi, mid, lo)
+    import itertools
+    # bit for bit, but for w = -0, whose pieces -0, +0, +0 add to +0 (the
+    # kernels' sums start from +0 anyway: their -0 weights give +0, as
+    # the FP32 kernel's did)
+    nz = w != 0
+    for a, b, c in itertools.permutations(pieces):
+        total = (a + b) + c
+        assert np.array_equal(total[nz].view(np.uint32), bits[nz])
+        assert (total[~nz] == 0).all()
+    exact = w.astype(np.float64)
+    for i, j in itertools.combinations(range(3), 2):
+        part = pieces[i] + pieces[j]
+        assert np.array_equal(part.astype(np.float64),
+                              pieces[i].astype(np.float64)
+                              + pieces[j].astype(np.float64))
+        assert (np.abs(part) <= np.abs(w)).all()
+    assert np.array_equal(sum(p.astype(np.float64) for p in pieces), exact)
+    for p in pieces:
+        assert (np.abs(p) <= np.abs(w)).all()
+        assert ((p == 0) | (np.signbit(p) == np.signbit(w))).all()
+    normal = np.abs(w) >= 2.0 ** -103
+    assert normal.sum() > 90_000
+    assert (_significant_bits(hi[normal]) <= 11).all()
+    assert (_significant_bits(mid[normal]) <= 11).all()
+    assert (_significant_bits(lo[normal]) <= 2).all()
+    for p in pieces:
+        nz = normal & (p != 0)
+        low = p[nz].view(np.uint32) & np.uint32(0x1FFF)
+        # the normal pieces' significands fit TF32's 10 stored bits
+        assert (low == 0).all()
+    tiny = np.abs(w) < f32.tiny
+    assert np.array_equal(lo[tiny].view(np.uint32) & np.uint32(0x7FFFFFFF),
+                          bits[tiny] & np.uint32(0x1FFF))

@@ -316,7 +316,7 @@ def test_expert_plan_counts_every_experts_tiles():
     assert one.splits == 22 and one.E == 1
     assert (stack.splits, stack.k_slab, stack.E) == (2, 1024, 64)
     assert stack.ctas == 11 * 64 * 2
-    chunk = k3.plan(20, 2048, 1408, 132, True, experts=64)
+    chunk = k3.plan(20, 2048, 1408, 132, True, experts=64, tiled=True)
     assert chunk.splits == 1 and chunk.ctas == 32 * 64
 
 
