@@ -165,7 +165,11 @@ the training run's three steps; ``serve_launches`` its count in the
 analog run's chunk steps), K3 experts
 (``emt_matmul_experts``) = the 12 expert calls of a moonshot decode step
 (M = 4; its launches: the moe run, and ``device_ms``/``chunk_*`` at the
-chunk step's M = 8); K3's and K5's records also carry ``chunk_ms``,
+chunk step's M = 8); K3's, K3 int8's, K3 experts' and K5's records carry
+``library_device_ms`` (the yardstick's device time, every kernel its call
+launched; K5's and the experts' also ``chunk_library_device_ms``), and K3
+int8's ``unembed_device_ms`` (the float32 unembed's share of its step);
+K3's and K5's records also carry ``chunk_ms``,
 ``chunk_bound_ms`` and ``chunk_library_ms``, the same matmuls and their
 yardstick at M = 64, and K1's, K4's and K5's
 ``device_ms`` (K5's also ``chunk_device_ms``), the kernels' device time in
@@ -363,7 +367,7 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, key, tries: int = 3, need: str = ""):
+def device_ms(fn, key, tries: int = 3, need: str = "", agree: bool = False):
     """Device time (ms) of the kernels whose name contains `key` (a string
     or a tuple of them) in one run of fn, from torch.profiler: the kernels
     alone, without the host's dispatch gaps that a CUDA-event time of short
@@ -373,7 +377,9 @@ def device_ms(fn, key, tries: int = 3, need: str = ""):
     `need` where given (the profiler on the card has dropped a run's
     device events, once only the large product's of three kernels), is
     taken again, up to `tries` times; None (not measured, null in the
-    record) if none does."""
+    record) if none does.  `agree`: the profiler has also dropped some of
+    a run's events and kept the rest, so a trace counts only once another
+    holds as many device events (up to 2 * tries traces)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -381,7 +387,8 @@ def device_ms(fn, key, tries: int = 3, need: str = ""):
     groups = {n: (k,) if isinstance(k, str) else k for n, k in groups.items()}
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    seen = set()
+    for _ in range(2 * tries if agree else tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
@@ -395,8 +402,11 @@ def device_ms(fn, key, tries: int = 3, need: str = ""):
               for n, keys in groups.items()}
         needed = sum(e.self_device_time_total for e in events
                      if need in e.key)
-        if min(ms.values()) > 0 and needed > 0:
+        count = sum(e.count for e in events)
+        if min(ms.values()) > 0 and needed > 0 and (
+                not agree or count in seen):
             return ms if isinstance(key, dict) else ms[None]
+        seen.add(count)
     print(f"  (torch.profiler recorded no device time for "
           f"{list(groups.values())} in {tries} traces: not measured)")
     return dict.fromkeys(key) if isinstance(key, dict) else None
@@ -625,8 +635,11 @@ class Smoke:
         lib_ms = cuda_time(run_library, 5)
         chunk_ms = cuda_time(lambda: run(k.emt_matmul, xc), 3)
         chunk_lib_ms = cuda_time(lambda: run_library(xc), 3)
-        dev_ms = device_ms(lambda: run(k.emt_matmul, xs), keys)
-        chunk_dev_ms = device_ms(lambda: run(k.emt_matmul, xc), keys)
+        dev_ms = device_ms(lambda: run(k.emt_matmul, xs), keys, agree=True)
+        chunk_dev_ms = device_ms(lambda: run(k.emt_matmul, xc), keys,
+                                 agree=True)
+        # the yardstick's device time: every kernel torch.matmul launches
+        lib_dev_ms = device_ms(run_library, "", agree=True)
         del noisy
         plain_ms = cuda_time(lambda: run(k.plain, xs), 2, warmup=1)
         (b_ms, by, bterm), _, nbytes, flops = step_bound(BATCH)
@@ -636,13 +649,15 @@ class Smoke:
             source="src/repro_torch/kernels/csrc/emt_matmul.cu",
             replaces="src/repro/kernels/emt_matmul.py:57",
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=by, library_ms=lib_ms, chunk_ms=chunk_ms,
+            bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
+            library_device_ms=lib_dev_ms, chunk_ms=chunk_ms,
             chunk_bound_ms=cb_ms, chunk_fp32_bound_ms=cb32_ms,
             chunk_library_ms=chunk_lib_ms)
         print(f"  K3 per decode step ({len(prepared)} calls, M={BATCH}): "
               f"kernel {ms:.3f} ms (device time {fmt(dev_ms)}), plain "
               f"{plain_ms:.3f} ms, torch.matmul on pre-noised weights "
-              f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({bterm}; "
+              f"{lib_ms:.3f} ms (device time {fmt(lib_dev_ms)}), bound "
+              f"{b_ms:.3f} ms ({bterm}; "
               f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.3f} GFLOP), roofline "
               f"share {100 * b_ms / ms:.2f}%")
         print(f"  K3 per chunk step ({len(prepared)} calls, "
@@ -662,7 +677,8 @@ class Smoke:
             calls = [prepared[i] for i in idx]
             inputs = [xs[i] for i in idx]
             g_ms = cuda_time(lambda: run(k.emt_matmul, inputs, calls), 5)
-            g_dev = device_ms(lambda: run(k.emt_matmul, inputs, calls), keys)
+            g_dev = device_ms(lambda: run(k.emt_matmul, inputs, calls), keys,
+                              agree=True)
             (g_b, _, g_term), _, g_bytes, _ = step_bound(BATCH, calls)
             print(f"  K3 {K}x{N}{'' if n_major else ' (transposed)'} at "
                   f"M={BATCH}: {len(idx)} calls a step, {g_ms:.4f} ms "
@@ -679,7 +695,9 @@ class Smoke:
         then K3's plain path), two calls bit-identical, x = I bit-exact
         with fluctuate of the dequantized weight; timed with its plain
         version and torch.matmul on the dequantized, pre-noised float32
-        weights; bound: the int8 bytes against the hash's ALU-pipe
+        weights (event and device time), the float32 unembed's share of
+        the step's device time apart; bound: the int8 bytes against the
+        hash's ALU-pipe
         operations (HASH_OPS["K3"]) and the FP32 pipe's (plus one FMUL an
         element for the dequantization)."""
         from repro_torch.core import noise, regularizer
@@ -793,8 +811,15 @@ class Smoke:
         lib_ms = cuda_time(run_library, 5)
         chunk_ms = cuda_time(lambda: run(k.emt_matmul, xc), 3)
         chunk_lib_ms = cuda_time(lambda: run_library(xc), 3)
-        dev_ms = device_ms(lambda: run(k.emt_matmul, xs), keys)
-        chunk_dev_ms = device_ms(lambda: run(k.emt_matmul, xc), keys)
+        dev_ms = device_ms(lambda: run(k.emt_matmul, xs), keys, agree=True)
+        chunk_dev_ms = device_ms(lambda: run(k.emt_matmul, xc), keys,
+                                 agree=True)
+        lib_dev_ms = device_ms(run_library, "", agree=True)
+        # the float32 unembed's share of the step (the last call)
+        w, rho, sig, plane = prepared[-1]
+        unembed_dev_ms = device_ms(
+            lambda: k.emt_matmul(xs[-1], w, sig, device=emt.device,
+                                 seed=SEED, plane=plane), keys, agree=True)
         del noisy
 
         def dequantized(x, w, sig, **kw):
@@ -814,16 +839,25 @@ class Smoke:
             replaces="src/repro/kernels/emt_matmul.py:57",
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
+            library_device_ms=lib_dev_ms,
+            unembed_device_ms=unembed_dev_ms,
             chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
             chunk_bound_ms=cb_ms, chunk_fp32_bound_ms=cb32_ms,
             chunk_library_ms=chunk_lib_ms, dequantized_device_ms=deq_dev_ms)
+        int8_dev_ms = (None if dev_ms is None or unembed_dev_ms is None
+                       else dev_ms - unembed_dev_ms)
+        print(f"  K3 int8 per decode step: the float32 unembed "
+              f"{fmt(unembed_dev_ms)} of the step's {fmt(dev_ms)} device "
+              f"time ({share(unembed_dev_ms or 0.0, dev_ms)}), the "
+              f"{len(prepared) - 1} int8 calls {fmt(int8_dev_ms)}")
         print(f"  K3 int8 per decode step: dequantizing in PyTorch and "
               f"running the float32 kernel instead takes {fmt(deq_dev_ms)} "
               f"of device time against the int8 operand's {fmt(dev_ms)}")
         print(f"  K3 int8 per decode step ({len(prepared) - 1} int8 calls + "
               f"the float32 unembed, M={BATCH}): kernel {ms:.3f} ms (device "
               f"time {fmt(dev_ms)}), plain {plain_ms:.3f} ms, torch.matmul "
-              f"on dequantized pre-noised weights {lib_ms:.3f} ms, bound "
+              f"on dequantized pre-noised weights {lib_ms:.3f} ms (device "
+              f"time {fmt(lib_dev_ms)}), bound "
               f"{b_ms:.3f} ms ({bterm}; {nbytes / 1e9:.3f} GB over the "
               f"memory rate {nbytes / HBM_BPS * 1e3:.3f} ms, {alu / 1e9:.2f} "
               f"G ALU-pipe operations {alu / INT32_OPS * 1e3:.3f} ms), "
@@ -847,7 +881,7 @@ class Smoke:
                         k.emt_matmul(inputs[i], w, sig, device=emt.device,
                                      seed=SEED, plane=plane)
                 g_ms = cuda_time(run_group, 5)
-                g_dev = device_ms(run_group, keys)
+                g_dev = device_ms(run_group, keys, agree=True)
                 g_bytes = len(idx) * (K * N + 4 * N + 4 * M * (K + N))
                 alu, fma = hash_ops("K3", len(idx) * K * N)
                 g_flops = 2 * M * len(idx) * K * N
@@ -967,8 +1001,11 @@ class Smoke:
         chunk_ms = cuda_time(lambda: run(k.emt_bitserial, xc), 2)
         lib_ms = cuda_time(run_library, 3)
         chunk_lib_ms = cuda_time(lambda: run_library(True), 2)
-        dev_ms = device_ms(lambda: run(k.emt_bitserial, xs), keys)
-        chunk_dev_ms = device_ms(lambda: run(k.emt_bitserial, xc), keys)
+        dev_ms = device_ms(lambda: run(k.emt_bitserial, xs), keys, agree=True)
+        chunk_dev_ms = device_ms(lambda: run(k.emt_bitserial, xc), keys,
+                                 agree=True)
+        lib_dev_ms = device_ms(run_library, "", agree=True)
+        chunk_lib_dev_ms = device_ms(lambda: run_library(True), "", agree=True)
         del lib
         plain_ms = cuda_time(lambda: run(k.plain, xs), 1, warmup=1)
 
@@ -999,12 +1036,15 @@ class Smoke:
             replaces="src/repro/kernels/emt_bitserial.py:69",
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
-            chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
-            chunk_bound_ms=cb_ms, chunk_library_ms=chunk_lib_ms)
+            library_device_ms=lib_dev_ms, chunk_ms=chunk_ms,
+            chunk_device_ms=chunk_dev_ms, chunk_bound_ms=cb_ms,
+            chunk_library_ms=chunk_lib_ms,
+            chunk_library_device_ms=chunk_lib_dev_ms)
         print(f"  K5 per decode step ({len(prepared)} calls, M={BATCH}, "
               f"{bits} planes): kernel {ms:.3f} ms (device time "
               f"{fmt(dev_ms)}), plain {plain_ms:.3f} ms, torch.bmm on "
-              f"planes and pre-noised weights {lib_ms:.3f} ms, bound "
+              f"planes and pre-noised weights {lib_ms:.3f} ms (device time "
+              f"{fmt(lib_dev_ms)}), bound "
               f"{b_ms:.3f} ms ({bterm}; {nbytes / 1e9:.3f} GB, "
               f"{alu / 1e9:.3f} G ALU-pipe ops), roofline share "
               f"{100 * b_ms / ms:.2f}% (of the device time "
@@ -1013,7 +1053,8 @@ class Smoke:
         print(f"  K5 per chunk step ({len(prepared)} calls, "
               f"M={BATCH * CHUNK}): kernel {chunk_ms:.3f} ms (device time "
               f"{fmt(chunk_dev_ms)}), torch.bmm on planes and pre-noised "
-              f"weights {chunk_lib_ms:.3f} ms (loses by "
+              f"weights {chunk_lib_ms:.3f} ms (device time "
+              f"{fmt(chunk_lib_dev_ms)}; loses by "
               f"{chunk_ms / chunk_lib_ms:.3f}x), bound {cb_ms:.3f} ms "
               f"({cterm}; "
               f"{calu / 1e9:.3f} G ALU-pipe ops), roofline share "
@@ -3192,7 +3233,7 @@ class Smoke:
         inputs and quantized stacks, M = 4), and on the same stacks at the
         chunk step's M = 8 (random inputs): event time, device time, the
         plain version, torch.bmm on the pre-noised stacks (a yardstick the
-        port never calls) and the bound."""
+        port never calls; event and device time) and the bound."""
         from repro_torch.kernels import emt_matmul as k3
         from repro_torch.kernels import ops
         from repro_torch.kernels.ref import noisy_experts
@@ -3254,9 +3295,12 @@ class Smoke:
         lib_ms = cuda_time(lambda: run_library(xs), 5)
         chunk_ms = cuda_time(lambda: run(k3.emt_matmul_experts, xc), 3)
         chunk_lib_ms = cuda_time(lambda: run_library(xc), 3)
-        dev_ms = device_ms(lambda: run(k3.emt_matmul_experts, xs), keys)
+        dev_ms = device_ms(lambda: run(k3.emt_matmul_experts, xs), keys,
+                           agree=True)
         chunk_dev_ms = device_ms(lambda: run(k3.emt_matmul_experts, xc),
-                                 keys)
+                                 keys, agree=True)
+        lib_dev_ms = device_ms(lambda: run_library(xs), "", agree=True)
+        chunk_lib_dev_ms = device_ms(lambda: run_library(xc), "", agree=True)
         del noisy
         plain_ms = cuda_time(lambda: run(k3.plain_experts, xs), 2, warmup=1)
         (b_ms, by, term), nbytes, alu = step_bound(xs)
@@ -3268,8 +3312,10 @@ class Smoke:
             replaces="src/repro/kernels/emt_matmul.py:57",
             max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
-            chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
-            chunk_bound_ms=cb_ms, chunk_library_ms=chunk_lib_ms)
+            library_device_ms=lib_dev_ms, chunk_ms=chunk_ms,
+            chunk_device_ms=chunk_dev_ms, chunk_bound_ms=cb_ms,
+            chunk_library_ms=chunk_lib_ms,
+            chunk_library_device_ms=chunk_lib_dev_ms)
         p = [k3.plan(x.shape[1], w.shape[2], x.shape[2], self.sms, True,
                      experts=x.shape[0], tiled=True) for x, w, *_ in calls[:3]]
         print(f"  K3 experts per decode step ({len(calls)} calls, E "
@@ -3278,7 +3324,8 @@ class Smoke:
               f"time {fmt(dev_ms)}; per MoE layer {ms / L:.3f} ms, device "
               f"{fmt(None if dev_ms is None else dev_ms / L)}), plain "
               f"{plain_ms:.3f} ms, torch.bmm on pre-noised stacks "
-              f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({term}; "
+              f"{lib_ms:.3f} ms (device time {fmt(lib_dev_ms)}), bound "
+              f"{b_ms:.3f} ms ({term}; "
               f"{nbytes / 1e9:.3f} GB, {alu / 1e9:.3f} G ALU-pipe ops; per "
               f"layer {b_ms / L:.3f} ms), roofline share "
               f"{100 * b_ms / ms:.2f}% of the event time, "
@@ -3287,7 +3334,8 @@ class Smoke:
         print(f"  K3 experts at the chunk step's M="
               f"{xc[0].shape[1]} (the same stacks): kernel {chunk_ms:.3f} ms "
               f"(device time {fmt(chunk_dev_ms)}), torch.bmm on pre-noised "
-              f"stacks {chunk_lib_ms:.3f} ms, bound {cb_ms:.3f} ms "
+              f"stacks {chunk_lib_ms:.3f} ms (device time "
+              f"{fmt(chunk_lib_dev_ms)}), bound {cb_ms:.3f} ms "
               f"({cterm}), share of the device time "
               f"{share(cb_ms, chunk_dev_ms)}")
 

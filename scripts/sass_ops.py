@@ -6,7 +6,8 @@ kernels issue per (weight element, plane), by the pipe that executes them.
 Builds K3 (``emt_matmul.cu``) and K5 (``emt_bitserial.cu``) with the port's
 nvcc flags, disassembles them with ``cuobjdump -sass`` and, for each GEMV
 kernel at M = 4 on a two-state corner, takes every loop (a backward branch)
-that holds FFMAs: K5's plane loop, K3's K walk.  An element-plane issues M
+that holds FFMAs: K5's plane loop, K3's K walk (the float32 GEMV's, and
+the int8 and experts GEMVs' ring walk).  An element-plane issues M
 FFMAs into the accumulators, so a loop's opcodes over its FFMAs / M are the
 opcodes per element-plane.  It prints them grouped by pipe, as Nsight
 Compute's pipeline descriptions group them on sm_90: the integer ALU pipe
@@ -34,7 +35,12 @@ KERNELS = {            # (source, mangled-name fragment of <M = 4, NS = 2>)
     "K5 bitserial_gemv_n<4, 2>": ("emt_bitserial", "bitserial_gemv_nILi4ELi2E"),
     "K5 bitserial_gemv_k<4, 2>": ("emt_bitserial", "bitserial_gemv_kILi4ELi2E"),
     "K3 emt_matmul_gemv_n<4, 2>": ("emt_matmul", "emt_matmul_gemv_nILi4ELi2E"),
-    "K3 emt_matmul_gemv_k<4, 2>": ("emt_matmul", "emt_matmul_gemv_kILi4ELi2E"),
+    "K3 emt_matmul_gemv_ring<4, 2, int8>": (
+        "emt_matmul", "emt_matmul_gemv_ringILi4ELi2ELb1ELb0E"),
+    "K3 emt_matmul_gemv_ring<4, 2, experts>": (
+        "emt_matmul", "emt_matmul_gemv_ringILi4ELi2ELb0ELb1E"),
+    "K3 emt_matmul_gemv_k<4, 2>": ("emt_matmul",
+                                   "emt_matmul_gemv_kILi4ELi2ELb0E"),
 }
 FMA = {"FFMA", "FMUL", "FADD", "IMAD", "IMUL"}
 ALU = {"LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP", "SEL", "FSEL", "IADD3",

@@ -9,56 +9,71 @@
 // factor = fl(1 + fl(a * sigma)), w' = fl(w * factor) (no FMA contraction);
 // the factor of each RTN state is computed once per thread.
 //
-// What bounds it on the H100: every call streams its whole f32 weight once
-// (4.0 GB per gemma3-1b decode step, 1.2 ms at the H100 SXM's published
-// 3.35 TB/s) against 2*M*K*N FLOPs; at decode (M = 4) that is far below the
-// FP32 ridge, so bytes bound it, and the per-element hash (~25 integer
-// operations) is the second cost.
+// What bounds it on the H100: every call streams its whole weight once
+// (float32: 4.0 GB per gemma3-1b decode step, 1.2 ms at the H100 SXM's
+// published 3.35 TB/s) against 2*M*K*N FLOPs; at decode (M = 4) that is
+// far below the FP32 ridge, so bytes bound it, and the per-element hash
+// (~17 integer ALU operations in the float32 GEMV, 10 for the hash and the
+// state select in the ring GEMV) is the second cost, the first for int8
+// levels (a quarter of the bytes).
 //
 // Design:
-// * M <= 16 (decode): a GEMV-style kernel templated on M (1-4, 8, 16) with
-//   no shared-memory weight tile.  Each thread loads 16-byte vectors along
-//   whichever weight stride is 1 (n-major: 4 columns of one row; the tied
-//   unembed's transposed table, k-major: 4 rows of one column, read in
-//   place), hashes them in registers and FMAs them into M accumulators per
-//   column.  The x rows of the CTA's K slab are staged in shared memory
-//   once (a broadcast), so the K walk has no barrier, and each thread
-//   keeps the next step's vectors (4 at M <= 8) in flight while it hashes
-//   and FMAs this step's.  Threads that share columns reduce once, at the
-//   end of the slab (shared memory in warp order for n-major, a shuffle
-//   butterfly for k-major).
+// * M <= 16 (decode): GEMV-style kernels templated on M (1-4, 8, 16), every
+//   output column's sum in one order whatever the loader: slabs in slab
+//   order, in each the 8 warps in warp order, warp w over slab rows w,
+//   w + 8, ...  The x rows of the CTA's K slab are staged in shared memory
+//   once (a broadcast), so the K walk has no block barrier.
+//   - float32 weights (emt_matmul_gemv_n, n-major; emt_matmul_gemv_k, the
+//     tied unembed's transposed table read in place): no shared-memory
+//     weight tile; each thread loads 16-byte vectors along the weight's
+//     unit stride, keeps the next step's (4 at M <= 8) in flight in
+//     registers while it hashes and FMAs this step's.  Threads that share
+//     columns reduce once, at the end of the slab (shared memory in warp
+//     order for n-major, a shuffle butterfly for k-major).
+//   - int8 levels (store_int8 serving, emt_matmul_i8) and expert stacks
+//     (emt_matmul_experts_f32), n-major: emt_matmul_gemv_ring.  The weight
+//     streams through a ring of shared-memory stages filled by cp.async,
+//     each warp copying only the rows it consumes (Ring: int8, 4 rows of
+//     128 levels a stage, a lane's 16-byte copy read by 4 lanes after one
+//     __syncwarp; float32, 2 rows, a lane copying and reading its own
+//     float4s), 16 KB a CTA in flight ahead of the warp: no block barrier
+//     in the K walk, and the stream goes on while the warp hashes.  Each
+//     lane reads its 4 columns (one word of 4 levels, or one float4),
+//     dequantizes int8 as fl(float(q) * scale[n]) (one rounding, the
+//     reference's w_int8.astype(f32) * w_scale), noises with the float
+//     path's rounding and FMAs, all in registers.  The hash's column terms
+//     are computed once per thread and its row term once per row
+//     (hash_mix_pre's split), and hash_mix_folded drops the xorshift pair
+//     that cancels between its rounds.  So int8 products equal the
+//     float32 GEMV's on the dequantized weight bit for bit, and a stack of
+//     one expert equals K3.  (The int8 k-major GEMV, gemv_k<I8>, serves no
+//     path: the int8 tree keeps the unembed float32.)
 // * Split-K, planned in Python from the SM count
 //   (repro_torch/kernels/splitk.py): slabs of whole chunks write
 //   partials to a workspace, and repro::split_sum adds them in slab order
-//   (deterministic, no atomics).
-// * int8 weights (store_int8 serving, emt_matmul_i8): the weight loader is
-//   a template parameter (I8) of the GEMV kernels.  The int8 loader reads
-//   16 levels in one 16-byte load, dequantizes them in registers as
-//   fl(float(q) * scale[n]) (one rounding, the reference's
-//   w_int8.astype(f32) * w_scale), noises them with the same rounding and
-//   stages the float32 noisy weight in shared memory, so the FMA loops
-//   are the float path's.  The weight's bytes fall 4x; the hash's work
-//   per element does not (at a gemma3-1b decode step the ALU pipe, not the
-//   bytes, then bounds the step: PERF.md).
-// * A stack of E experts (emt_matmul_experts_f32; the MoE layer's three
-//   projections, JAX's moe._emt_stacked + einsum), at any M: the GEMV
-//   n-major kernel and, above 16 rows, the tiled kernel of emt_tiled.cuh,
-//   each with an expert grid axis (template EX; GEMV z = e, tiled
-//   z = e * splits + slab).  Expert e reads x + e * sxe and w + e * swe and
-//   hashes its element (k, n) at row e * K + k: the folded (E * K, N) draw
-//   of the reference, the TPU kernel's row base k0_base.  One launch
-//   covers a projection of every expert, and the planner counts all the
-//   experts' CTAs before it splits K.  Each CTA also sums |w'| (float64)
-//   and takes its max over the weight elements it hashed (disjoint
-//   regions: GEMV CTAs each hash their own slab of 128 columns, tiled CTAs
-//   of the first row tile only), and a one-CTA pass adds the per-CTA
-//   partials in a fixed order: the noisy stack's statistics, which the
-//   layer's accounting reads, without a noisy stack in memory.
+//   (deterministic, no atomics).  Summing them in the grid instead (the
+//   last CTA of each output tile, on a ticket) measured slower in device
+//   time (PERF.md).
+// * A stack of E experts (the MoE layer's three projections, JAX's
+//   moe._emt_stacked + einsum), at any M: the ring GEMV and, above 16
+//   rows, the tiled kernel of emt_tiled.cuh, each with an expert grid
+//   axis (template EX; GEMV z = e, tiled z = e * splits + slab).  Expert e
+//   reads x + e * sxe and w + e * swe and hashes its element (k, n) at row
+//   e * K + k: the folded (E * K, N) draw of the reference, the TPU
+//   kernel's row base k0_base.  One launch covers a projection of every
+//   expert, and the planner counts all the experts' CTAs before it splits
+//   K.  Each CTA also sums |w'| (a float partial a row, folded into
+//   float64) and takes its max over the weight elements it hashed
+//   (disjoint regions: GEMV CTAs each hash their own slab of 128 columns,
+//   tiled CTAs of the first row tile only), and a one-CTA pass adds the
+//   per-CTA partials in a fixed order: the noisy stack's statistics, which
+//   the layer's accounting reads, without a noisy stack in memory.
 // Not yet done (later work): at decode the host's two launches and the
-// output allocation, not the device, set the time of a call (PERF.md); a
-// split sum inside a thread-block cluster, as the chunked prefill merges
-// its splits, would save the second launch and the workspace.  TMA
-// pipelining; the eager weight fake-quantization around the call.
+// output allocation, not the device, set the time of a float32 call
+// (PERF.md); a split sum inside a thread-block cluster, as the chunked
+// prefill merges its splits, would save the second launch and the
+// workspace.  The float32 GEMV keeps its register double buffer; the
+// eager weight fake-quantization around the call.
 #include <cstdint>
 
 #include "common.cuh"
@@ -74,13 +89,14 @@ constexpr int kGemvBNk = kWarps * 4;      // k-major: 4 columns per warp (32)
 constexpr int kGemvBK = 32;               // n-major slab granularity (rows)
 constexpr int kGemvBKk = 128;             // k-major slab granularity (rows)
 constexpr int kGemvXBytes = 24 * 1024;    // x rows of one slab, at most
-constexpr int kI8Step = 32;               // n-major int8 GEMV: rows a step
 
 // The noisy weight and the weight loads are shared with the bit-serial
 // kernel (common.cuh).
 using repro::dequant;
 using repro::f4;
+using repro::factor;
 using repro::Factors;
+using repro::hash_mix_folded;
 using repro::load_k4;
 using repro::load_n4;
 using repro::load_q16;
@@ -129,26 +145,44 @@ __device__ __forceinline__ void gemv_x_row(const float* xs, int kk,
   }
 }
 
-// n-major weight (swn == 1).  CTA: 128 columns (lane owns 4) x one K slab;
-// warp w takes rows w, w + 8, w + 16, ... of the slab.
-//
-// I8 (int8 levels `wv`, per-column `scale`): a step is 32 rows; thread t
-// loads 16 levels of row t / 8 from column 16 * (t % 8) in one 16-byte
-// load (the next step's in flight), dequantizes and noises them into a
-// shared 32 x 128 float tile (aliasing `red`), and after a barrier the
-// warps run the float path's FMA loop on the tile's rows.
-//
-// EX (float32 weights only): expert blockIdx.z of a stack (repro::Experts;
-// the file's note), its |w'| sum and max reduced per CTA.
-template <int M, int NS, bool I8, bool EX>
+// The end of an n-major slab: the 8 warps' partials of each column
+// (acc, this thread's 4 columns) summed in warp order through `red` into
+// o (Mr, N), columns n0 .. n0 + 127.  Every thread calls it.
+template <int M>
+__device__ __forceinline__ void gemv_n_store(const float (&acc)[M][4],
+                                             float (*red)[4][kGemvBN],
+                                             float* __restrict__ o, int Mr,
+                                             int N, int n0) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int mg = 0; mg < M; mg += 4) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (mg + i < M)
+        *reinterpret_cast<float4*>(&red[warp][i][4 * lane]) = make_float4(
+            acc[mg + i][0], acc[mg + i][1], acc[mg + i][2], acc[mg + i][3]);
+    __syncthreads();
+    for (int e = tid; e < 4 * kGemvBN; e += kThreads) {
+      const int i = e / kGemvBN, col = e % kGemvBN, m = mg + i;
+      if (m >= M || m >= Mr || n0 + col >= N) continue;
+      float s = red[0][i][col];
+#pragma unroll
+      for (int v = 1; v < kWarps; ++v) s += red[v][i][col];
+      o[(long long)m * N + n0 + col] = s;
+    }
+  }
+}
+
+// n-major float32 weight (swn == 1).  CTA: 128 columns (lane owns 4) x
+// one K slab; warp w takes rows w, w + 8, w + 16, ... of the slab.
+template <int M, int NS>
 __global__ void __launch_bounds__(kThreads, 2)
-emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
-                  const float* __restrict__ scale, float* __restrict__ out,
-                  const float* __restrict__ sig_ptr, int Mr, int N, int K,
-                  int k_slab, long long sxm, long long sxk, long long swk,
-                  int vw, uint32_t seed, uint32_t plane,
-                  repro::NoiseParams np, repro::Experts ex) {
-  static_assert(!(EX && I8), "experts: float32 weights");
+emt_matmul_gemv_n(const float* __restrict__ x, const float* __restrict__ w,
+                  float* __restrict__ out, const float* __restrict__ sig_ptr,
+                  int Mr, int N, int K, int k_slab, long long sxm,
+                  long long sxk, long long swk, int vw, uint32_t seed,
+                  uint32_t plane, repro::NoiseParams np) {
   constexpr int U = gemv_u<M>();
   constexpr int STEP = kWarps * U;                 // slab rows per step
   extern __shared__ __align__(16) float xs[];       // [k_slab][M]
@@ -158,9 +192,6 @@ emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
   const int n = n0 + 4 * lane;
   const int kb = blockIdx.y * k_slab;
   const int ke = min(K, kb + k_slab);
-  const int ei = EX ? blockIdx.z : 0;              // the expert
-  if constexpr (EX) x += ei * ex.sxe;
-  const uint32_t row0 = EX ? (uint32_t)ei * (uint32_t)K : 0u;
   const uint32_t pk = repro::hash_pk(seed, plane);
   Factors F;
   make_factors(np, *sig_ptr, F);
@@ -170,61 +201,7 @@ emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
   for (int m = 0; m < M; ++m)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-  double ssum = 0.0;                               // EX: sum, max of |w'|
-  float smax = 0.f;
 
-  if constexpr (I8) {
-    const int8_t* __restrict__ w = static_cast<const int8_t*>(wv);
-    float* wsm = &red[0][0][0];                    // [kI8Step][kGemvBN]
-    const int lr = tid >> 3, lc = 16 * (tid & 7), ln = n0 + lc;
-    float sc[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) sc[j] = ln + j < N ? __ldg(scale + ln + j) : 0.f;
-    auto load_q = [&](int k0) {
-      const int k = k0 + lr;
-      return load_q16(w + k * swk + ln, 1, k < ke ? min(16, N - ln) : 0,
-                      vw == 16);
-    };
-    uint4 qc = load_q(kb), qn = qc;
-    stage_x<M, false>(xs, x, Mr, kb, ke, ke - kb, sxm, sxk);
-    for (int k0 = kb; k0 < ke; k0 += kI8Step) {
-      if (k0 + kI8Step < ke) qn = load_q(k0 + kI8Step);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const uint32_t word = jj == 0 ? qc.x : jj == 1 ? qc.y
-                            : jj == 2 ? qc.z : qc.w;
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = noisy<NS>(dequant(word, j, sc[4 * jj + j]),
-                           row0 + (uint32_t)(k0 + lr),
-                           (uint32_t)(ln + 4 * jj + j), pk, F);
-        *reinterpret_cast<float4*>(&wsm[lr * kGemvBN + lc + 4 * jj]) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int u = 0; u < kI8Step / kWarps; ++u) {
-        const int kk = warp + kWarps * u;
-        if (k0 + kk >= ke) break;                  // (uniform in the warp)
-        const float4 t = *reinterpret_cast<const float4*>(
-            &wsm[kk * kGemvBN + 4 * lane]);
-        float xv[M];
-        gemv_x_row<M>(xs, k0 - kb + kk, xv);
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          acc[m][0] = fmaf(xv[m], t.x, acc[m][0]);
-          acc[m][1] = fmaf(xv[m], t.y, acc[m][1]);
-          acc[m][2] = fmaf(xv[m], t.z, acc[m][2]);
-          acc[m][3] = fmaf(xv[m], t.w, acc[m][3]);
-        }
-      }
-      __syncthreads();
-      qc = qn;
-    }
-  } else {
-  const float* __restrict__ w =
-      static_cast<const float*>(wv) + (EX ? ei * ex.swe : 0);
   float4 wc[U], wn[U];
   auto load_w = [&](int k0, float4 (&v)[U]) {
 #pragma unroll
@@ -246,16 +223,8 @@ emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
       float wp[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        wp[j] = noisy<NS>(f4(wc[u], j), row0 + (uint32_t)(kb + kk),
+        wp[j] = noisy<NS>(f4(wc[u], j), (uint32_t)(kb + kk),
                           (uint32_t)(n + j), pk, F);
-      if constexpr (EX) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float a = fabsf(wp[j]);
-          ssum += a;
-          smax = fmaxf(smax, a);
-        }
-      }
       float xv[M];
       gemv_x_row<M>(xs, kk, xv);
 #pragma unroll
@@ -266,29 +235,247 @@ emt_matmul_gemv_n(const float* __restrict__ x, const void* __restrict__ wv,
 #pragma unroll
     for (int u = 0; u < U; ++u) wc[u] = wn[u];
   }
+
+  // slab blockIdx.y
+  gemv_n_store<M>(acc, red, out + (long long)blockIdx.y * Mr * N, Mr, N, n0);
+}
+
+// ---------------------------------------------------------------------------
+// The int8 and experts GEMVs (M <= 16, n-major): the weight streams through
+// a ring of shared-memory stages, each warp copying (cp.async) only the
+// rows it consumes, kStages - 1 stages ahead, so the K walk has no block
+// barrier and the copies stay in flight while the warp hashes and FMAs.
+
+// Copy the first `bytes` (0..CP) bytes at src into CP bytes at shared dst
+// and zero the rest, asynchronously (src and dst CP-aligned; CP = 4, 8 or
+// 16).  src is not read when bytes is 0.
+template <int CP>
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (CP == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(CP), "r"(bytes));
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The ring: kStages stages, each a warp's kRows rows of the CTA's 128
+// columns for each of the 8 warps (warp w's rows of stage s are slab rows
+// kSlabRows * s + w + 8 i, i < kRows: the rows it consumes, in the order
+// it consumes them).  int8: a lane copies 16 columns of one of the 4 rows
+// (one 16-byte copy) and reads its 4 columns of each row as one word;
+// float32: a lane copies and reads its own 4 columns (one float4) of each
+// of 2 rows.  Either way (kStages - 1) stages, 16 KB, are in flight per
+// CTA, 32 KB per SM at two CTAs.
+template <bool I8>
+struct Ring {
+  static constexpr int kRows = I8 ? 4 : 2;
+  static constexpr int kStages = I8 ? 5 : 3;
+  static constexpr int kRowBytes = kGemvBN * (I8 ? 1 : 4);
+  static constexpr int kWarpBytes = kRows * kRowBytes;
+  static constexpr int kStageBytes = kWarps * kWarpBytes;
+  static constexpr int kBytes = kStages * kStageBytes;
+  static constexpr int kSlabRows = kWarps * kRows;
+  // the end-of-slab reduction's [warp][4][column] floats reuse the ring
+  static_assert(kBytes >= kWarps * 4 * kGemvBN * 4, "red fits the ring");
+  static_assert(kGemvBK % kSlabRows == 0, "slabs of whole stages");
+};
+
+__device__ __forceinline__ uint32_t ring_word(const unsigned char* st, int i,
+                                              int lane) {
+  return *reinterpret_cast<const uint32_t*>(st + i * kGemvBN + 4 * lane);
+}
+
+__device__ __forceinline__ float4 ring_f4(const unsigned char* st, int i,
+                                          int lane) {
+  return *reinterpret_cast<const float4*>(st + i * 4 * kGemvBN + 16 * lane);
+}
+
+// The experts' statistics of one row's 4 noisy weights: their |w'| summed
+// in float (a tree), the partial folded into the float64 sum (one add a
+// row, not a serial float64 chain of 4); the max exact.
+__device__ __forceinline__ void take_stats(const float (&wp)[4], double& ssum,
+                                           float& smax) {
+  const float a0 = fabsf(wp[0]), a1 = fabsf(wp[1]), a2 = fabsf(wp[2]),
+              a3 = fabsf(wp[3]);
+  ssum += (double)((a0 + a1) + (a2 + a3));
+  smax = fmaxf(smax, fmaxf(fmaxf(a0, a1), fmaxf(a2, a3)));
+}
+
+// CTA: 128 columns (lane owns 4) x one K slab, as emt_matmul_gemv_n, and
+// the same order of every column's sum: warp w takes slab rows w, w + 8,
+// ... in order, the 8 warps are summed in warp order.  The noise hash is
+// split as common.cuh's hash_mix_pre allows: the column terms once per
+// thread, the row term (with the seed and plane) once per row, one XOR an
+// element, and hash_mix_folded drops the xorshift pair that cancels.
+// I8: levels `wv` (int8) dequantized in registers, fl(float(q) *
+// scale[n]); EX: expert blockIdx.z of a stack, its |w'| sum and max
+// reduced per CTA.
+template <int M, int NS, bool I8, bool EX>
+__global__ void __launch_bounds__(kThreads, 2)
+emt_matmul_gemv_ring(const float* __restrict__ x,
+                     const void* __restrict__ wv,
+                     const float* __restrict__ scale, float* __restrict__ out,
+                     const float* __restrict__ sig_ptr, int Mr, int N, int K,
+                     int k_slab, long long sxm, long long sxk, long long swk,
+                     int vw, uint32_t seed, uint32_t plane,
+                     repro::NoiseParams np, repro::Experts ex) {
+  static_assert(!(EX && I8), "experts: float32 weights");
+  using R = Ring<I8>;
+  constexpr int S = R::kStages;
+  constexpr int E8 = I8 ? 1 : 4;                   // bytes an element
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;                      // [stage][warp][row][col]
+  float* xs = reinterpret_cast<float*>(smem + R::kBytes);   // [k_slab][M]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * kGemvBN;
+  const int n = n0 + 4 * lane;
+  const int kb = blockIdx.y * k_slab;
+  const int rows = min(K, kb + k_slab) - kb;       // the slab's rows
+  const int nst = (rows + R::kSlabRows - 1) / R::kSlabRows;
+  const int ei = EX ? blockIdx.z : 0;              // the expert
+  if constexpr (EX) x += ei * ex.sxe;
+  const uint32_t row0 = EX ? (uint32_t)ei * (uint32_t)K : 0u;
+
+  // This lane's copies: I8, 16 columns (bytes cc ..) of row ci of each of
+  // the warp's stages; float32, its own 4 columns of each row.  cb: their
+  // bytes before column N; src: the next stage's source (issue() takes the
+  // stages in order).
+  const int ci = I8 ? lane >> 3 : 0;
+  const int cc = I8 ? 16 * (lane & 7) : 16 * lane;
+  const int cb = max(0, min(16, (N - n0) * E8 - cc));
+  const char* src = static_cast<const char*>(wv) +
+                    (EX ? ei * ex.swe * 4 : 0) +
+                    ((kb + warp + kWarps * ci) * swk + n0) * E8 + cc;
+  const long long stage_step = R::kSlabRows * swk * E8;
+  const long long row_step = kWarps * swk * E8;    // float32: row i to i + 1
+  unsigned char* const dst0 =
+      ring + warp * R::kWarpBytes + ci * R::kRowBytes + cc;
+  // the warp's stage t into ring slot `slot`; rows past the slab and
+  // columns past N are zeros
+  auto issue = [&](int t, int slot) {
+    unsigned char* dst = dst0 + slot * R::kStageBytes;
+    const int kk = R::kSlabRows * t + warp + kWarps * ci;
+    if constexpr (I8) {
+      const int b = kk < rows ? cb : 0;
+      if (vw == 16)
+        copy_async<16>(dst, src, b);
+      else                                         // rows not 16-B aligned
+        *reinterpret_cast<uint4*>(dst) =
+            load_q16(reinterpret_cast<const int8_t*>(src), 1, b, false);
+    } else {
+#pragma unroll
+      for (int i = 0; i < R::kRows; ++i) {
+        const int b = kk + kWarps * i < rows ? cb : 0;
+        const char* p = src + i * row_step;
+        unsigned char* d = dst + i * R::kRowBytes;
+        if (vw == 4) {
+          copy_async<16>(d, p, b);
+        } else if (vw == 2) {
+          copy_async<8>(d, p, min(b, 8));
+          copy_async<8>(d + 8, p + 8, max(b - 8, 0));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            copy_async<4>(d + 4 * j, p + 4 * j, b > 4 * j ? 4 : 0);
+        }
+      }
+    }
+    src += stage_step;
+  };
+
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) {                // in flight while x stages
+    if (t < nst) issue(t, t);
+    copy_commit();
   }
 
-  // the 8 warps' partials of each column, summed in warp order; slab
-  // blockIdx.y of expert ei
-  float* o = out + ((long long)blockIdx.y * gridDim.z + ei) * Mr * N;
+  const uint32_t pks = repro::pre(repro::hash_pk(seed, plane));
+  uint32_t cs[4];                                  // the column terms
 #pragma unroll
-  for (int mg = 0; mg < M; mg += 4) {
-    __syncthreads();
+  for (int j = 0; j < 4; ++j)
+    cs[j] = repro::pre(repro::hash_rc(0u, (uint32_t)(n + j)));
+  float sc[4];                                     // I8: the column scales
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (mg + i < M)
-        *reinterpret_cast<float4*>(&red[warp][i][4 * lane]) = make_float4(
-            acc[mg + i][0], acc[mg + i][1], acc[mg + i][2], acc[mg + i][3]);
-    __syncthreads();
-    for (int e = tid; e < 4 * kGemvBN; e += kThreads) {
-      const int i = e / kGemvBN, col = e % kGemvBN, m = mg + i;
-      if (m >= M || m >= Mr || n0 + col >= N) continue;
-      float s = red[0][i][col];
+  for (int j = 0; j < 4; ++j)
+    sc[j] = I8 && n + j < N ? __ldg(scale + n + j) : 0.f;
+  Factors F;
+  make_factors(np, *sig_ptr, F);
+  float acc[M][4];
 #pragma unroll
-      for (int v = 1; v < kWarps; ++v) s += red[v][i][col];
-      o[(long long)m * N + n0 + col] = s;
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+  double ssum = 0.0;                               // EX: sum, max of |w'|
+  float smax = 0.f;
+  stage_x<M, false>(xs, x, Mr, kb, kb + rows, rows, sxm, sxk);
+
+  // one row of the warp's stage (slab row kk, row i of stage st): hash,
+  // noise and FMA its 4 columns
+  auto row = [&](const unsigned char* st, int i, int kk) {
+    float wt[4];
+    if constexpr (I8) {
+      uint32_t word;
+      word = ring_word(st, i, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wt[j] = dequant(word, j, sc[j]);
+    } else {
+      float4 v;
+      v = ring_f4(st, i, lane);
+      wt[0] = v.x; wt[1] = v.y; wt[2] = v.z; wt[3] = v.w;
+    }
+    const uint32_t rt = repro::hash_rc(row0 + (uint32_t)(kb + kk), 0u);
+    const uint32_t rp = rt ^ (rt >> 16) ^ pks;     // pre(row) ^ pre(pk)
+    float wp[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wp[j] = __fmul_rn(wt[j], factor<NS>(hash_mix_folded(cs[j], rp), F));
+    if constexpr (EX) take_stats(wp, ssum, smax);
+    float xr[M];
+    gemv_x_row<M>(xs, kk, xr);
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xr[m], wp[j], acc[m][j]);
+  };
+
+  int rd = 0, wr = S - 1;                          // ring slots
+  for (int s = 0; s < nst; ++s) {
+    copy_wait<S - 2>();                            // stage s has landed
+    if constexpr (I8) __syncwarp();                // (lanes read others' copies)
+    if (s + S - 1 < nst) issue(s + S - 1, wr);     // into the slot read last
+    copy_commit();
+    wr = wr + 1 == S ? 0 : wr + 1;
+    const unsigned char* st = ring + rd * R::kStageBytes + warp * R::kWarpBytes;
+    rd = rd + 1 == S ? 0 : rd + 1;
+    const int kk = R::kSlabRows * s + warp;        // the warp's first row
+    if (kk + kWarps * (R::kRows - 1) < rows) {     // (uniform) every row
+#pragma unroll
+      for (int i = 0; i < R::kRows; ++i) row(st, i, kk + kWarps * i);
+    } else {                                       // the slab's last stage
+#pragma unroll
+      for (int i = 0; i < R::kRows; ++i)
+        if (kk + kWarps * i < rows) row(st, i, kk + kWarps * i);
     }
   }
+  copy_wait<0>();                                  // (empty groups only)
+
+  // slab blockIdx.y of expert ei
+  gemv_n_store<M>(acc, reinterpret_cast<float (*)[4][kGemvBN]>(ring),
+                  out + ((long long)blockIdx.y * gridDim.z + ei) * Mr * N,
+                  Mr, N, n0);
   if constexpr (EX) repro::cta_stats<kThreads>(ssum, smax, ex.stats);
 }
 
@@ -451,9 +638,21 @@ void launch_gemv(const Args& a, bool kc, int splits, cudaStream_t s) {
     }
   }
   dim3 grid((a.N + kGemvBN - 1) / kGemvBN, splits, a.E);
-  emt_matmul_gemv_n<MT, NS, I8, EX><<<grid, kThreads, smem, s>>>(
-      a.x, a.w, a.scale, a.out, a.sig, a.M, a.N, a.K, a.k_slab, a.sxm,
-      a.sxk, a.swk, a.vw, a.seed, a.plane, a.np, a.ex);
+  if constexpr (!I8 && !EX) {
+    emt_matmul_gemv_n<MT, NS><<<grid, kThreads, smem, s>>>(
+        a.x, static_cast<const float*>(a.w), a.out, a.sig, a.M, a.N, a.K,
+        a.k_slab, a.sxm, a.sxk, a.swk, a.vw, a.seed, a.plane, a.np);
+  } else {
+    // the ring, then the x rows (above 48 KB with the largest slab)
+    const auto kernel = emt_matmul_gemv_ring<MT, NS, I8, EX>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Ring<I8>::kBytes + kGemvXBytes);
+    (void)attr;                        // (a refusal fails the launch below)
+    kernel<<<grid, kThreads, Ring<I8>::kBytes + smem, s>>>(
+        a.x, a.w, a.scale, a.out, a.sig, a.M, a.N, a.K, a.k_slab, a.sxm,
+        a.sxk, a.swk, a.vw, a.seed, a.plane, a.np, a.ex);
+  }
 }
 
 template <int NS, bool I8, bool EX>
@@ -582,7 +781,7 @@ extern "C" int emt_matmul_f32(const float* x, const float* w, float* y,
 
 // The same with w stored as int8 conductance levels (K, N), any strides,
 // and `scale` (N contiguous floats) their per-column scale: the kernels
-// read the levels (16 a load where the strides allow) and dequantize them
+// read the levels (16 a copy where the strides allow) and dequantize them
 // in registers, w = fl(float(q) * scale[n]), before the noise.  The plan
 // is the float weight's (same slabs); M <= 16 (M > 16:
 // emt_matmul_tc_i8).

@@ -73,6 +73,17 @@ MAX_STATES = 8
 # tiles, one CTA per SM.
 GEMV_MAX_M = 16
 GEMV_X_BYTES = 24 * 1024
+# The int8 and experts GEMVs (n-major, M <= 16) stream the weight through a
+# ring of shared-memory stages (csrc/emt_matmul.cu's Ring, mirrored here),
+# each holding `rows` slab rows of the CTA's 128 columns (the 8 warps' 4
+# int8 or 2 float32 rows each), `stages - 1` stages in flight; the
+# end-of-slab reduction reuses the ring.  Beside it the slab's x rows, at
+# most GEMV_X_BYTES; two CTAs a SM within the SMEM_PER_SM bytes an SM
+# gives its CTAs (less RESERVED_SMEM each).
+GEMV_RING = {True: dict(stages=5, rows=32, stage_bytes=4096),
+             False: dict(stages=3, rows=16, stage_bytes=8192)}
+SMEM_PER_SM = 227 * 1024
+RESERVED_SMEM = 1024
 GEMV_N = dict(bn=128, bk=32, min_slab=64)
 GEMV_K = dict(bn=32, bk=128, min_slab=256)
 TILED = dict(bm=64, bn=64, bk=32, min_slab=64)
@@ -152,12 +163,15 @@ def plan(M: int, N: int, K: int, sms: int, n_major: bool,
     tiles, K split by splitk.plan_waves (one CTA per SM) in whole 32-row
     k-tiles.  `n_major`: the weight's N stride is 1.
 
-    An int8 weight takes the same cut: its loader's step (32 rows n-major,
-    128 k-major, the 32-row k-tile) is the float loader's slab granularity,
-    and the split counts CTAs, not bytes, because at int8 the hash's
-    operations, not the weight's bytes, bound the product (a gemma3-1b
-    decode step: 1.016 ms on the ALU pipe against 0.570 ms of bytes), so
-    the split that fills every SM stays.
+    An int8 weight takes the float weight's cut, and so does a stack of
+    experts at one expert: each column's sum then runs in one order on
+    every loader (the slabs in order, in each the 8 warps in order, warp w
+    over rows w, w + 8, ...), so int8 products equal the float32 GEMV's on
+    the dequantized weight and a one-expert stack equals K3, bit for bit.
+    The n-major int8 and experts GEMVs stream the weight through a ring
+    of 32- or 16-row stages (GEMV_RING), which the 32-row chunks fill
+    whole; the split counts CTAs, not bytes, so that every SM holds two
+    CTAs' rings in flight and hashes.
 
     `experts`: a stack of that many products in one grid (the experts
     entry, :func:`emt_matmul_experts`), whose split counts every
@@ -174,6 +188,17 @@ def plan(M: int, N: int, K: int, sms: int, n_major: bool,
     if experts != 1:
         raise ValueError("the tensor-core plan takes one product a grid")
     return splitk.plan_waves(M, N, K, sms=sms, **TC)
+
+
+def gemv_ring_smem(M: int, k_slab: int, int8: bool) -> int:
+    """Shared-memory bytes of one CTA of the int8 (`int8`) or experts GEMV
+    at M <= 16 rows over a slab of `k_slab` rows, as its launcher sizes
+    it: the ring's stages, then the slab's x rows at the row template, and
+    the experts' statistics (a float64 and a float32 a warp)."""
+    ring = GEMV_RING[int8]
+    rows = M if M <= 4 else 8 if M <= 8 else 16      # the row template
+    stats = 0 if int8 else 12 * 8
+    return ring["stages"] * ring["stage_bytes"] + 4 * rows * k_slab + stats
 
 
 def tc_bits_words(M: int, N: int, K: int) -> int:

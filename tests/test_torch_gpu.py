@@ -128,12 +128,18 @@ def test_k3_matches_plain_and_noise_bit_exact(cuda, M, K, N, transposed, dev):
 # experts at its decode and chunk rows (M = 4 and 8 on the GEMV templates,
 # 20 on the tiled kernel, 1 the smallest template), wg/wu's (D, F) =
 # (2048, 1408) and wd's (1408, 2048); small ragged stacks with x a strided
-# view (rows not 16-byte aligned).
+# view (rows not 16-byte aligned).  The GEMV's ring at every row template
+# (1-4, 8, 16), K not a multiple of its 16-row stage, N not a multiple of
+# 128 or of 4 (weight rows 16-, 8- or 4-byte aligned: its 16-, 8- and
+# 4-byte copies), slabs split or not.
 EXPERT_CASES = [(64, 4, 2048, 1408, False), (64, 8, 2048, 1408, False),
                 (64, 20, 2048, 1408, False), (64, 4, 1408, 2048, False),
                 (64, 8, 1408, 2048, False), (64, 20, 1408, 2048, False),
                 (64, 1, 2048, 1408, False), (3, 5, 100, 130, True),
-                (2, 70, 300, 66, True), (5, 16, 777, 514, True)]
+                (2, 70, 300, 66, True), (5, 16, 777, 514, True),
+                (4, 2, 200, 131, False), (3, 3, 1000, 130, False),
+                (2, 16, 1000, 260, True), (6, 8, 40, 4100, False),
+                (1, 4, 333, 9, True)]
 
 
 @pytest.mark.parametrize("E,M,K,N,strided", EXPERT_CASES)

@@ -348,3 +348,55 @@ def test_k3_int8_matches_plain_and_noise_bit_exact(M, K, N, transposed, dev):
     assert torch.equal(k3.emt_matmul(eye[rows], (q, scale), sig, **kw),
                        ref[rows]), p
     assert torch.equal(k3.emt_matmul(eye, (q, scale), sig, **kw), ref), p
+
+
+# (M, K, N, layout) for the n-major int8 GEMV (M <= 16, the ring of 32-row
+# stages): every row template (1-4, 8, 16); level rows 16-byte aligned
+# ("contiguous", N a multiple of 16; "padded", N ragged in a row stride
+# rounded up to 16, so a row's last copy is partial) or not ("offset",
+# one byte in: the synchronous loads); K not a multiple of the stage's 32
+# rows, slabs split (most) or not ((4, 96, 4100)); x a strided view
+# ("x_view").
+K3_INT8_RING_CASES = [(1, 1000, 144, "contiguous"), (2, 555, 200, "padded"),
+                      (3, 4100, 130, "padded"), (4, 96, 4100, "padded"),
+                      (8, 777, 272, "contiguous"), (16, 300, 208, "offset"),
+                      (4, 1152, 6912, "x_view"), (16, 6912, 1152, "contiguous"),
+                      (8, 33, 16, "offset"), (4, 1000, 1001, "offset")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,layout", K3_INT8_RING_CASES)
+def test_k3_int8_gemv_edges(M, K, N, layout):
+    """The int8 GEMV at its edges: within 1e-5 of the plain version, two
+    calls bit-identical, rows of I the noisy dequantized weight bit for
+    bit, and the product bit-identical to the float32 GEMV's on
+    dequantize(q, scale) (one order of every column's sum)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    from repro_torch.core import noise
+    cuda = torch.device("cuda")
+    g = torch.Generator(device=cuda).manual_seed(7 * M + K + N)
+    x = torch.randn((M, K + 5), generator=g, device=cuda)
+    x = x[:, 3:K + 3] if layout == "x_view" else x[:, :K].contiguous()
+    width = {"padded": -(-N // 16) * 16, "offset": N + 1}.get(layout, N)
+    full = torch.randint(-127, 128, (K, width), generator=g, device=cuda,
+                         dtype=torch.int8)
+    q = full[:, 1:] if layout == "offset" else full[:, :N]
+    scale = torch.rand(N, generator=g, device=cuda) / 100
+    dev = DeviceModel()
+    rho = torch.tensor(3.5, device=cuda)
+    sig = dev.sigma_rel(rho)
+    kw = dict(device=dev, seed=5, plane=321)
+    p = k3.plan(M, N, K, torch.cuda.get_device_properties(cuda)
+                .multi_processor_count, True)
+    y = k3.emt_matmul(x, (q, scale), sig, **kw)
+    assert _rel(y.cpu(), k3.plain(x, (q, scale), sig, **kw).cpu()) <= 1e-5, p
+    assert torch.equal(y, k3.emt_matmul(x, (q, scale), sig, **kw)), p
+    assert torch.equal(y, k3.emt_matmul(x, dequantize(q, scale), sig,
+                                        **kw)), p
+    ref = noise.fluctuate(dequantize(q, scale), rho, dev, noise.NoiseConfig(),
+                          seed=5, plane=321)
+    rows = torch.randperm(K, generator=g, device=cuda)[:M]
+    eye = torch.eye(K, device=cuda)
+    assert torch.equal(k3.emt_matmul(eye[rows], (q, scale), sig, **kw),
+                       ref[rows]), p

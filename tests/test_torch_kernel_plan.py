@@ -175,6 +175,60 @@ def test_k3_main_path_grids():
         k3.plan(20, 2048, 1408, SMS, True, experts=64)
 
 
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "experts"])
+def test_gemv_ring_geometry(int8):
+    """The int8 and experts GEMVs' ring as csrc/emt_matmul.cu sizes it: a
+    stage is the 8 warps' 4 int8 or 2 float32 rows of 128 columns, at
+    least three stages, the end-of-slab reduction's 8 x 4 x 128 floats fit
+    in it, the planner's 32-row chunks hold whole stages, and two CTAs
+    keep 24-32 KB in flight on an SM."""
+    r = k3.GEMV_RING[int8]
+    assert r["rows"] == 8 * (4 if int8 else 2)
+    assert r["stage_bytes"] == r["rows"] * 128 * (1 if int8 else 4)
+    assert r["stages"] >= 3
+    assert r["stages"] * r["stage_bytes"] >= 8 * 4 * 128 * 4
+    assert k3.GEMV_N["bk"] % r["rows"] == 0
+    in_flight = splitk.CTAS_PER_SM * (r["stages"] - 1) * r["stage_bytes"]
+    assert 24 * 1024 <= in_flight <= 32 * 1024
+
+
+# the ring's main-path calls (kind, E, M, K, N): gemma3-1b's n-major
+# projections as int8 levels at a decode step, moonshot-v1-16b-a3b's
+# expert stacks at a decode step's and a chunk step's rows
+RING_PATH = ([("int8", 1, 4, K, N) for K, N, n in GEMMA if n]
+             + [("experts", 64, M, K, N) for M in (4, 8)
+                for K, N in ((2048, 1408), (1408, 2048))])
+
+
+@pytest.mark.parametrize("kind,E,M,K,N", RING_PATH)
+def test_gemv_ring_plan(kind, E, M, K, N):
+    """At the ring's path shapes the float weight's cut (the int8 entry
+    plans as the float one, the experts' GEMV as a one-expert stack)
+    gives slabs of whole ring stages, and two CTAs' rings, x rows and
+    statistics fit the shared memory an SM gives its CTAs."""
+    int8 = kind == "int8"
+    p = k3.plan(M, N, K, SMS, True, experts=E, tiled=not int8)
+    assert (p.bn, p.bk, p.E) == (128, 32, E)
+    assert p.k_slab % k3.GEMV_RING[int8]["rows"] == 0
+    assert (splitk.CTAS_PER_SM * (k3.gemv_ring_smem(M, p.k_slab, int8)
+                                  + k3.RESERVED_SMEM) <= k3.SMEM_PER_SM)
+    one = k3.plan(M, N, K, SMS, True, experts=1, tiled=not int8)
+    assert (one.k_slab, one.bk) == (k3.plan(M, N, K, SMS, True).k_slab, 32)
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8, 16])
+def test_gemv_ring_fits_at_every_row_template(M):
+    """The largest slab the planner gives a row template (x rows within
+    GEMV_X_BYTES) still fits two CTAs of either ring on an SM."""
+    rows = M if M <= 4 else 8 if M <= 8 else 16
+    k_slab = k3.GEMV_X_BYTES // (4 * rows) // 32 * 32
+    p = k3.plan(M, 128, 100 * k_slab, 1, True)
+    assert p.k_slab == k_slab
+    for int8 in (True, False):
+        assert (splitk.CTAS_PER_SM * (k3.gemv_ring_smem(M, k_slab, int8)
+                                      + k3.RESERVED_SMEM) <= k3.SMEM_PER_SM)
+
+
 @pytest.mark.parametrize("M", [4, 64])
 @pytest.mark.parametrize("K,N", [(1152, 6912), (6912, 1152)])
 def test_k5_plan_keeps_its_split_counts(M, K, N):
@@ -271,6 +325,40 @@ def test_two_state_int_threshold_matches_the_float_compare():
                                               2 ** 32 - 1])]).clamp(0)
         want = hashrng.bits_to_state(bits, probs) == 1
         assert torch.equal(bits >= t2, want), probs
+
+
+def test_folded_hash_matches_hash_counters():
+    """The GEMV ring's hash (csrc/common.cuh hash_mix_folded, modelled
+    step by step): the column term pre-shifted once per thread, the row
+    term with the seed and plane once per row, one XOR an element, and
+    the xorshift pair between the two finalize rounds folded into one
+    constant; the bits of hashrng.hash_counters at random counters and
+    at the edges of uint32."""
+    from repro_torch.core import hashrng
+    mul = hashrng._mul
+    gen = torch.Generator().manual_seed(0)
+    edge = torch.tensor([0, 1, 2 ** 16 - 1, 2 ** 16, 2 ** 31, 2 ** 32 - 1])
+    row = torch.cat([torch.randint(0, 2 ** 32, (20000,), generator=gen,
+                                   dtype=torch.int64), edge.repeat(6)])
+    col = torch.cat([torch.randint(0, 2 ** 32, (20000,), generator=gen,
+                                   dtype=torch.int64),
+                     edge.repeat_interleave(6)])
+
+    def pre(t):
+        return t ^ (t >> 16)
+
+    for seed, plane in ((0, 0), (99, 1234), (2 ** 32 - 1, 7)):
+        pks = pre(mul(torch.tensor(plane), 0xC2B2AE35) ^ seed)
+        x = pre(mul(col, 0x85EBCA6B)) ^ pre(mul(row, 0x9E3779B9)) ^ pks
+        x = mul(x, 0x7FEB352D)
+        x = x ^ (x >> 15)
+        x = mul(x, 0x846CA68B)
+        x = x ^ (0x68E31DA4 ^ (0x68E31DA4 >> 16))
+        x = mul(x, 0x7FEB352D)
+        x = x ^ (x >> 15)
+        x = mul(x, 0x846CA68B)
+        x = x ^ (x >> 16)
+        assert torch.equal(x, hashrng.hash_counters(seed, row, col, plane))
 
 
 # The attention kernels' shapes: gemma3-1b decode (K1: KV 1, G 4, hd 256)
