@@ -200,7 +200,14 @@ product term is 4 x 2 MNK TF32 FLOPs, the fourth product being the price
 of x = I returning w~ bit for bit (w~ split in three pieces; 3 products,
 as dx's, are printed beside it for the training step), and the FP32-pipe
 bound of the same work is printed beside it (``chunk_fp32_bound_ms``,
-``fp32_bound_ms``).
+``fp32_bound_ms``).  K5 above 16 rows (the mixed chunk step, the CNN's
+A+B+C training) runs on the tensor cores as well, the noisy weight of
+each plane in three BF16 pieces: its chunk bound's product term is 3 x 2
+MNK BF16 FLOPs a plane over the 989 TFLOP/s BF16 rate, beside the bytes
+and its hash's ALU-pipe operations
+(``chunk_bound_term`` names the term that sets it); ``cnn_device_ms`` is
+the device time of the 13 K5 calls of one vgg16_cifar A+B+C step, replayed
+on their recorded inputs.
 """
 from __future__ import annotations
 
@@ -220,6 +227,8 @@ FP32_FLOPS = 67e12
 # the tensor cores' dense TF32 rate (NVIDIA's H100 SXM data sheet, 700 W);
 # a 3xTF32 product does 3 x 2 MKN TF32 FLOPs
 TF32_FLOPS = 495e12
+# and their dense BF16 rate (K5 above 16 rows: three BF16 products a plane)
+BF16_FLOPS = 989e12
 # 32-bit integer operations on the ALU pipe (bit logic, shifts, compares,
 # selects): 64 INT32 lanes per SM x 132 SMs x 1.98 GHz (the H100 SXM's
 # boost clock).  Integer multiplies (IMAD) issue to the FP32 (FMA) pipe.
@@ -231,18 +240,31 @@ INT32_OPS = 64 * 132 * 1.98e9
 # 8 XOR, 4 IMAD), compare + select, w * factor.  K5's GEMV (M <= 16): per
 # plane hash_mix_pre (5 shifts, 7 XOR, 4 IMAD) and compare + select of
 # the element's two noisy values; per element hash_rc and its pre-shift
-# (2 XOR, 1 shift, 2 IMAD) and those two values (2 FMUL).  K5's tiled
-# kernel (M > 16): per plane hash_mix, compare + select and w * factor;
-# per element hash_rc.  scripts/sass_ops.py counts the GEMV loops' SASS
-# on sm_90a: K5's plane loop issues 7 LOP3, 5 SHF, 1 ISETP, 1 FSEL, 4 IMAD
-# and M FFMA per element-plane (plus ~0.75 of loop control), K3's K walk
-# 17.4 ALU-pipe operations per element, ~25 instructions in all: below
-# the ALU pipe's 64 lanes, 128 an SM a clock issue.
+# (2 XOR, 1 shift, 2 IMAD) and those two values (2 FMUL).  K5 above 16
+# rows counts the function's own work, not its kernel's: per plane
+# hash_mix_folded on the element's pre-shifted row and column terms (a
+# 3-input XOR, three shift/XOR pairs and a constant XOR: 8 ALU ops, 4
+# IMAD), a compare and a select; per element its two noisy values (2
+# FMUL); the row and column terms once a row and a column (not counted).
+# What its kernel issues is printed beside the bound (K5_TC_ISSUE_ALU).
+# scripts/sass_ops.py: K5's GEMV plane loop issues 7 LOP3, 5 SHF, 1 ISETP,
+# 1 FSEL, 4 IMAD and M FFMA per element-plane (plus ~0.75 of loop
+# control), K3's K walk 17.4 ALU-pipe operations per element, ~25
+# instructions in all: below the ALU pipe's 64 lanes, 128 an SM a clock
+# issue.
 HASH_OPS = {
     "K3": dict(alu=17, imad=6, fmul=1),
     "K5 GEMV": dict(alu=14, imad=4, fmul=0, alu_el=3, imad_el=2, fmul_el=2),
-    "K5 tiled": dict(alu=16, imad=4, fmul=1, alu_el=1, imad_el=2, fmul_el=0),
+    "K5 tc": dict(alu=10, imad=4, fmul=0, fmul_el=2),
 }
+# ALU-pipe instructions that bitserial_tc's plane loop issues an
+# element-plane on a two-state corner, as scripts/sass_ops.py counts its
+# SASS on sm_90a (one row tile; 4.81 IMAD-type, 21.25 in all with the
+# loop's uniform and wgmma instructions): beyond the function's 10, the
+# loop's control and addresses, the mask's build and one 3-input logic
+# operation a piece to select the three BF16 pieces.  The kernel's issue
+# cost: this over the element-planes it hashes, once per CTA row of x.
+K5_TC_ISSUE_ALU = 13.38
 ARCH = "gemma3-1b"
 SEAMLESS = "seamless-m4t-medium"
 # the MoE path: moonshot-v1-16b-a3b at its published widths on the "mixed"
@@ -309,17 +331,19 @@ CNN_PLAIN_TOL = 1e-2
 
 
 def bound(nbytes: float, flops: float, alu: float = 0.0, fma: float = 0.0,
-          tc: float = 0.0):
+          tc: float = 0.0, bf16: float = 0.0):
     """(ms, "bytes" or "operations", the term that bounds): the largest of
     the bytes over the memory rate, the FP32 pipe's operations (the FLOPs
     and `fma` other operations there, IMAD and FMUL, two FLOPs' worth
     each), the integer ALU pipe's `alu` operations and, for a kernel on
-    the tensor cores, its `tc` TF32 FLOPs, over their peak rates."""
+    the tensor cores, its `tc` TF32 FLOPs and `bf16` BF16 FLOPs, over
+    their peak rates."""
     terms = [(nbytes / HBM_BPS * 1e3, "bytes", "bytes"),
              ((flops + 2 * fma) / FP32_FLOPS * 1e3, "operations",
               "FP32 pipe" if fma else "FP32 FLOPs"),
              (alu / INT32_OPS * 1e3, "operations", "INT32 ALU pipe"),
-             (tc / TF32_FLOPS * 1e3, "operations", "3xTF32 tensor cores")]
+             (tc / TF32_FLOPS * 1e3, "operations", "3xTF32 tensor cores"),
+             (bf16 / BF16_FLOPS * 1e3, "operations", "BF16 tensor cores")]
     return max(terms, key=lambda t: t[0])
 
 
@@ -331,6 +355,31 @@ def hash_ops(kind: str, elements: int, planes: int = 1):
     fma = elements * ((c["imad"] + c["fmul"]) * planes + c.get("imad_el", 0)
                       + c.get("fmul_el", 0))
     return alu, fma
+
+
+def k5_bound(k5, calls):
+    """K5's bound over `calls`, (M, K, N, planes) each: (bound(...), the
+    bytes, the ALU-pipe operations, the ms of the tensor-core kernel's
+    ALU-pipe issue).  Bytes: each input read once, y written once.
+    Products: FP32 FLOPs on the GEMV (M <= 16); above, three BF16
+    products a plane (the weight in three pieces) on the tensor cores.
+    The hash and its select on every weight element and plane (HASH_OPS).
+    The issue: K5_TC_ISSUE_ALU over the element-planes the kernel hashes,
+    its 128-column tiles by its CTA rows (k5.tc_rows)."""
+    nbytes = flops = alu = fma = bf16 = hashed = 0
+    for M, K, N, bits in calls:
+        nbytes += 4 * (M * K + K * N + M * N)
+        gemv = M <= k5.GEMV_MAX_M
+        if gemv:
+            flops += 2 * M * N * K * bits
+        else:
+            bf16 += 3 * 2 * M * N * K * bits
+            bn, rows = k5.TC["bn"], k5.tc_rows(M)
+            hashed += K * -(-N // bn) * bn * -(-M // rows) * bits
+        a, f = hash_ops("K5 GEMV" if gemv else "K5 tc", N * K, bits)
+        alu, fma = alu + a, fma + f
+    return (bound(nbytes, flops, alu, fma, bf16=bf16), nbytes, alu,
+            K5_TC_ISSUE_ALU * hashed / INT32_OPS * 1e3)
 
 
 def share(bound_ms: float, ms) -> str:
@@ -946,8 +995,9 @@ class Smoke:
             if (K, N) in seen:
                 continue
             seen.add((K, N))
-            # levels 2^p on the identity (the tiled kernel) and on BATCH of
-            # its rows (the GEMV kernel) return 2^p x plane p's noisy weight
+            # levels 2^p on the identity (the tensor-core kernel) and on
+            # BATCH of its rows (the GEMV kernel) return 2^p x plane p's
+            # noisy weight
             eye = torch.eye(K, device=self.dev)
             rows = torch.randperm(K, generator=gen, device=self.dev)[:BATCH]
             exact = []
@@ -1010,26 +1060,16 @@ class Smoke:
         plain_ms = cuda_time(lambda: run(k.plain, xs), 1, warmup=1)
 
         def step_bound(inputs, idx=range(len(prepared))):
-            """Bytes (each input read once, y written once), FP32 FLOPs and
-            the hash's and select's operations (every weight element on
-            every plane, as the kernel that serves M computes them:
-            HASH_OPS), and the share of (k, plane) pairs whose plane is not
-            zero in every row."""
-            nbytes = flops = alu = fma = pairs = total = 0
-            for i in idx:
-                x, (wq, *_) = inputs[i], prepared[i]
-                M, (K, N) = x.shape[0], wq.shape
-                nbytes += 4 * (M * K + K * N + M * N)
-                flops += 2 * M * N * K * bits
-                a, f = hash_ops("K5 GEMV" if M <= k.GEMV_MAX_M
-                                else "K5 tiled", N * K, bits)
-                alu, fma = alu + a, fma + f
-                pairs += plane_pairs(x, bits)
-                total += K * bits
-            return bound(nbytes, flops, alu, fma), nbytes, alu, pairs / total
+            """k5_bound of the calls, and the share of (k, plane) pairs
+            whose plane is not zero in every row."""
+            pairs = sum(plane_pairs(inputs[i], bits) for i in idx)
+            total = sum(prepared[i][0].shape[0] * bits for i in idx)
+            calls = [(inputs[i].shape[0], *prepared[i][0].shape, bits)
+                     for i in idx]
+            return (*k5_bound(k, calls), pairs / total)
 
-        (b_ms, by, bterm), nbytes, alu, need = step_bound(xs)
-        (cb_ms, cby, cterm), _, calu, _ = step_bound(xc)
+        (b_ms, by, bterm), nbytes, alu, _, need = step_bound(xs)
+        (cb_ms, cby, cterm), _, calu, c_issue, _ = step_bound(xc)
         self.records["emt_bitserial"] = dict(
             name="emt_bitserial", route="cuda",
             source="src/repro_torch/kernels/csrc/emt_bitserial.cu",
@@ -1038,6 +1078,7 @@ class Smoke:
             bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
             library_device_ms=lib_dev_ms, chunk_ms=chunk_ms,
             chunk_device_ms=chunk_dev_ms, chunk_bound_ms=cb_ms,
+            chunk_bound_term=cterm, chunk_issue_ms=c_issue,
             chunk_library_ms=chunk_lib_ms,
             chunk_library_device_ms=chunk_lib_dev_ms)
         print(f"  K5 per decode step ({len(prepared)} calls, M={BATCH}, "
@@ -1058,7 +1099,10 @@ class Smoke:
               f"{chunk_ms / chunk_lib_ms:.3f}x), bound {cb_ms:.3f} ms "
               f"({cterm}; "
               f"{calu / 1e9:.3f} G ALU-pipe ops), roofline share "
-              f"{100 * cb_ms / chunk_ms:.2f}%")
+              f"{100 * cb_ms / chunk_ms:.2f}% (of the device time "
+              f"{share(cb_ms, chunk_dev_ms)}); the kernel's ALU-pipe issue "
+              f"as compiled {c_issue:.3f} ms ({K5_TC_ISSUE_ALU} an "
+              f"element-plane, scripts/sass_ops.py)")
         # per distinct (K, N) at M = 4: which calls lead the step
         groups = {}
         for i, (wq, *_) in enumerate(prepared):
@@ -1071,7 +1115,7 @@ class Smoke:
                     k.emt_bitserial(x, wq, sig, base_plane=plane, **kw)
 
             g_dev = device_ms(run_group, keys)
-            (g_b, _, g_term), _, _, g_need = step_bound(xs, idx)
+            (g_b, _, g_term), _, _, _, g_need = step_bound(xs, idx)
             p = k.plan(BATCH, N, K, self.sms, True, bits)
             print(f"  K5 {K}x{N} at M={BATCH}: {len(idx)} calls a step, "
                   f"device time {fmt(g_dev, 4)}, bound {g_b:.4f} ms "
@@ -3314,6 +3358,7 @@ class Smoke:
             bound_by=by, library_ms=lib_ms, device_ms=dev_ms,
             library_device_ms=lib_dev_ms, chunk_ms=chunk_ms,
             chunk_device_ms=chunk_dev_ms, chunk_bound_ms=cb_ms,
+            chunk_bound_term=cterm,
             chunk_library_ms=chunk_lib_ms,
             chunk_library_device_ms=chunk_lib_dev_ms)
         p = [k3.plan(x.shape[1], w.shape[2], x.shape[2], self.sms, True,
@@ -3920,13 +3965,45 @@ class Smoke:
             del kern, gk, gp, gates_k, gates_p
             rho0 = {p: t.detach().clone() for p, t in
                     _flat(state["params"]) if p.endswith("rho_raw")}
-            per_step, losses = [], []
+            per_step, losses, k5_calls = [], [], []
             step = self._counted(train_step, per_step)
+
+            def recorded(xq, w, sig, **kw):
+                """K5 as the step calls it, its inputs kept (last step)."""
+                k5_calls.append((xq.detach(), w.detach(), sig.detach(), kw))
+                return k5.emt_bitserial(xq, w, sig, **kw)
+
             t0 = time.perf_counter()
             for i in range(CNN_STEPS):
-                state, m = step(state, data.batch(CNN_BATCH, i))
+                last = bitserial and i == CNN_STEPS - 1
+                with (self._ops_through(_emt_bitserial=recorded) if last
+                      else contextlib.nullcontext()):
+                    state, m = step(state, data.batch(CNN_BATCH, i))
                 losses.append(float(m["loss"]))
             secs = time.perf_counter() - t0
+            if k5_calls:
+                # the step's K5 calls replayed on their inputs: their
+                # device time alone (the kernel and its split sums)
+                def replay():
+                    for xq, w, sig, kw in k5_calls:
+                        k5.emt_bitserial(xq, w, sig, **kw)
+                cnn_dev = device_ms(replay, ("bitserial", "split_sum"),
+                                    agree=True)
+                shapes = sorted({(x.shape[0], *w.shape)
+                                 for x, w, *_ in k5_calls})
+                (cnn_b, _, cnn_term), _, _, cnn_issue = k5_bound(
+                    k5, [(x.shape[0], *w.shape, kw.get("bits", 7))
+                         for x, w, _, kw in k5_calls])
+                print(f"  vgg16_cifar A+B+C: the {len(k5_calls)} K5 calls of "
+                      f"a step (M, K, N: {shapes}), device time "
+                      f"{fmt(cnn_dev)}, bound {cnn_b:.3f} ms ({cnn_term}), "
+                      f"share of the device time {share(cnn_b, cnn_dev)}; "
+                      f"the kernel's ALU-pipe issue as compiled "
+                      f"{cnn_issue:.3f} ms")
+                self.records.setdefault("emt_bitserial", {}).update(
+                    cnn_device_ms=cnn_dev, cnn_bound_ms=cnn_b,
+                    cnn_bound_term=cnn_term)
+                del k5_calls[:]
             params = dict(_flat(state["params"]))
             moved = sum(not torch.equal(params[p], v) for p, v in rho0.items())
             rho = [params[p].item() for p in rho0]

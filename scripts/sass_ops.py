@@ -1,5 +1,6 @@
 """Count, from their SASS, the instructions that the noisy matmuls' GEMV
-kernels issue per (weight element, plane), by the pipe that executes them.
+kernels and K5's tensor-core kernel issue per (weight element, plane), by
+the pipe that executes them.
 
     PYTHONPATH=src python scripts/sass_ops.py [--dump DIR]
 
@@ -9,7 +10,11 @@ kernel at M = 4 on a two-state corner, takes every loop (a backward branch)
 that holds FFMAs: K5's plane loop, K3's K walk (the float32 GEMV's, and
 the int8 and experts GEMVs' ring walk).  An element-plane issues M
 FFMAs into the accumulators, so a loop's opcodes over its FFMAs / M are the
-opcodes per element-plane.  It prints them grouped by pipe, as Nsight
+opcodes per element-plane.  K5's tensor-core kernel (``bitserial_tc`` on a
+two-state corner, one and two row tiles): its plane loop, the loop that
+holds the HGMMAs (wgmma), 6 a plane and row tile (two k16 steps, three
+pieces) for a consumer thread's 16 weight elements, so an element-plane
+is 3 / 8 of an HGMMA a row tile.  It prints them grouped by pipe, as Nsight
 Compute's pipeline descriptions group them on sm_90: the integer ALU pipe
 (bit and logic operations, shifts, compares, selects, integer adds), the
 FMA pipe (FP32 FFMA, FMUL, FADD, and the integer multiplies IMAD), the
@@ -31,8 +36,14 @@ import sys
 from repro_torch.kernels import _build
 
 M = 4
+# the opcode that marks a kernel's loop, and its count per element-plane
+# (FFMA, M for the GEMVs unless named here)
+MARKERS = {"K5 bitserial_tc<2, 1>": ("HGMMA", 0.375),
+           "K5 bitserial_tc<2, 2>": ("HGMMA", 0.75)}
 KERNELS = {            # (source, mangled-name fragment of <M = 4, NS = 2>)
     "K5 bitserial_gemv_n<4, 2>": ("emt_bitserial", "bitserial_gemv_nILi4ELi2E"),
+    "K5 bitserial_tc<2, 1>": ("emt_bitserial", "bitserial_tcILi2ELi1E"),
+    "K5 bitserial_tc<2, 2>": ("emt_bitserial", "bitserial_tcILi2ELi2E"),
     "K5 bitserial_gemv_k<4, 2>": ("emt_bitserial", "bitserial_gemv_kILi4ELi2E"),
     "K3 emt_matmul_gemv_n<4, 2>": ("emt_matmul", "emt_matmul_gemv_nILi4ELi2E"),
     "K3 emt_matmul_gemv_ring<4, 2, int8>": (
@@ -115,13 +126,15 @@ def loops(insns, labels):
 def report(label: str, text: str) -> None:
     insns, labels = parse(text)
     found = False
+    marker, per_plane = MARKERS.get(label, ("FFMA", M))
     for lo, hi in sorted(loops(insns, labels), key=lambda s: s[1] - s[0]):
         body = [op for a, op, _ in insns if lo <= a <= hi]
         ffma = sum(op.split(".")[0] == "FFMA" for op in body)
-        if not ffma:
+        marks = sum(op.split(".")[0] == marker for op in body)
+        if not marks:
             continue
         found = True
-        per = ffma / M                       # element-planes an iteration
+        per = marks / per_plane              # element-planes an iteration
         by_pipe = collections.Counter(pipe(op) for op in body)
         ops = collections.Counter(op for op in body)
         print(f"{label}: loop {lo:#x}-{hi:#x}, {len(body)} instructions, "
@@ -129,11 +142,11 @@ def report(label: str, text: str) -> None:
               + ", ".join(f"{p} {by_pipe[p] / per:.2f}"
                           for p in ("alu", "fma", "lsu", "other"))
               + f" (IMAD {sum(o.startswith('IMAD') for o in body) / per:.2f},"
-              f" FFMA {ffma / per:.2f})")
+              f" FFMA {ffma / per:.2f}, {marker} {marks / per:.2f})")
         print("    " + ", ".join(f"{op} {n / per:.2f}"
                                  for op, n in ops.most_common()))
     if not found:
-        raise SystemExit(f"{label}: no loop with FFMAs found")
+        raise SystemExit(f"{label}: no loop with {marker}s found")
 
 
 def main() -> int:

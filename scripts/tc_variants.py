@@ -1,6 +1,7 @@
-"""Time variants of K3's tensor-core kernels (the 3xTF32 template,
-src/repro_torch/kernels/csrc/emt_tc.cuh; K3's forward at M > 16 in
-emt_matmul_fwd.cu, its backward in emt_matmul_bwd.cu) on the card.
+"""Time variants of the tensor-core kernels on the card: K3's (the 3xTF32
+template, src/repro_torch/kernels/csrc/emt_tc.cuh; K3's forward at M > 16
+in emt_matmul_fwd.cu, its backward in emt_matmul_bwd.cu) and K5's above
+16 rows (the K5 mode below).
 
 Each variant is a copy of the kernel sources with one stage removed or
 changed by a text substitution, built with the port's nvcc flags into
@@ -25,6 +26,33 @@ K3-dw from the kernel sources of another checkout DIR, e.g. an unpacked
 `git archive` of the parent commit, as the variant "baseline").  A name
 repeated in --variants is built once and timed at each place, so
 variants can alternate on one card.  Needs a CUDA card and nvcc.
+
+K5 mode (`--kernels k5`; src/repro_torch/kernels/csrc/emt_bitserial.cu
+above 16 rows): python scripts/tc_variants.py --kernels k5
+[--variants base,no_hash,no_mma,no_loads] [--baseline DIR] [--splits ...]
+builds this checkout's K5 source with each variant's substitution into
+build/tc_variants/k5/this/ (and, with --baseline, DIR's into
+build/tc_variants/k5/baseline/, timed first), loads each checkout's own
+wrapper module (kernels/emt_bitserial.py, its own plan) with the variant
+library in place of the port's, and prints the device time
+(torch.profiler, the kernel and its split sum; chip_smoke.device_ms with
+`agree`) of the mixed path's chunk step (78 calls at M = 64, gemma3-1b's
+wg/wu/wd, each on its own weight) and of vgg16_cifar's 13 calls of an
+A+B+C step (batch 32, 7 planes), per shape, beside each variant's error
+against the plain version.  Variants, each with its text in the
+tensor-core body and, where named, in the tiled body that it replaced
+(the parent commit's): base; no_hash (the noise hash removed: the
+tensor-core body's state bits are its (row, col) and plane terms XORed,
+the compare and select kept; the tiled body's noisy weight is the raw
+weight); no_mma (no products: the tensor-core body issues no wgmma, and
+the compiler may then drop some of the fragments' build; the tiled body
+keeps one add a thread and k-step in place of its 4 x 4 FMAs); no_loads
+(the weight synthesized from its row and column instead of read).  The
+tensor-core body's alone: no_planes (the producer stores no planes) and
+rows64 (one 64-row tile a CTA at every M, by the plan the kernel follows:
+above 64 rows each weight element is hashed once per 64 rows, not 128).
+A variant that does not apply to a checkout's source is reported and
+skipped.
 """
 from __future__ import annotations
 
@@ -116,6 +144,66 @@ VARIANTS = {
          "  static constexpr int kConsumerRegs = 160;\n  struct Args {\n"
          "    float* out;\n    int M, N;\n    const uint32_t* bits;")],
 }
+# K5 (emt_bitserial.cu above 16 rows): name -> alternatives, each a list of
+# (old text, new text); the first alternative whose texts are all found in
+# the checkout's source is applied (the tensor-core body, then the tiled
+# body that it replaced); a variant with none found does not apply there
+K5_VARIANTS = {
+    "base": [[]],
+    # no noise hash: the tensor-core body's state bits are its (row, col)
+    # and plane terms XORed, the compare and select kept; the tiled body's
+    # noisy weight is the raw weight
+    "no_hash": [
+        [("      const uint32_t h0 = repro::hash_mix_folded(prk[r] ^ pcn[c], "
+          "pks);\n"
+          "      const uint32_t h1 = repro::hash_mix_folded(prk[r + 1] ^ "
+          "pcn[c], pks);\n",
+          "      const uint32_t h0 = prk[r] ^ pcn[c] ^ pks;\n"
+          "      const uint32_t h1 = prk[r + 1] ^ pcn[c] ^ pks;\n")],
+        [("        ws[kk][nn] = noisy_rc<NS>(wv[e], rc[e], pk, F);\n",
+          "        ws[kk][nn] = wv[e];\n")]],
+    # no products: the tensor-core body issues no wgmma (and the compiler
+    # may then drop some of the fragments' build); the tiled body keeps
+    # one add a thread and k-step in place of its 4 x 4 FMAs
+    "no_mma": [
+        [("      wgmma_rs(d[r], a[2], db, !fresh);\n"
+          "      wgmma_rs(d[r], a[1], db, 1);\n"
+          "      wgmma_rs(d[r], a[0], db, 1);\n", "      (void)db;\n")],
+        [("          acc[i][0] = fmaf(a[i], b.x, acc[i][0]);\n"
+          "          acc[i][1] = fmaf(a[i], b.y, acc[i][1]);\n"
+          "          acc[i][2] = fmaf(a[i], b.z, acc[i][2]);\n"
+          "          acc[i][3] = fmaf(a[i], b.w, acc[i][3]);\n",
+          "          if (i == 0) acc[0][0] += b.x;\n")]],
+    # the weight synthesized from its row and column instead of read
+    "no_loads": [
+        [("        cp_async8(dst, bytes ? p : w, bytes);\n",
+          "        (void)bytes;\n"),
+         ("      const float2 v = *reinterpret_cast<const float2*>(\n"
+          "          wring + 2 * (((t & 1) * 8 + r) * kConsumers + tid));\n"
+          "      wr[2 * r] = v.x;\n"
+          "      wr[2 * r + 1] = v.y;\n",
+          "      wr[2 * r] = (float)(k0 + r);\n"
+          "      wr[2 * r + 1] = (float)(na - r);\n")],
+        [("      wv[e] = (k < ke && n < N) ? w[k * swk + n * swn] : 0.f;\n",
+          "      wv[e] = (float)(k ^ n);\n")]],
+    # the producer stores no planes: the ring's tiles are left as they are
+    "no_planes": [
+        [("          *reinterpret_cast<uint4*>(st + chunk_at(pr + 32 * i, cg)) =\n"
+          "              make_uint4(v[0], v[1], v[2], v[3]);\n",
+          "          (void)v;\n")]],
+    # one 64-row tile a CTA at every M (K5_PLAN_ROWS: the kernel takes the
+    # plan's rows): each weight element hashed once per 64 rows, not 128
+    "rows64": [[]],
+}
+# a variant's CTA rows in the wrapper's plan, where not tc_rows(M)'s (not
+# applicable to a wrapper without tc_rows)
+K5_PLAN_ROWS = {"rows64": 64}
+# vgg16_cifar's K5 calls of a training step at batch 32 (M, K, N, calls):
+# each stage's first convolution from the previous stage's channels, its
+# three others, and the head
+CNN_STEP = [(32768, 27, 64, 1), (32768, 576, 64, 3), (8192, 576, 128, 1),
+            (8192, 1152, 128, 3), (2048, 1152, 256, 1), (2048, 2304, 256, 3),
+            (32, 256, 10, 1)]
 SHAPES = {"wq": (1152, 1024, False), "wk": (1152, 256, False),
           "wo": (1024, 1152, False), "wg": (1152, 6912, False),
           "wd": (6912, 1152, False), "unembed": (1152, 262144, True)}
@@ -155,6 +243,162 @@ def build(names, sources, baseline=None):
               flush=True)
 
 
+def build_k5(names, csrc, tag):
+    """The K5 source of `csrc` with each variant's substitution, built
+    into OUT/k5/<tag>/<name>/emt_bitserial.so; the names built (a variant
+    none of whose alternatives is found is reported and left out)."""
+    from repro_torch.kernels import _build
+    procs = {}
+    for name in names:
+        d = os.path.join(OUT, "k5", tag, name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(csrc, d)
+        path = os.path.join(d, "emt_bitserial.cu")
+        text = open(path).read()
+        for alt in K5_VARIANTS[name]:
+            if all(old in text for old, _ in alt):
+                for old, new in alt:
+                    text = text.replace(old, new)
+                break
+        else:
+            print(f"k5 {tag} {name}: does not apply to this source",
+                  flush=True)
+            continue
+        open(path, "w").write(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", d, "-o",
+             os.path.join(d, "emt_bitserial.so"), path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(f"k5 {tag} {name}: nvcc failed\n{log[-3000:]}")
+        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores",
+                                                log))
+        regs = re.findall(r"Used (\d+) registers", log)
+        print(f"k5 {tag} {name}: built, registers {regs}, {spills} bytes "
+              f"of spill stores in all", flush=True)
+    return list(procs)
+
+
+def run_k5(a) -> None:
+    """The K5 mode: the chunk step's and the CNN step's calls, timed per
+    variant, on --baseline's checkout first where given (module
+    docstring)."""
+    import importlib.util
+
+    import torch
+    sys.path.insert(0, ROOT)
+    from chip_smoke import device_ms
+    from repro_torch.core.device import DeviceModel
+    from repro_torch.kernels import _build, splitk
+    names = list(dict.fromkeys(a.variants.split(",")))
+    checkouts = [("baseline", os.path.abspath(a.baseline))] if a.baseline \
+        else []
+    checkouts.append(("this", ROOT))
+    modules, built = {}, {}
+    for tag, root in checkouts:
+        spec = importlib.util.spec_from_file_location(
+            f"k5_{tag}", os.path.join(root, "src", "repro_torch", "kernels",
+                                      "emt_bitserial.py"))
+        modules[tag] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(modules[tag])
+        planned = hasattr(modules[tag], "tc_rows")
+        for n in names:
+            if n in K5_PLAN_ROWS and not planned:
+                print(f"k5 {tag} {n}: does not apply to this wrapper")
+        built[tag] = build_k5(
+            [n for n in names if planned or n not in K5_PLAN_ROWS],
+            os.path.join(root, "src", "repro_torch", "kernels", "csrc"), tag)
+        print(f"k5 {tag}: {root}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    cuda = torch.device("cuda")
+    dev = DeviceModel()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    sig = dev.sigma_rel(torch.tensor(3.5, device=cuda))
+    bits = 7
+
+    def levels(M, K):
+        return torch.round(torch.randn((M, K), generator=gen, device=cuda)
+                           * 40).clamp(-127, 127)
+
+    groups = {}
+    for s, (K, N) in (("wg", (1152, 6912)), ("wu", (1152, 6912)),
+                      ("wd", (6912, 1152))):
+        groups["chunk", s] = [
+            (levels(64, K),
+             torch.randn((K, N), generator=gen, device=cuda) / 30, i)
+            for i in range(26)]
+    for M, K, N, calls in CNN_STEP:
+        groups["cnn", f"{M}x{K}x{N}"] = [
+            (levels(M, K),
+             torch.randn((K, N), generator=gen, device=cuda) / 30, i)
+            for i in range(calls)]
+    kw = dict(device=dev, bits=bits, seed=0)
+    ref = modules["this"].plain
+    want = {key: ref(*calls[0][:2], sig, base_plane=7 * calls[0][2], **kw)
+            for key, calls in groups.items()}
+    keys = ("bitserial", "split_sum")
+    splits = [int(v) for v in a.splits.split(",")] if a.splits else [None]
+    for tag, _ in checkouts:
+        k5 = modules[tag]
+        plan, rows = k5.plan, getattr(k5, "tc_rows", None)
+
+        def run(calls):
+            for x, w, i in calls:
+                k5.emt_bitserial(x, w, sig, base_plane=7 * i, **kw)
+
+        for sp in splits:
+            def forced(M, N, K, sms, n_major=True, bits=7, sp=sp):
+                p = plan(M, N, K, sms, n_major, bits)
+                if sp is None or M <= k5.GEMV_MAX_M:
+                    return p
+                per = splitk.cdiv(splitk.cdiv(K, p.bk), sp)
+                return splitk.Plan(M, N, K, p.bm, p.bn, p.bk,
+                                   splitk.cdiv(splitk.cdiv(K, p.bk), per),
+                                   per * p.bk)
+            k5.plan = forced
+            for name in [n for n in names if n in built[tag]]:
+                if rows is not None:
+                    k5.tc_rows = (rows if name not in K5_PLAN_ROWS else
+                                  lambda M, r=K5_PLAN_ROWS[name]: r)
+                _build._libs["emt_bitserial"] = ctypes.CDLL(
+                    os.path.join(OUT, "k5", tag, name, "emt_bitserial.so"))
+                k5._fn.cache_clear()
+                k5._launch.cache_clear()
+                cells = []
+                for path in dict.fromkeys(p for p, _ in groups):
+                    mine = {s: c for (p, s), c in groups.items() if p == path}
+                    total = device_ms(lambda: run([c for cs in mine.values()
+                                                   for c in cs]), keys,
+                                      agree=True)
+                    parts, worst = [], 0.0
+                    for s, calls in mine.items():
+                        t = device_ms(lambda: run(calls), keys, agree=True)
+                        x, w, i = calls[0]
+                        y = k5.emt_bitserial(x, w, sig, base_plane=7 * i,
+                                             **kw)
+                        r = want[path, s]
+                        worst = max(worst, ((y - r).abs().max()
+                                            / r.abs().max()).item())
+                        p = k5.plan(x.shape[0], w.shape[1], w.shape[0],
+                                    splitk.sm_count(0))
+                        parts.append(f"{s} " + ("not measured" if t is None
+                                                else f"{t:.4f}")
+                                     + f" ({p.splits} slabs)")
+                    cells.append(f"{path} " + ("not measured" if total is None
+                                               else f"{total:.4f} ms")
+                                 + f" ({', '.join(parts)}; rel {worst:.2e})")
+                where = "" if sp is None else f" splits {sp}"
+                print(f"k5 {tag} {name}{where}: " + " | ".join(cells),
+                      flush=True)
+        k5.plan = plan
+        if rows is not None:
+            k5.tc_rows = rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
@@ -167,6 +411,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tc_variants: needs a CUDA card", file=sys.stderr)
         return 2
+    if "k5" in a.kernels.split(","):
+        if a.variants == ",".join(VARIANTS):
+            a.variants = "base,no_hash,no_mma,no_loads"
+        run_k5(a)
+        a.kernels = ",".join(k for k in a.kernels.split(",") if k != "k5")
+        if not a.kernels:
+            return 0
     from repro_torch.core.device import DeviceModel
     from repro_torch.kernels import _build, splitk
     from repro_torch.kernels import emt_matmul as k

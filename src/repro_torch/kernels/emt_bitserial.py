@@ -7,8 +7,10 @@ with fresh hash noise on plane ``base_plane + p``, summed over the planes.
 The step seed is a run-time argument (the JAX Pallas wrapper's
 ``seed_static=0`` under jit is not copied: the kernel follows the path JAX
 serves on, ``decompose.bitserial_matmul_ref``).  The source and its design
-note: ``csrc/emt_bitserial.cu`` (a GEMV-style kernel for M <= 16, a tiled
-one above; both split K by :func:`plan`).
+note: ``csrc/emt_bitserial.cu`` (a GEMV-style kernel for M <= 16; above,
+``bitserial_tc`` on the tensor cores, the per-plane noisy weight built in
+registers, in three BF16 pieces, as wgmma's A operand; both split K by
+:func:`plan`).
 
 The wrapper is differentiable with JAX's ideal-matmul VJP
 (``repro/core/decompose.py::_bwd``, :func:`repro_torch.core.decompose.ideal_vjp`):
@@ -36,7 +38,10 @@ MAX_BITS = 24           # levels up to 2^24 are exact float32 integers
 # (templated on 1-4, 8 and 16); its CTA covers 128 columns of an n-major
 # weight, or 32 columns of any other, over slabs of whole 32-row bands, and
 # stages its slab's signed planes (4 * rows * bits * k_slab bytes), at most
-# GEMV_X_BYTES; the tiled kernel covers 64 x 64 outputs in 32-row K tiles.
+# GEMV_X_BYTES.  Above GEMV_MAX_M rows the tensor-core kernel's CTA covers
+# TC's 128 weight columns by tc_rows(M) x rows over a slab of 32-row
+# k-tiles, one CTA an SM (its registers: 384 threads, 216 each for the
+# consumers; its shared memory is checked by the source's static_assert).
 GEMV_MAX_M = 16
 GEMV_X_BYTES = 96 * 1024
 GEMV_N = dict(bn=128, bk=32, min_slab=64)
@@ -50,7 +55,16 @@ GEMV_K = dict(bn=32, bk=32, min_slab=64)
 # take M = 4's value, carried over, not measured (no main path runs them).
 # M = 8 and 16 (75 and 111 registers) aim at what an SM holds: 3 and 2.
 GEMV_CTAS_PER_SM = {1: 5, 2: 5, 3: 5, 4: 5, 8: 3, 16: 2}
-TILED = dict(bm=64, bn=64, bk=32, min_slab=256)
+TC = dict(bn=128, bk=32)
+TC_ROW_TILE = 64
+
+
+def tc_rows(M: int) -> int:
+    """The x rows of a tensor-core CTA at M rows: one 64-row tile up to
+    64 rows, two above (csrc/emt_bitserial.cu's template R, chosen from
+    the plan's bm), which share each plane's noisy weight, so a weight
+    element is hashed once per plane and 128 rows."""
+    return TC_ROW_TILE if M <= TC_ROW_TILE else 2 * TC_ROW_TILE
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,19 +84,20 @@ def gemv_rows(M: int) -> int:
 
 def plan(M: int, N: int, K: int, sms: int, n_major: bool = True,
          bits: int = 7) -> splitk.Plan:
-    """The kernel's cut of (M, K) @ (K, N) with `bits` planes: K split until
-    the grid holds the CTAs an SM holds at once (GEMV, M <= 16:
-    GEMV_CTAS_PER_SM, in whole 32-row bands, with the slab's staged planes
-    within GEMV_X_BYTES; tiled: two, what ~128 registers per thread allow,
-    in 32-row tiles with at least 256 rows a slab).  `n_major`: the
-    weight's N stride is 1."""
+    """The kernel's cut of (M, K) @ (K, N) with `bits` planes.  GEMV
+    (M <= 16): K split until the grid holds GEMV_CTAS_PER_SM CTAs an SM,
+    in whole 32-row bands, with the slab's staged planes within
+    GEMV_X_BYTES.  Tensor cores (above): TC's 128 columns by tc_rows(M)
+    rows a CTA, one CTA an SM, K in whole 32-row k-tiles by
+    splitk.plan_waves (the slab count that minimizes its model of waves,
+    k-tiles and partial sums).  `n_major`: the weight's N stride is 1."""
     if M <= GEMV_MAX_M:
         kw = GEMV_N if n_major else GEMV_K
         rows = gemv_rows(M)
         max_slab = GEMV_X_BYTES // (4 * rows * bits) // kw["bk"] * kw["bk"]
         return splitk.plan(M, N, K, bm=M, sms=sms, max_slab=max_slab,
                            per_sm=GEMV_CTAS_PER_SM[rows], **kw)
-    return splitk.plan(M, N, K, sms=sms, **TILED)
+    return splitk.plan_waves(M, N, K, sms=sms, bm=tc_rows(M), **TC)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -90,8 +105,8 @@ def _launch(index, M, N, K, sxm, sxk, swk, swn, bits):
     """(plan, the C entry's int64 dims array, its address) for one call
     shape on device `index`; the cache keeps the array alive."""
     p = plan(M, N, K, splitk.sm_count(index), swn == 1, bits)
-    dims = (ctypes.c_longlong * 10)(M, N, K, p.splits, p.k_slab, sxm, sxk,
-                                    swk, swn, bits)
+    dims = (ctypes.c_longlong * 11)(M, N, K, p.splits, p.k_slab, sxm, sxk,
+                                    swk, swn, bits, p.bm)
     return p, dims, ctypes.addressof(dims)
 
 

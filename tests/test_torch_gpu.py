@@ -337,14 +337,21 @@ def test_train_step_on_card_launches_k3_and_its_backward(cuda):
         assert _rel(a, b) <= 1e-4, path
 
 
-# (M, K, N, transposed): every GEMV row template (1-4, 8, 16) and the tiled
-# kernel (17, 64); both weight layouts; ragged N; K split into slabs (1024
-# with N = 130 on the tiled path, 4100 on the GEMV path).
+# (M, K, N, transposed): every GEMV row template (1-4, 8, 16) and the
+# tensor-core kernel (M > 16: 17 and 64 in one 64-row tile, 65, 130 and 300
+# in two to five; the CNN's first stage at K = 27 (2,048 of its 32,768
+# rows) and its head, 32 x 256 @ 256 x 10); both weight layouts; ragged N
+# (N = 10 and 64: one 128-column CTA, its second warpgroup past N); K not
+# a multiple of the 32-row k-tile, split into slabs (1024 with N = 130,
+# 1000, 777, 1500 and 256 on the tensor cores, 4100 on the GEMV path).
 K5_CASES = [(4, 96, 200, False), (64, 1024, 130, False), (3, 64, 300, True),
             (1, 1000, 260, False), (2, 555, 1001, False),
             (4, 1000, 262, True), (8, 4100, 130, False), (8, 700, 96, True),
             (16, 777, 514, False), (16, 300, 200, True),
-            (17, 1000, 130, False), (64, 1000, 300, True)]
+            (17, 1000, 130, False), (64, 1000, 300, True),
+            (65, 1000, 130, False), (130, 777, 200, True),
+            (300, 1500, 260, False), (2048, 27, 64, False),
+            (32, 256, 10, False)]
 
 
 @pytest.mark.parametrize("M,K,N,transposed", K5_CASES)
@@ -389,6 +396,50 @@ def test_k5_matches_plain_and_planes_bit_exact(cuda, M, K, N, transposed,
         assert torch.equal(wn, ref[rows]), (pl, p)
         assert torch.equal(k5.emt_bitserial(eye * 2.0 ** pl, w, sig, **kw),
                            ref), pl
+
+
+@pytest.mark.parametrize("M", [64, 200])
+@pytest.mark.parametrize("case", ["strided", "k_major_levels", "planes23"])
+def test_k5_tensor_cores_strided_levels_and_23_planes(cuda, case, M):
+    """The tensor-core kernel (M = 64, one 64-row tile, and 200, two CTAs
+    of two row tiles; K = 1000, not a multiple of its 32-row k-tile,
+    split) on levels that are a strided view (every second
+    column of a wider tensor, or the transpose of a (K, M) tensor: no
+    16-byte loads) and on 23 planes (the smoke's 24-bit DAC: levels up to
+    2^23 - 1, so one k-tile mixes terms of 2^22 and 2^0): within 1e-5 of
+    the plain version, two calls bit-identical, and 2^p x I bit-exact
+    with plane p's noisy weight."""
+    K, N = 1000, 300
+    dev = DeviceModel()
+    bits = 23 if case == "planes23" else 7
+    g = torch.Generator(device=cuda).manual_seed(7)
+    top = 2.0 ** bits - 1
+    scale = 2.0 ** (bits - 2)
+    if case == "strided":
+        wide = torch.randn((M, 2 * K), generator=g, device=cuda) * scale
+        xq = torch.round(wide).clamp(-top, top)[:, ::2]
+    elif case == "k_major_levels":
+        tall = torch.randn((K, M), generator=g, device=cuda) * scale
+        xq = torch.round(tall).clamp(-top, top).T
+    else:
+        xq = torch.round(torch.randn((M, K), generator=g, device=cuda)
+                         * scale).clamp(-top, top)
+    w = torch.randn((K, N), generator=g, device=cuda)
+    rho = torch.tensor(3.5, device=cuda)
+    sig = dev.sigma_rel(rho)
+    p = k5.plan(M, N, K, torch.cuda.get_device_properties(cuda)
+                .multi_processor_count, True, bits)
+    assert p.splits > 1
+    kw = dict(device=dev, bits=bits, seed=5, base_plane=77)
+    y = k5.emt_bitserial(xq, w, sig, **kw)
+    assert _rel(y, k5.plain(xq, w, sig, **kw)) <= 1e-5, (case, p)
+    assert torch.equal(y, k5.emt_bitserial(xq, w, sig, **kw)), case
+    eye = torch.eye(K, device=cuda)
+    for pl in sorted({0, bits // 2, bits - 1}):
+        ref = noise.fluctuate(w, rho, dev, noise.NoiseConfig(), seed=5,
+                              plane=77 + pl) * 2.0 ** pl
+        assert torch.equal(k5.emt_bitserial(eye * 2.0 ** pl, w, sig, **kw),
+                           ref), (case, pl)
 
 
 def _bits_equal(a, b):

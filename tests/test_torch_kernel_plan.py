@@ -232,17 +232,17 @@ def test_gemv_ring_fits_at_every_row_template(M):
 @pytest.mark.parametrize("M", [4, 64])
 @pytest.mark.parametrize("K,N", [(1152, 6912), (6912, 1152)])
 def test_k5_plan_keeps_its_split_counts(M, K, N):
-    """Above 16 rows K5 keeps the tiled kernel's rule: split until two CTAs
-    per SM, at least 256 of K a slab, rounded up to 32-row tiles.  At or
+    """Above 16 rows K5's tensor-core kernel (one CTA an SM, 128 weight
+    columns by 64 rows) takes plan_waves' slab count: at a chunk step wg/wu
+    (54 tiles) in 2 slabs of 576 rows, wd (9 tiles) in 14 of 512.  At or
     below 16 rows the GEMV kernel's plan takes 128-column tiles (n-major)
     and whole 32-row bands."""
     p = k5.plan(M, N, K, SMS)
     _check_cover(p)
     if M > k5.GEMV_MAX_M:
-        tiles = splitk.cdiv(N, 64) * splitk.cdiv(M, 64)
-        want = max(1, min(2 * SMS // tiles, K // 256))
-        k_split = splitk.cdiv(splitk.cdiv(K, want), 32) * 32
-        assert (p.k_slab, p.splits) == (k_split, splitk.cdiv(K, k_split))
+        assert p == splitk.plan_waves(M, N, K, sms=SMS, bm=64, bn=128, bk=32)
+        assert (p.tiles, p.splits, p.k_slab) == (
+            (54, 2, 576) if N == 6912 else (9, 14, 512))
     else:
         assert (p.bm, p.bn, p.bk) == (M, 128, 32)
     _check_workspace(p)
@@ -269,7 +269,9 @@ def test_k5_gemv_plan(M, K, N, n_major, bits):
     _check_cover(p)
     _check_workspace(p)
     if M > k5.GEMV_MAX_M:
-        assert (p.bm, p.bn, p.bk) == (64, 64, 32)
+        assert (p.bm, p.bn, p.bk) == (64 if M <= 64 else 128, 128, 32)
+        assert p == splitk.plan_waves(M, N, K, sms=SMS, bm=k5.tc_rows(M),
+                                      **k5.TC)
         return
     kw = k5.GEMV_N if n_major else k5.GEMV_K
     assert (p.bm, p.bn, p.bk) == (M, kw["bn"], kw["bk"])
@@ -452,6 +454,36 @@ def _cnn_shapes():
 
 
 CNN = _cnn_shapes()
+
+
+# K5's tensor-core kernel at its main-path shapes: the mixed chunk step's
+# MLPs (M = 64) and vgg16_cifar's 13 calls a step (its convolutions' im2col
+# rows and the head), in both weight layouts and at the 8-bit and 24-bit
+# DACs' 7 and 23 planes.
+K5_TC_CASES = [(M, K, N, n, bits)
+               for M, K, N in [(64, 1152, 6912), (64, 6912, 1152)] + CNN
+               for n in (True, False) for bits in (7, 23)]
+
+
+@pytest.mark.parametrize("M,K,N,n_major,bits", K5_TC_CASES)
+def test_k5_tensor_core_plan(M, K, N, n_major, bits):
+    """Above 16 rows: slabs of whole 32-row k-tiles covering K with none
+    empty (the C entry's split_plan_ok), the plan_waves argmin, whatever
+    the layout or the planes, filling a wave of the SMs where whole
+    k-tiles allow; a CTA's rows one 64-row tile up to 64 rows, two above
+    (the kernel's shared memory is checked by a static_assert in its
+    source)."""
+    p = k5.plan(M, N, K, SMS, n_major, bits)
+    assert (p.bm, p.bn, p.bk) == (64 if M <= 64 else 128, 128, 32)
+    assert p.k_slab % 32 == 0 and p.splits * p.k_slab >= K
+    assert (p.splits - 1) * p.k_slab < K
+    _check_cover(p)
+    _check_workspace(p)
+    assert p == splitk.plan_waves(M, N, K, sms=SMS, bm=p.bm, bn=128, bk=32)
+    # the wave condition: at least one wave of the SMs, or the finest cut
+    # whole k-tiles allow that stays within one
+    finer = _next_cut(p)
+    assert p.ctas >= SMS or finer is None or p.tiles * finer > SMS
 # K3's backward at every main-path shape: (M, K, N) with M the rows of x
 # and g, w (K, N); gemma3-1b's six at a training step's M = 8 x 128 (the
 # unembed is table.T), and the CNN's
