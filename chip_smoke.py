@@ -115,10 +115,11 @@ Phases (any failure exits non-zero and prints no result line):
    dequantized pre-noised weights and beside dequantizing in PyTorch
    before the float32 kernel; then the speculative engine
    (``ServeSpec(draft_placement="sram_digital", spec_k=4,
-   temperature=0)``) on the paged and on the contiguous layout against the
+   temperature=0)``, gemma3-1b's published widths cut to SPEC_LAYERS =
+   13 layers) on the paged and on the contiguous layout against the
    plain engine of the same spec on 6 staggered requests of 20-96 prompt
-   tokens, max_new 32: launches exact from the engine's round log (K3 183
-   a model step, K2 26 a verify step on the paged layout, no K1), the
+   tokens, max_new 32: launches exact from the engine's round log (K3 92
+   a model step, K2 13 a verify step on the paged layout, no K1), the
    three ledger invariants at rtol 1e-6, tokens equal up to each
    request's first differing one and the logits up to it within
    POISSON_LOGIT_TOL (margins and DAC flips printed at each difference),
@@ -147,7 +148,23 @@ Phases (any failure exits non-zero and prints no result line):
    the experts entry timed on the decode step's 12 calls (and at the
    chunk step's M = 8) beside torch.bmm on the pre-noised stacks; the
    logits against the plain path at the 24-bit DAC (1e-3, every corner's
-   noise on: the experts read in analog), the 8-bit gaps reported.
+   noise on: the experts read in analog), the 8-bit gaps reported;
+11. (run between phases 10 and 8) the recurrent stacks through the legacy
+   bucketed prefill (the engine's only one for them): xlstm-350m at full
+   width (24 blocks, 21 mLSTM and 3 sLSTM, d_model 1024, vocab 50,304,
+   tied), analog, contiguous (nothing to page), prompts of 20-60 tokens
+   (the reference's mLSTM gives NaN logits on a 128-position chunk), 166
+   K3 launches an admission and a decode step; jamba-v0.1-52b at
+   published widths (d_model 4096, 16 experts top-2 of 14,336, d_inner
+   8,192, state 16, vocab 65,536) cut to JAMBA_LAYERS = 4 (mamba, mamba +
+   MoE, mamba, attention + MoE) on the mixed placement, paged, prompts of
+   20-120 tokens (a 128-token bucket runs the experts at 20 rows, the
+   tiled kernel): 19 K3, 6 expert K3 and 6 K5 launches an admission and a
+   decode step, K1 one a decode step; for each, every kernel call of
+   three legacy prefills and a decode step with an idle row against its
+   plain version and the logits against the plain path's (1e-3 at the
+   24-bit DAC, the 8-bit gaps reported), and the experts entry timed at
+   20 rows on one jamba MoE layer's calls beside torch.bmm.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Every "ms" is the kernel's time in one
@@ -273,6 +290,29 @@ SEAMLESS = "seamless-m4t-medium"
 # head 11.8 GB; the 48 layers (109 GB) do not fit the card
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_LAYERS = 4
+# the recurrent paths.  xlstm-350m at full width (24 blocks, 0.49 B
+# parameters, 1.9 GB in float32), analog; its prompts stay at or under 64
+# tokens, so that no legacy bucket reaches 128: the reference's mLSTM gives
+# NaN logits on any prefill chunk of 128 positions (exp of the intra-chunk
+# decay overflows before the causal mask multiplies it by 0), which the
+# port mirrors (ROADMAP Queue 3)
+XLSTM_ARCH, XLSTM_PROMPTS = "xlstm-350m", (20, 60)
+# jamba-v0.1-52b at published widths cut from 32 layers to JAMBA_LAYERS
+# (mamba; mamba + MoE; mamba; attention + MoE: 6.9 B parameters, 27.5 GB in
+# float32) on the mixed placement; prompts of 20-120 tokens, so that an
+# admission's bucket reaches 128 and the experts run capacity(128) = 20
+# rows on the tiled kernel; max_len 144 keeps that bucket (a bucket of
+# max_len or more prefills at the prompt's exact length)
+JAMBA_ARCH, JAMBA_LAYERS = "jamba-v0.1-52b", 4
+JAMBA_PROMPTS, JAMBA_MAX_LEN = (20, 120), 144
+# the model steps of the recurrent paths' kernel and logits checks: three
+# batch-1 legacy prefills of (prompt length, bucket), left-padded, then a
+# decode step at batch 4 with one idle row
+XLSTM_STEPS = ((20, 32), (60, 64), (13, 16))
+JAMBA_STEPS = ((100, 128), (40, 64), (13, 16))
+# jamba's logits checks (seven runs of the steps, the plain ones over 27.5
+# GB of weights) drop the 64 bucket, whose calls the kernel check holds
+JAMBA_LOGIT_STEPS = ((100, 128), (13, 16))
 BATCH, BLOCK, CHUNK, MAX_LEN, MAX_NEW = 4, 16, 16, 128, 8
 SEED = 0
 # the ring paths: prompts past gemma3-1b's 512-position window, so that
@@ -288,8 +328,12 @@ RING_LAYERS = 12
 # decode, is hit); the cache-on run's pool evicts registered blocks
 PREFIX_MAX_LEN, PREFIX_CONT_AT, PREFIX_ON_BLOCKS = 192, 17, 40
 # the speculative paths: 6 staggered greedy requests of 20-96 prompt
-# tokens, max_new 32, drafting SPEC_K tokens a round on sram_digital
+# tokens, max_new 32, drafting SPEC_K tokens a round on sram_digital;
+# gemma3-1b all-global at published widths, cut from 26 layers to
+# SPEC_LAYERS to keep the smoke within its 1200 s limit with the recurrent
+# paths (the two phases took 133 s at 26 layers)
 SPEC_K, SPEC_MAX_NEW, SPEC_PROMPTS = 4, 32, (20, 96)
+SPEC_LAYERS = 13
 # the request the Poisson path cancels after its first token
 POISSON_CANCEL = 3
 # The Poisson stream against engine.serve of the same requests: a token may
@@ -526,6 +570,8 @@ class Smoke:
                                 a_per_row=True)
         self.mixed = build_config(ARCH, smoke=False, placement="mixed",
                                   all_global=True, a_per_row=True)
+        # the speculative paths' stack: the first SPEC_LAYERS layers
+        self.spec_cfg = self.cfg.replace(num_layers=SPEC_LAYERS)
         # the published stack, 5 sliding-window (ring) layers to 1 global,
         # cut to RING_LAYERS deep
         self.ring = build_config(ARCH, "analog", smoke=False, a_per_row=True,
@@ -1443,13 +1489,16 @@ class Smoke:
               f"{100 * b_ms / ms:.2f}%")
 
     # -- phase 4 -------------------------------------------------------------
-    def _requests(self, cfg, ring=False):
+    def _requests(self, cfg, ring=False, prompts=None):
         """6 requests, 2 of them sampled; prompts of 20 to 120 tokens, or,
-        for the ring paths, 520 to 600 (every window-512 ring wraps)."""
+        for the ring paths, 520 to 600 (every window-512 ring wraps), or
+        of the range `prompts`."""
         import numpy as np
         from repro_torch.serve.engine import GenRequest
         rng = np.random.default_rng(SEED + (13 if ring else 11))
         lo, hi = RING_PROMPTS if ring else (20, MAX_LEN - MAX_NEW)
+        if prompts is not None:
+            lo, hi = prompts
         reqs = []
         for i in range(6):
             plen = int(rng.integers(lo, hi + 1))
@@ -1466,8 +1515,11 @@ class Smoke:
         steps of the legacy prefill) and `per_kind` decode steps are
         captured, then stop; print each step's wall time, device busy time
         (the sum of its device events) and top kernels.  Profiling single
-        steps keeps the trace small.  Returns each kind's device busy ms,
-        a list per kind."""
+        steps keeps the trace small; a step whose kind (foreseen from the
+        queue and the slots: an admission or a prefilling slot means
+        prefill work) is already captured runs unprofiled, since reading
+        a trace of tens of thousands of ops takes seconds.  Returns each
+        kind's device busy ms, a list per kind."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1479,7 +1531,10 @@ class Smoke:
         n = 0
         while eng.scheduler.busy and min(seen.values()) < per_kind:
             n += 1
-            if n < 3:
+            sch = eng.scheduler
+            ahead = ((sch.pending and sch.free_slot() is not None)
+                     or any(s.prefilling for _, s in sch.active_slots()))
+            if n < 3 or seen[prefill if ahead else "decode"] >= per_kind:
                 eng.step()
                 continue
             before = (eng.prefill_tokens_total, eng.scheduler.pending)
@@ -1549,28 +1604,31 @@ class Smoke:
                 setattr(lm, n, fn)
 
     def _serve(self, cfg, params, label, per_kind, paged=True, ring=False,
-               warm=True):
+               warm=True, prompts=None, max_len=None):
         """Serve the 6 requests on `cfg` (after one warm-up run, unless
         `warm` is False) with every launch count reset just before and read
         just after; profile `per_kind` prefill and decode steps of another
         run.  `paged` chooses the KV layout; `ring` the long prompts and
-        max_len of the ring paths.  Returns (summary, launches, metrics,
-        results)."""
+        max_len of the ring paths; `prompts` (lo, hi) and `max_len`
+        another prompt range and cache length.  Returns (summary, launches,
+        metrics, results)."""
         import numpy as np
         from repro_torch.serve.engine import ServingEngine
         torch = self.torch
+        if max_len is None:
+            max_len = RING_MAX_LEN if ring else MAX_LEN
 
         def make():
             return ServingEngine(cfg, params, batch_size=BATCH,
-                                 max_len=RING_MAX_LEN if ring else MAX_LEN,
-                                 seed=SEED, fresh_noise=False, paged=paged,
+                                 max_len=max_len, seed=SEED,
+                                 fresh_noise=False, paged=paged,
                                  block_size=BLOCK, prefill_chunk=CHUNK,
                                  device=self.dev)
 
         if warm:
-            make().serve(self._requests(cfg, ring), stagger=2)
+            make().serve(self._requests(cfg, ring, prompts), stagger=2)
         eng = make()
-        reqs = self._requests(cfg, ring)
+        reqs = self._requests(cfg, ring, prompts)
         counters = self._counters()
         steps = {"chunk_step": 0, "decode_step": 0}
         self.sync()
@@ -1613,7 +1671,8 @@ class Smoke:
                    <= 1e-6 * m["total_energy_pj"],
                    f"{label}: corners sum to {total}, total "
                    f"{m['total_energy_pj']}")
-        busy = self._profile_steps(make(), self._requests(cfg, ring),
+        busy = self._profile_steps(make(),
+                                   self._requests(cfg, ring, prompts),
                                    per_kind)
         summary = dict(tok_s=ntok / wall, wall_s=wall, tokens=ntok,
                        steps=m["steps"], chunk_steps=steps["chunk_step"],
@@ -2917,12 +2976,13 @@ class Smoke:
                                                             on_token)
 
     def _engine_spec(self, paged):
-        """The speculative engine at full gemma3-1b width (all-global,
-        analog on the default cell, per-row DAC, frozen noise, batch 4,
-        block 16, built through ServeSpec(draft_placement="sram_digital",
-        spec_k=4, temperature=0)) against the plain engine of the same spec
-        on 6 staggered requests.  Launches exact from the round log: K3 183
-        a model step (verify, draft chunk and draft decode alike), K2 26 a
+        """The speculative engine at gemma3-1b's published widths, cut to
+        SPEC_LAYERS (all-global, analog on the default cell, per-row DAC,
+        frozen noise, batch 4, block 16, built through
+        ServeSpec(draft_placement="sram_digital", spec_k=4, temperature=0))
+        against the plain engine of the same spec on 6 staggered requests.
+        Launches exact from the round log: K3 7 L + 1 a model step (verify,
+        draft chunk and draft decode alike), K2 L a
         verify step on the paged layout (its 5-lane query chunk), no K1 (the
         target never runs a decode step; the draft's cache is contiguous).
         The three ledger invariants at rtol 1e-6.  Tokens equal to the plain
@@ -2938,7 +2998,7 @@ class Smoke:
         version."""
         import numpy as np
         torch = self.torch
-        L = self.cfg.num_layers
+        L = self.spec_cfg.num_layers
         layout = "paged" if paged else "contiguous"
         label = f"speculative {layout}"
         plain_spec = self._serve_spec(paged=paged, batch_size=BATCH,
@@ -2948,7 +3008,7 @@ class Smoke:
                                   spec_k=SPEC_K)
         runs = {}
         for name, sp in (("plain", plain_spec), ("speculative", spec)):
-            eng = sp.build_engine(self.cfg, self.params, torch_device=self.dev)
+            eng = sp.build_engine(self.spec_cfg, self.params, torch_device=self.dev)
             traced = {}
             log = dict.fromkeys(("verify", "draft chunk", "draft decode",
                                  "catch-up rows"), 0)
@@ -3072,7 +3132,7 @@ class Smoke:
         drafts at most remaining - 1)."""
         import numpy as np
         from repro_torch.serve.engine import GenRequest
-        eng = spec.build_engine(self.cfg, self.params, torch_device=self.dev)
+        eng = spec.build_engine(self.spec_cfg, self.params, torch_device=self.dev)
         rng = np.random.default_rng(SEED + 19)
         for _ in range(BATCH):
             eng.submit(GenRequest(prompt=rng.integers(
@@ -3127,7 +3187,7 @@ class Smoke:
         """Every kernel call of a round of one draft decode step (K3's GEMV
         at sigma 0) and the verify (K3 tiled at M = 20, K2 at C = 5 on
         the paged layout) held to its plain version."""
-        L = self.cfg.num_layers
+        L = self.spec_cfg.num_layers
         eng = self._round_engine(spec, drafts=1)
         log = dict.fromkeys(("verify", "draft chunk", "draft decode",
                              "catch-up rows"), 0)
@@ -3140,7 +3200,7 @@ class Smoke:
             expect.update(emt_matmul=(7 * L + 1) * n,
                           paged_prefill=L * log["verify"] if paged else 0)
 
-        self._calls_vs_plain(self.cfg, f"{label} round", expect, run)
+        self._calls_vs_plain(self.spec_cfg, f"{label} round", expect, run)
         print(f"  {label} round: model steps checked {log}")
         self.check(log["verify"] == 1 and log["draft decode"] == 1,
                    f"{label} round: {log}")
@@ -3392,6 +3452,325 @@ class Smoke:
                               lambda c: self._step_pair(c, self.moe_params),
                               quiet=False)
         self.__dict__.pop("moe_params", None)
+        self.torch.cuda.empty_cache()
+
+    # -- phase 11: the recurrent stacks ---------------------------------------
+    def _sites(self, cfg):
+        """(K3, K5, expert K3) launches of one model step on `cfg`: its
+        analog and bit-serial projections and three expert launches a MoE
+        layer (the experts read in analog, whatever their rule)."""
+        plan = cfg.placement_plan()
+        experts = [p for p, _, _ in plan if p.endswith("/moe/experts")]
+        rest = [m for p, _, m in plan if not p.endswith("/moe/experts")]
+        return rest.count("analog"), rest.count("bitserial"), 3 * len(experts)
+
+    def _recurrent_model(self, cfg, label, arch, depth):
+        from repro_torch.models import lm
+        t0 = time.perf_counter()
+        params = lm.init_model_params(cfg, SEED, device=self.dev)
+        self.sync()
+        n = sum(p.numel() for _, p in _flat(params))
+        print(f"model: {arch} {label}, {cfg.num_layers} of {depth} layers "
+              f"{cfg.blocks()}, d_model {cfg.d_model}, vocab "
+              f"{cfg.vocab_size}: {n:,} parameters (f32, {4 * n / 1e9:.2f} "
+              f"GB), init {time.perf_counter() - t0:.2f} s")
+        return params
+
+    def engine_xlstm(self):
+        """xlstm-350m at full width, analog (every projection technique A
+        on the default cell, through K3), batch 4, contiguous (a stack
+        without attention has nothing to page), the legacy bucketed prefill
+        (the engine's only one for recurrent stacks): 166 K3 launches per
+        admission and per decode step (21 mLSTM blocks x 7, 3 sLSTM x 6,
+        the tied unembed), an admission's blocks (M = 32 or 64) on the
+        tensor-core kernel and its unembed (the last position) and the
+        decode steps' on the GEMV; no K1, K2, K4, K5.  Prompts
+        of XLSTM_PROMPTS (at most 64 tokens: the reference's mLSTM NaN at a
+        128-position chunk)."""
+        from repro_torch.serve.spec import build_config
+        self.xlstm = cfg = build_config(XLSTM_ARCH, "analog", smoke=False,
+                                        a_per_row=True)
+        self.xlstm_params = self._recurrent_model(cfg, "full width",
+                                                  XLSTM_ARCH, 24)
+        k3, k5, ex = self._sites(cfg)
+        self.check((k3, k5, ex) == (166, 0, 0),
+                   f"xlstm sites {(k3, k5, ex)}, want (166, 0, 0)")
+        summary, launches, m, results = self._serve(
+            cfg, self.xlstm_params, "xlstm analog", 1, paged=False,
+            prompts=XLSTM_PROMPTS)
+        steps, admitted = m["steps"], len(results)
+        self._check_launches("xlstm analog", launches, steps, {
+            "paged_attention_decode": 0, "paged_attention": 0,
+            "paged_prefill": 0, "emt_bitserial": 0, "emt_matmul_experts": 0,
+            "emt_matmul_int8": 0})
+        self.check(launches["emt_matmul"] == k3 * (admitted + steps)
+                   and launches["emt_matmul_tc"] == (k3 - 1) * admitted,
+                   f"xlstm: K3 launched {launches['emt_matmul']} times "
+                   f"({launches['emt_matmul_tc']} on the tensor cores) for "
+                   f"{admitted} admissions and {steps} decode steps, want "
+                   f"{k3} each ({k3 - 1} an admission on the tensor cores)")
+        for name in ("emt_matmul", "emt_matmul_tc"):
+            self.records.setdefault(name, {})["xlstm_launches"] = \
+                launches[name]
+        self.xlstm_summary = summary
+
+    def engine_jamba(self):
+        """jamba-v0.1-52b at published widths cut to JAMBA_LAYERS, on the
+        mixed placement, paged, batch 4, the legacy bucketed prefill: per
+        admission and per decode step 19 K3 (the mamba layers' in, xp, dt
+        and out projections, the attention layer's four, the two routers
+        on SRAM, the unembed on PCM), 6 expert K3 (wg, wu, wd of the two
+        MoE layers, RRAM's rule read in analog) and 6 K5 (the dense MLPs
+        of layers 0 and 2, bit-serial on RRAM); one K1 per decode step
+        (the attention layer), no K2 (no chunked prefill), no K4.  The
+        128-token buckets run the experts at 20 rows (the tiled kernel)."""
+        from repro_torch.serve.engine import prefill_bucket
+        from repro_torch.serve.spec import build_config
+        self.jamba = cfg = build_config(
+            JAMBA_ARCH, smoke=False, placement="mixed", a_per_row=True,
+            model_overrides={"num_layers": JAMBA_LAYERS})
+        self.jamba_params = self._recurrent_model(
+            cfg, f"published widths ({cfg.num_heads} heads of "
+            f"{cfg.head_dim}, kv {cfg.num_kv_heads}; {cfg.num_experts} "
+            f"experts top-{cfg.experts_per_token} of {cfg.moe_d_ff}; d_inner "
+            f"{cfg.d_inner}, state {cfg.ssm_state}, dt_rank {cfg.dt_rank})",
+            JAMBA_ARCH, 32)
+        k3, k5, ex = self._sites(cfg)
+        self.check((k3, k5, ex) == (19, 6, 6),
+                   f"jamba sites {(k3, k5, ex)}, want (19, 6, 6)")
+        buckets = sorted(prefill_bucket(len(r.prompt)) for r in
+                         self._requests(cfg, prompts=JAMBA_PROMPTS))
+        print(f"  jamba admission buckets {buckets}")
+        self.check(128 in buckets, f"no 128-token bucket in {buckets}")
+        summary, launches, m, results = self._serve(
+            cfg, self.jamba_params, "jamba mixed", 1, warm=False,
+            prompts=JAMBA_PROMPTS, max_len=JAMBA_MAX_LEN)
+        steps, admitted = m["steps"], len(results)
+        self._check_launches("jamba mixed", launches, steps, {
+            "paged_attention_decode": 1, "paged_attention": 0,
+            "paged_prefill": 0, "emt_matmul_int8": 0})
+        n = admitted + steps
+        for name, per in (("emt_matmul", k3), ("emt_matmul_experts", ex),
+                          ("emt_bitserial", k5)):
+            self.check(launches[name] == per * n,
+                       f"jamba: {name} launched {launches[name]} times for "
+                       f"{admitted} admissions and {steps} decode steps, "
+                       f"want {per} each")
+        self.check(set(m["corner_energy_pj"]) == {"pcm", "rram",
+                                                  "sram_digital"},
+                   f"jamba corners {sorted(m['corner_energy_pj'])}")
+        for name in ("emt_matmul", "emt_matmul_tc", "emt_matmul_experts",
+                     "emt_bitserial", "paged_attention_decode"):
+            self.records.setdefault(name, {})["jamba_launches"] = \
+                launches[name]
+        self.jamba_summary = summary
+
+    def _recurrent_steps(self, cfg, params, prompts, max_len, paged):
+        """The recurrent paths' model steps: batch-1 legacy prefills of
+        `prompts` ((prompt length, bucket) pairs, left-padded as the engine
+        pads) copied into slots 0-2 (state rows; jamba's K/V into its
+        blocks through ``paged_insert``), then one decode step at batch 4
+        with slot 3 idle.  Returns [(step, logits, projections it
+        quantizes)] in call order."""
+        import numpy as np
+        from repro_torch.models import lm
+        from repro_torch.models.context import Ctx
+        from repro_torch.serve.engine import paged_insert, view_bucket
+        from repro_torch.serve.kv_pool import PagedKV
+        torch = self.torch
+        recurrent = lm.recurrent_layers(cfg)
+        n = sum(1 for path, _, mode in cfg.placement_plan()
+                if mode != "fp32" and not path.endswith("/moe/experts"))
+        if paged:
+            nb = BATCH * -(-max_len // BLOCK)
+            kv = PagedKV(BATCH, max_len, BLOCK, nb)
+            cache = lm.init_paged_cache(cfg, BATCH, max_len, BLOCK, nb,
+                                        device=self.dev)
+        else:
+            self.check(len(recurrent) == cfg.num_layers,
+                       "a contiguous step holds state rows only")
+            cache = lm.init_cache(cfg, BATCH, max_len, device=self.dev)
+        rng = np.random.default_rng(7)
+        pos = np.zeros(BATCH, np.int64)
+        out, first = [], []
+        for slot, (plen, S) in enumerate(prompts):
+            toks = np.zeros((1, S), np.int64)
+            toks[0, S - plen:] = rng.integers(0, cfg.vocab_size, plen)
+            small = lm.init_cache(cfg, 1, max_len, device=self.dev)
+            small, logits, _ = lm.prefill(
+                params, {"tokens": torch.as_tensor(toks, device=self.dev)},
+                cfg, Ctx(seed=SEED), small)
+            if paged:
+                self.check(kv.admit(slot, S, MAX_NEW), "admission refused")
+                paged_insert(cache, small, *kv.scatter_rows(slot), slot=slot,
+                             recurrent=recurrent)
+                kv.ensure(slot, S)
+            else:
+                for name, blk in cache.items():
+                    for key, t in blk.items():
+                        t[slot] = small[name][key][0]
+            pos[slot] = S
+            first.append(logits)
+            out.append((f"prefill (bucket {S})", logits, n))
+        tok = np.zeros(BATCH, np.int64)
+        tok[:len(first)] = self._first_tokens(torch.cat(first))
+        tok, pos_d = (torch.as_tensor(a, device=self.dev) for a in (tok, pos))
+        kw = {}
+        if paged:
+            view = view_bucket(int(pos.max()) + 1, BLOCK, max_len)
+            kw = dict(page_tables={"global": torch.as_tensor(
+                kv.gather_tables()[0][:, :view // BLOCK],
+                device=self.dev).contiguous()},
+                page_lens=lm.clamped_lens(lm.paged_lens(cfg, max_len), view))
+        ld, _, _ = lm.decode_step(params, cache, tok, pos_d, cfg,
+                                  Ctx(seed=SEED), active=pos_d > 0, **kw)
+        out.append(("decode step (batch 4, one idle row)", ld, n))
+        return out
+
+    def _xlstm_steps(self, cfg):
+        return self._recurrent_steps(cfg, self.xlstm_params, XLSTM_STEPS,
+                                     MAX_LEN, paged=False)
+
+    def _jamba_steps(self, cfg, steps=JAMBA_STEPS):
+        return self._recurrent_steps(cfg, self.jamba_params, steps,
+                                     JAMBA_MAX_LEN, paged=True)
+
+    def xlstm_calls_vs_plain(self):
+        """Three prefills and a decode step: 166 K3 calls each (the
+        prefills' on the tensor-core kernel at M = 16-64, among them the
+        mLSTM gates' N = 4 and the sLSTM up projection's 2,816)."""
+        self.__dict__.pop("_tokens", None)
+        k3, _, _ = self._sites(self.xlstm)
+        self._calls_vs_plain(self.xlstm, "xlstm analog", {
+            "emt_matmul": (len(XLSTM_STEPS) + 1) * k3}, self._xlstm_steps)
+
+    def xlstm_logits_vs_plain(self):
+        """The logits of the three prefills and the decode step against
+        the plain path at the 24-bit DAC (1e-3), the 8-bit gaps reported;
+        then the xlstm weights are dropped."""
+        self._logits_vs_plain(self.xlstm, "xlstm analog", self._xlstm_steps)
+        self.__dict__.pop("xlstm_params", None)
+        self.torch.cuda.empty_cache()
+
+    def jamba_calls_vs_plain(self):
+        """Three prefills (buckets 128, 64 and 16: the experts at 20, 12
+        and 4 rows) and a decode step (4 rows): every K3 call (19 a step:
+        mamba's x_proj 8,192 -> 288 and dt_proj 256 -> 8,192 among them),
+        every expert call (6 a step) with its two statistics, every K5 call
+        (6 a step) and the decode step's K1 call against their plain
+        versions; then the experts entry timed above 16 rows."""
+        self.__dict__.pop("_tokens", None)
+        k3, k5, ex = self._sites(self.jamba)
+        n = len(JAMBA_STEPS) + 1
+        self._calls_vs_plain(self.jamba, "jamba mixed", {
+            "emt_matmul": n * k3, "emt_matmul_experts": n * ex,
+            "emt_bitserial": n * k5, "paged_attention_decode": 1},
+            self._jamba_steps)
+        self._time_experts_m20()
+
+    def _time_experts_m20(self):
+        """K3's experts entry above 16 rows: the three expert calls of one
+        jamba MoE layer at a 128-token admission (E = 16, M = 20, wg/wu
+        4,096 -> 14,336 and wd 14,336 -> 4,096 on the tiled kernel), on
+        their real inputs and quantized stacks: event time, device time,
+        the plain version, torch.bmm on the pre-noised stacks (a yardstick
+        the port never calls; event and device time) and the bound.  One
+        layer's stacks (11.3 GB quantized, as much again pre-noised) are
+        held at a time."""
+        from repro_torch.kernels import emt_matmul as k3
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.ref import noisy_experts
+        from repro_torch.models.moe import capacity
+        torch = self.torch
+        cfg = self.jamba
+        rows = capacity(cfg, 128)
+        orig = ops._emt_matmul_experts
+        calls = []
+
+        def capture(x, w, sig, **kw):
+            if x.shape[1] == rows and len(calls) < 3:
+                calls.append((x, w, sig, kw))
+            return orig(x, w, sig, **kw)
+
+        self.__dict__.pop("_tokens", None)
+        with self._ops_through(_emt_matmul_experts=capture):
+            self._jamba_steps(cfg)
+        self.check(rows == 20 and len(calls) == 3,
+                   f"captured {len(calls)} expert calls at M = {rows}")
+        xs = [x for x, *_ in calls]
+        worst = 0.0
+        for x, w, sig, kw in calls:
+            y, _, _ = k3.emt_matmul_experts(x, w, sig, **kw)
+            worst = max(worst, rel_err(y, k3.plain_experts(
+                x, w, sig, **kw)[0])[0])
+        plain_ms = cuda_time(lambda: [k3.plain_experts(x, w, sig, **kw)
+                                      for x, w, sig, kw in calls], 1,
+                             warmup=1)
+        noisy = [noisy_experts(w, sig, **kw) for _, w, sig, kw in calls]
+
+        def run():
+            for x, w, sig, kw in calls:
+                k3.emt_matmul_experts(x, w, sig, **kw)
+
+        def run_library():
+            for x, wn in zip(xs, noisy):
+                torch.bmm(x, wn)
+
+        nbytes = flops = elements = 0
+        for x, w, *_ in calls:
+            E, M, K = x.shape
+            N = w.shape[2]
+            nbytes += 4 * (E * M * K + E * K * N + E * M * N) + 8
+            flops += 2 * E * M * K * N
+            elements += E * K * N
+        alu, fma = hash_ops("K3", elements)
+        b_ms, by, term = bound(nbytes, flops, alu, fma)
+        keys = ("emt_tiled", "split_sum", "stats_finish", "emt_matmul")
+        ms = cuda_time(run, 5)
+        lib_ms = cuda_time(run_library, 5)
+        dev_ms = device_ms(run, keys, agree=True)
+        lib_dev_ms = device_ms(run_library, "", agree=True)
+        del noisy
+        # a device time under the bytes bound (3.35 TB/s) cannot be: the
+        # trace lost events (seen for the yardstick); not measured
+        for name, v in (("kernel", dev_ms), ("torch.bmm", lib_dev_ms)):
+            if v is not None and v < b_ms:
+                print(f"  ({name}'s device time {v:.3f} ms is under the "
+                      f"bytes bound {b_ms:.3f} ms: the trace lost events; "
+                      f"not measured)")
+        dev_ms = None if dev_ms is not None and dev_ms < b_ms else dev_ms
+        lib_dev_ms = (None if lib_dev_ms is not None and lib_dev_ms < b_ms
+                      else lib_dev_ms)
+        p = [k3.plan(x.shape[1], w.shape[2], x.shape[2], self.sms, True,
+                     experts=x.shape[0], tiled=True) for x, w, *_ in calls]
+        self.records.setdefault("emt_matmul_experts", {}).update(
+            m20_layer_ms=ms, m20_layer_device_ms=dev_ms,
+            m20_layer_plain_ms=plain_ms, m20_layer_library_ms=lib_ms,
+            m20_layer_library_device_ms=lib_dev_ms, m20_layer_bound_ms=b_ms,
+            m20_layer_bound_by=by, m20_max_abs_err=worst)
+        print(f"  K3 experts above 16 rows, one jamba MoE layer at a "
+              f"128-token admission (3 calls, E {xs[0].shape[0]}, M={rows}; "
+              f"plans {[(q.splits, q.ctas) for q in p]} (slabs, CTAs) for "
+              f"wg, wu, wd; the tiled kernel): kernel {ms:.3f} ms (device "
+              f"time {fmt(dev_ms)}), plain {plain_ms:.3f} ms, torch.bmm on "
+              f"pre-noised stacks {lib_ms:.3f} ms (device time "
+              f"{fmt(lib_dev_ms)}), bound {b_ms:.3f} ms ({term}; "
+              f"{nbytes / 1e9:.3f} GB, {alu / 1e9:.3f} G ALU-pipe ops), "
+              f"roofline share {share(b_ms, ms)} of the event time, "
+              f"{share(b_ms, dev_ms)} of the device time; max |diff| vs "
+              f"plain {worst:.3e}")
+
+    def jamba_logits_vs_plain(self):
+        """The logits of the 128 and 16 buckets' prefills and the decode
+        step (JAMBA_LOGIT_STEPS) against the plain path at the 24-bit
+        DAC (limit 1e-3) with the bit-serial corner's read noise off (the
+        MLPs on K5; the experts, whose rule is that corner, then read
+        without noise), the run with it on and the 8-bit gaps reported;
+        then the jamba weights are dropped."""
+        self._logits_vs_plain(
+            self.jamba, "jamba mixed",
+            lambda c: self._jamba_steps(c, JAMBA_LOGIT_STEPS))
+        self.__dict__.pop("jamba_params", None)
         self.torch.cuda.empty_cache()
 
     def _level_flips(self, path, label, la, lb, steps):
@@ -4106,6 +4485,12 @@ def main() -> int:
               ("engine, moe mixed", s.engine_moe),
               ("kernel calls vs plain, moe", s.moe_calls_vs_plain),
               ("logits vs plain, moe", s.moe_logits_vs_plain),
+              ("engine, xlstm analog", s.engine_xlstm),
+              ("kernel calls vs plain, xlstm", s.xlstm_calls_vs_plain),
+              ("logits vs plain, xlstm", s.xlstm_logits_vs_plain),
+              ("engine, jamba mixed", s.engine_jamba),
+              ("kernel calls vs plain, jamba", s.jamba_calls_vs_plain),
+              ("logits vs plain, jamba", s.jamba_logits_vs_plain),
               ("train, gemma3-1b analog", s.train_gemma3),
               ("train vs plain", s.train_vs_plain),
               ("train, paper CNN", s.train_cnn)]
@@ -4136,6 +4521,8 @@ def main() -> int:
         print(f"engine, {label}: " + json.dumps(summary))
     print("engine, int8: " + json.dumps(s.int8_summary))
     print("engine, moe mixed: " + json.dumps(s.moe_summary))
+    print("engine, xlstm analog: " + json.dumps(s.xlstm_summary))
+    print("engine, jamba mixed: " + json.dumps(s.jamba_summary))
     print("train, gemma3-1b analog: " + json.dumps(s.train_summary))
     print("train, paper CNN: " + json.dumps(s.cnn_summary))
     print(s.smi)

@@ -1,5 +1,5 @@
 """Architecture registry of the port (gemma3-1b, seamless-m4t-medium,
-moonshot-v1-16b-a3b).
+moonshot-v1-16b-a3b, xlstm-350m, jamba-v0.1-52b).
 
     from repro_torch.configs import get_config
     cfg = get_config("gemma3-1b", emt_mode="analog")
@@ -7,15 +7,18 @@ moonshot-v1-16b-a3b).
 """
 from __future__ import annotations
 
-from repro_torch.configs import (gemma3_1b, moonshot_v1_16b_a3b,
-                                 seamless_m4t_medium)
+from repro_torch.configs import (gemma3_1b, jamba_v0_1_52b,
+                                 moonshot_v1_16b_a3b, seamless_m4t_medium,
+                                 xlstm_350m)
 from repro_torch.configs.common import (PLACEMENTS, emt_preset,
                                         mixed_placement, placement_preset,
                                         shrink)
 
 ARCHS = {"gemma3-1b": gemma3_1b,
          "seamless-m4t-medium": seamless_m4t_medium,
-         "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b}
+         "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+         "xlstm-350m": xlstm_350m,
+         "jamba-v0.1-52b": jamba_v0_1_52b}
 
 __all__ = ["ARCHS", "PLACEMENTS", "emt_preset", "get_config",
            "mixed_placement", "placement_preset", "shrink"]

@@ -83,7 +83,9 @@ PLACEMENTS = ("mixed", "attn-pcm", "digital-router")
 
 def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Reduced same-family smoke config: tiny widths, few layers and
-    experts (top-k capped by them), fp32."""
+    experts (top-k capped by them), fp32.  As in JAX, the SSM fields keep
+    their values (state 16, conv 4, expand 2; dt_rank follows d_model:
+    ceil(64 / 16) = 4)."""
     heads = max(2, min(4, cfg.num_heads))
     kv = max(1, min(cfg.num_kv_heads, heads))
     if cfg.num_kv_heads == cfg.num_heads:

@@ -23,11 +23,12 @@ from repro_torch.core.regularizer import jax_abs
 NEG_INF = -1e30
 
 
-def _noise(w, sig, device: DeviceModel, seed, plane):
+def _noise(w, sig, device: DeviceModel, seed, plane, row0: int = 0):
     """(a, f): the RTN offsets hashed at every weight element's global
-    (row, col) and the read factor fl(1 + a * sig), weight-shaped."""
+    (row0 + row, col) and the read factor fl(1 + a * sig),
+    weight-shaped."""
     kdim, n = w.shape
-    offs = hashrng.tile_state_offsets(seed, 0, 0, (kdim, n),
+    offs = hashrng.tile_state_offsets(seed, row0, 0, (kdim, n),
                                       device.state_offsets,
                                       device.state_probs, plane,
                                       device=w.device)
@@ -58,8 +59,12 @@ def noisy_experts(w, sig, *, device: DeviceModel, seed=0, plane=0):
     (E * K, N) stack (expert e's element (k, n) hashed at row e * K + k),
     reshaped back."""
     e, kdim, n = w.shape
-    _, f = _noise(w.reshape(e * kdim, n), sig, device, seed, plane)
-    return w * f.reshape(e, kdim, n).to(w.dtype)
+    # one expert at a time, at its rows of the folded stack: the hash's
+    # int64 temporaries stay one expert's size (jamba's 16 x 4,096 x
+    # 14,336 stack would need ~30 GB of them at once)
+    return torch.stack([
+        w[i] * _noise(w[i], sig, device, seed, plane,
+                      row0=i * kdim)[1].to(w.dtype) for i in range(e)])
 
 
 def emt_matmul_experts_ref(x, w, sig, *, device: DeviceModel, seed=0,

@@ -23,7 +23,7 @@ import torch
 from repro_torch.core.emt_linear import add_aux, dense_specs, emt_dense, new_aux
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN_KINDS, ModelConfig
 from repro_torch.models.context import Ctx
 
 
@@ -54,6 +54,8 @@ def paged_attn_plan(cfg: ModelConfig):
         res = "fused paged kernel [cuda on the card, plain on the cpu]"
     rows = []
     for i, kind in enumerate(cfg.blocks()):
+        if kind not in ATTN_KINDS:
+            continue
         rows.append((f"dec/layer_{i:03d}/attn ({kind})", res))
         if cfg.is_encdec:
             rows.append((f"dec/layer_{i:03d}/xattn (cross)", res))

@@ -1,6 +1,7 @@
 """Model configuration (port of :mod:`repro.models.config`), reduced to the
-fields the port's decoder (dense or mixture-of-experts) and
-encoder-decoder stacks read, with per-layer device placement."""
+fields the port's decoder stacks (attention, mixture of experts, mamba and
+xLSTM blocks) and encoder-decoder stacks read, with per-layer device
+placement."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +13,8 @@ from repro_torch.core.emt_linear import EMTConfig, IDEAL
 from repro_torch.core.placement import DevicePlacement, as_placement
 
 ATTN_KINDS = ("attn", "global", "local")
+# recurrent sequence mixers (models/mamba.py, models/xlstm.py)
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +46,13 @@ class ModelConfig:
     capacity_factor: float = 1.25
     moe_every: int = 1               # MoE every k-th layer (others dense MLP)
     router_aux_weight: float = 0.01
+    # ssm (mamba)
+    ssm_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_dt_rank: int = 0             # 0: ceil(d_model / 16)
+    # xlstm: True runs sLSTM's exact R-matrix recurrence token by token
+    slstm_recurrent: bool = False
     encoder_layers: int = 0          # > 0: encoder-decoder (seamless)
     tie_embeddings: bool = False
     embed_scale: bool = False
@@ -57,11 +67,18 @@ class ModelConfig:
             raise NotImplementedError(
                 f"rope_type {self.rope_type!r} (M-RoPE) is ported with a "
                 f"later slice (ROADMAP Queue 1, remaining architectures)")
-        bad = sorted(set(self.layer_pattern) - set(ATTN_KINDS))
+        bad = sorted(set(self.layer_pattern) - set(ATTN_KINDS)
+                     - set(RECURRENT_KINDS))
         if bad:
-            raise NotImplementedError(
-                f"block kinds {bad} are ported with a later slice (ROADMAP "
-                f"Queue 1, remaining architectures)")
+            raise ValueError(f"unknown block kinds {bad}")
+
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank or -(-self.d_model // 16)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     @property
     def is_encdec(self) -> bool:
@@ -95,17 +112,27 @@ class ModelConfig:
 
     def layer_paths(self) -> Tuple[str, ...]:
         """All canonical placement paths of this model, in build order: the
-        encoder stack (enc-dec only), then the decoder stack (attention
-        projections, cross attention in an enc-dec stack, the GLU MLP or,
-        on a MoE layer, the expert stack then the router), then the
-        unembed."""
+        encoder stack (enc-dec only), then the decoder stack (per layer the
+        attention projections or the mamba ones (``in``, ``xp``, ``dt``,
+        ``out``), cross attention in an enc-dec stack, the GLU MLP or, on a
+        MoE layer, the expert stack then the router; an mLSTM or sLSTM
+        block holds its own projections and no FFN), then the unembed."""
         paths = []
+        own = {"mlstm": ("up", "wq", "wk", "wv", "wi", "wf", "down"),
+               "slstm": ("wz", "wi", "wf", "wo", "up", "down")}
 
-        def stack_paths(prefix, layers, moe_mask, cross):
-            for i in range(layers):
+        def stack_paths(prefix, kinds, moe_mask, cross):
+            for i, kind in enumerate(kinds):
                 base = f"{prefix}/layer_{i:03d}"
-                paths.extend(f"{base}/attn/{w}"
-                             for w in ("wq", "wk", "wv", "wo"))
+                if kind in own:
+                    paths.extend(f"{base}/{kind}/{w}" for w in own[kind])
+                    continue                    # self-contained, no FFN
+                if kind == "mamba":
+                    paths.extend(f"{base}/mamba/{w}"
+                                 for w in ("in", "xp", "dt", "out"))
+                else:
+                    paths.extend(f"{base}/attn/{w}"
+                                 for w in ("wq", "wk", "wv", "wo"))
                 if cross:
                     paths.extend(f"{base}/xattn/{w}"
                                  for w in ("wq", "wk", "wv", "wo"))
@@ -116,9 +143,9 @@ class ModelConfig:
                     paths.extend(f"{base}/mlp/{w}" for w in ("wg", "wu", "wd"))
 
         if self.is_encdec:
-            stack_paths("enc", self.encoder_layers,
+            stack_paths("enc", ("attn",) * self.encoder_layers,
                         (False,) * self.encoder_layers, False)
-        stack_paths("dec", self.num_layers, self.moe_layer_mask(),
+        stack_paths("dec", self.blocks(), self.moe_layer_mask(),
                     self.is_encdec)
         paths.append("unembed")
         return tuple(paths)

@@ -10,8 +10,10 @@ sliding-window ring layer's pool has ``num_ring_blocks + 1`` rows and pages
 through the ring table), with ``{"ck", "cv"}`` cross K/V pools beside them
 in an enc-dec stack.  Contiguous caches hold ``(batch, max_len, kv_heads,
 head_dim)`` per layer, ``min(window, max_len)`` positions on a ring layer.
-The steps update either in place; they take the paged layout when given
-``page_tables``/``page_lens``, the contiguous one otherwise.
+A recurrent layer (mamba, mLSTM, sLSTM) holds its state, ``(batch, ...)``
+rows, in both layouts.  The steps update either in place; they take the
+paged layout when given ``page_tables``/``page_lens``, the contiguous one
+otherwise.
 """
 from __future__ import annotations
 
@@ -195,22 +197,29 @@ def ring_layers(cfg: ModelConfig, page_lens: dict) -> frozenset:
                      if kind == "local")
 
 
-def _zeros(shapes: dict, dtype, device):
+def recurrent_layers(cfg: ModelConfig) -> frozenset:
+    """Names of the layers whose cache entry is a recurrent state."""
+    return frozenset(f"layer_{i:03d}" for i, kind in enumerate(cfg.blocks())
+                     if kind in stk.MIXERS)
+
+
+def _zeros(specs: dict, device):
     from repro_torch import resolve_device
     dev = resolve_device(device)
-    return {k: torch.zeros(s, dtype=dtype, device=dev)
-            for k, s in shapes.items()}
+    return {k: torch.zeros(shape, dtype=dtype, device=dev)
+            for k, (shape, dtype) in specs.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Zeroed contiguous cache: per layer ``k``/``v`` (batch, length, KV,
-    hd), length max_len, or ``min(window, max_len)`` slots for a
-    sliding-window layer (a ring: position p at slot p mod window), plus
-    ``ck``/``cv`` of max_len positions in an enc-dec stack."""
+    """Zeroed contiguous cache: per attention layer ``k``/``v`` (batch,
+    length, KV, hd), length max_len, or ``min(window, max_len)`` slots for
+    a sliding-window layer (a ring: position p at slot p mod window), plus
+    ``ck``/``cv`` of max_len positions in an enc-dec stack; per recurrent
+    layer its state rows."""
     return {f"layer_{i:03d}": _zeros(
         stk.block_state_specs(cfg, kind, batch, max_len,
                               cross_len=max_len if cfg.is_encdec else 0),
-        cfg.dtype, device) for i, kind in enumerate(cfg.blocks())}
+        device) for i, kind in enumerate(cfg.blocks())}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -219,17 +228,22 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed block pools for every attention layer, ``(num_blocks + 1,
     block_size, KV, hd)`` (zero block last), or ``num_ring_blocks + 1``
     rows for a ring layer (:func:`paged_lens`); an enc-dec stack's cross
-    K/V (``ck``/``cv``) page through the global table."""
+    K/V (``ck``/``cv``) page through the global table.  A recurrent layer
+    keeps its (batch, ...) state rows."""
     ring = ring_layers(cfg, paged_lens(cfg, max_len))
     kv = (block_size, cfg.num_kv_heads, cfg.head_dim)
     cache = {}
-    for i in range(cfg.num_layers):
+    for i, kind in enumerate(cfg.blocks()):
         name = f"layer_{i:03d}"
-        rows = (num_ring_blocks if name in ring else num_blocks) + 1
-        shapes = dict.fromkeys(("k", "v"), (rows,) + kv)
-        if cfg.is_encdec:
-            shapes.update(dict.fromkeys(("ck", "cv"), (num_blocks + 1,) + kv))
-        cache[name] = _zeros(shapes, cfg.dtype, device)
+        if kind in stk.MIXERS:
+            specs = stk.block_state_specs(cfg, kind, batch, max_len)
+        else:
+            rows = (num_ring_blocks if name in ring else num_blocks) + 1
+            specs = dict.fromkeys(("k", "v"), ((rows,) + kv, cfg.dtype))
+            if cfg.is_encdec:
+                specs.update(dict.fromkeys(
+                    ("ck", "cv"), ((num_blocks + 1,) + kv, cfg.dtype)))
+        cache[name] = _zeros(specs, device)
     return cache
 
 

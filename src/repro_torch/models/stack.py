@@ -1,7 +1,12 @@
-"""Layer stack of attention blocks, each with a GLU MLP or, where the
-config's ``moe_layer_mask`` says so, a mixture of experts, and with cross
-attention in an encoder-decoder's decoder (port of
-:mod:`repro.models.stack` for the serving and training paths)."""
+"""Layer stack (port of :mod:`repro.models.stack` for the serving and
+training paths): attention and mamba blocks, each with a GLU MLP or, where
+the config's ``moe_layer_mask`` says so, a mixture of experts, and with
+cross attention in an encoder-decoder's decoder; mLSTM and sLSTM blocks
+hold their own projections and no FFN.
+
+A recurrent block's cache entry is its state, ``(batch, ...)`` rows on
+both KV layouts; a step writes the new state into it in place, inactive
+rows keeping theirs (JAX's ``_gate_state``)."""
 from __future__ import annotations
 
 import torch
@@ -12,17 +17,31 @@ from repro_torch.models.attention import (attention_specs, cross_attention,
                                           self_attention)
 from repro_torch.models.config import ATTN_KINDS, ModelConfig
 from repro_torch.models.context import Ctx
+from repro_torch.models.mamba import mamba, mamba_specs, mamba_state_specs
 from repro_torch.models.mlp import mlp, mlp_specs
 from repro_torch.models.moe import moe_ffn, moe_specs
+from repro_torch.models.xlstm import (mlstm, mlstm_specs, mlstm_state_specs,
+                                      slstm, slstm_specs, slstm_state_specs)
+
+# recurrent kind -> (specs, mixer, state specs)
+MIXERS = {"mamba": (mamba_specs, mamba, mamba_state_specs),
+          "mlstm": (mlstm_specs, mlstm, mlstm_state_specs),
+          "slstm": (slstm_specs, slstm, slstm_state_specs)}
+# blocks that hold their own projections and no FFN
+SELF_CONTAINED = ("mlstm", "slstm")
 
 
 def block_specs(cfg: ModelConfig, kind: str, use_moe: bool,
                 cross: bool = False, tag: str = "") -> dict:
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is ported with a "
-                                  f"later slice")
-    specs = {"norm1": common.rmsnorm_specs(cfg.d_model),
-             "attn": attention_specs(cfg, tag=f"{tag}/attn")}
+    specs = {"norm1": common.rmsnorm_specs(cfg.d_model)}
+    if kind in ATTN_KINDS:
+        specs["attn"] = attention_specs(cfg, tag=f"{tag}/attn")
+    elif kind in MIXERS:
+        specs[kind] = MIXERS[kind][0](cfg, tag=f"{tag}/{kind}")
+        if kind in SELF_CONTAINED:
+            return specs
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
     if cross:
         specs["norm_x"] = common.rmsnorm_specs(cfg.d_model)
         specs["xattn"] = attention_specs(cfg, tag=f"{tag}/xattn")
@@ -35,19 +54,38 @@ def block_specs(cfg: ModelConfig, kind: str, use_moe: bool,
 
 def block_state_specs(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                       cross_len: int = 0) -> dict:
-    """Shapes of one attention block's contiguous cache entries: ``k``/``v``
+    """One block's contiguous cache entries, ``{name: (shape, dtype)}``: a
+    recurrent block's state rows, or an attention block's ``k``/``v``
     (batch, length, KV, hd), plus ``ck``/``cv`` of `cross_len` positions in
     an enc-dec decoder.  The length is max_len, or ``min(window, max_len)``
     for a sliding-window layer, which keeps a ring buffer of its window."""
+    if kind in MIXERS:
+        return MIXERS[kind][2](cfg, batch)
     length = max_len
     if kind == "local" and cfg.sliding_window:
         length = min(max_len, cfg.sliding_window)
-    kv = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+    kv = ((batch, length, cfg.num_kv_heads, cfg.head_dim), cfg.dtype)
     out = {"k": kv, "v": kv}
     if cross_len:
-        out["ck"] = out["cv"] = (batch, cross_len, cfg.num_kv_heads,
-                                 cfg.head_dim)
+        out["ck"] = out["cv"] = ((batch, cross_len, cfg.num_kv_heads,
+                                  cfg.head_dim), cfg.dtype)
     return out
+
+
+def _gate_state(new, cache, active):
+    """Write a recurrent block's new state into its cache rows in place,
+    the rows of inactive slots frozen (`active` (B,) bool, None: every
+    row); a missing cache or state (the exact sLSTM recurrence returns
+    none) leaves the cache as it was."""
+    if cache is None or new is None:
+        return cache
+    for name, t in cache.items():
+        n = new[name].to(t.dtype)
+        if active is not None:
+            a = active.reshape(active.shape + (1,) * (n.dim() - 1))
+            n = torch.where(a, n, t)
+        t.copy_(n)
+    return cache
 
 
 def apply_block(params, x, cfg: ModelConfig, *, kind: str, use_moe: bool,
@@ -60,9 +98,26 @@ def apply_block(params, x, cfg: ModelConfig, *, kind: str, use_moe: bool,
     ``page_lens["ring"]`` says the window shrinks its cache (the flag, not
     equal lengths, decides: the engine's clamp can make the global view as
     long as the window), every other layer and the cross K/V through the
-    global one.  Returns (y, aux, cache): the block's cache with new cross
-    K/V merged in at prefill (None without a cache)."""
+    global one.  A recurrent block (mamba, mLSTM, sLSTM) reads its state
+    from `cache` and writes the new one there, rows of inactive slots
+    kept.  Returns (y, aux, cache): the block's cache with new cross K/V
+    merged in at prefill (None without a cache)."""
     h = common.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if kind in MIXERS:
+        if chunk_lens is not None:
+            # the state advances token by token; a padded mixed chunk would
+            # march its padding lanes through it (the engine serves these
+            # stacks on the legacy prefill)
+            raise ValueError(f"chunked prefill requires an attention-only "
+                             f"stack, got {kind!r}")
+        y, aux, st = MIXERS[kind][1](params[kind], h, cfg, ctx=ctx,
+                                     tag=f"{tag}/{kind}", state=cache)
+        cache = _gate_state(st, cache, active)
+        x = x + y
+        if kind in SELF_CONTAINED:
+            return x, aux, cache
+        return _ffn(params, x, aux, cfg, use_moe=use_moe, tag=tag, ctx=ctx,
+                    cache=cache)
     window = cfg.sliding_window if kind == "local" else 0
     m = mask
     if isinstance(mask, dict):
@@ -91,6 +146,13 @@ def apply_block(params, x, cfg: ModelConfig, *, kind: str, use_moe: bool,
         if ckv and cache is not None:
             cache = {**cache, **ckv}
         x = x + y
+    return _ffn(params, x, aux, cfg, use_moe=use_moe, tag=tag, ctx=ctx,
+                cache=cache)
+
+
+def _ffn(params, x, aux, cfg: ModelConfig, *, use_moe: bool, tag: str,
+         ctx: Ctx, cache):
+    """The block's FFN residual (dense GLU or MoE), if it has one."""
     if "ffn" in params:
         h = common.rmsnorm(params["norm2"], x, cfg.norm_eps)
         if use_moe:

@@ -12,7 +12,8 @@ decoder-only stacks) its prompt then streams in ``prefill_chunk`` tokens
 per step through the mixed chunk step
 (:func:`repro_torch.models.lm.chunk_step`) while other slots decode one
 token in the same step.  The legacy bucketed prefill (the only one for
-encoder-decoder stacks, and ``chunked_prefill=False``) runs the prompt
+encoder-decoder stacks and for stacks with recurrent layers, mamba or
+xLSTM, and ``chunked_prefill=False``) runs the prompt
 alone at admission, left-padded into a power-of-two bucket
 (:func:`prefill_bucket`), through :func:`repro_torch.models.lm.prefill`
 into a contiguous batch-1 cache, copies that into the slot's region or
@@ -25,6 +26,10 @@ K/V-write + attention kernel per layer (and one read-only cross-attention
 kernel per layer in an enc-dec stack), each step's global view clamped to
 the block-rounded power-of-two bucket of the furthest live position
 (:func:`view_bucket`).  A retiring slot's region or blocks are zeroed.
+A recurrent layer's state is a (batch_size, ...) row a slot on both
+layouts (a stack without attention is never paged): the prefill's state
+lands in the slot's row, a decode step freezes inactive rows, and
+retiring zeroes the row.
 
 Prefix caching (``prefix_cache=True``; paged, chunked, all-global): full
 prompt blocks are keyed by a rolling hash of the token prefix and
@@ -90,22 +95,26 @@ def prefill_bucket(n: int, lo: int = 4) -> int:
     return b
 
 
-def paged_insert(cache, small, row_g, row_l=None,
-                 ring=frozenset()) -> None:
+def paged_insert(cache, small, row_g, row_l=None, ring=frozenset(),
+                 slot=None, recurrent=frozenset()) -> None:
     """Scatter a prefilled batch-1 contiguous cache into the pools, in
-    place: every entry of layer ``small[name]`` (1, L, KV, hd), zero-padded
-    to the row's blocks, lands in ``cache[name]`` at the block ids of
-    `row_l` (the slot's ring table row) for the K/V of a layer named in
-    `ring`, else of `row_g` (its global row); out-of-bounds ids
+    place: every entry of attention layer ``small[name]`` (1, L, KV, hd),
+    zero-padded to the row's blocks, lands in ``cache[name]`` at the block
+    ids of `row_l` (the slot's ring table row) for the K/V of a layer named
+    in `ring`, else of `row_g` (its global row); out-of-bounds ids
     (unallocated entries) are dropped.  The blocks' zero tails clear
-    whatever their previous owner left."""
+    whatever their previous owner left.  A layer named in `recurrent`
+    keeps per-slot state rows: its entries land at row `slot`."""
     for name, blk in cache.items():
         for key, pool in blk.items():
+            x = small[name][key][0].to(pool.dtype)
+            if name in recurrent:
+                pool[slot] = x
+                continue
             rows = row_l if name in ring and key in ("k", "v") else row_g
             rows = torch.as_tensor(rows, dtype=torch.int64)
             nb, bs = pool.shape[:2]
             ok = rows < nb
-            x = small[name][key][0].to(pool.dtype)
             width = rows.shape[0]
             x = F.pad(x, (0, 0, 0, 0, 0, width * bs - x.shape[0]))
             x = x.reshape(width, bs, *x.shape[1:])
@@ -213,8 +222,10 @@ class ServingEngine:
             # built for the same placement
             cfg = cfg.replace(emt=placement)
         # chunked prefill streams prompts at their exact positions; an
-        # enc-dec stack needs the encoder pass of the legacy bucketed path
-        can_chunk = not cfg.is_encdec
+        # enc-dec stack needs the encoder pass of the legacy bucketed path,
+        # and a recurrent state cannot skip a chunk's padding lanes
+        can_chunk = (not cfg.is_encdec
+                     and all(k in ATTN_KINDS for k in cfg.blocks()))
         self.chunked = (can_chunk if chunked_prefill is None
                         else bool(chunked_prefill))
         if self.chunked and not can_chunk:
@@ -234,7 +245,11 @@ class ServingEngine:
         self.fresh_noise = fresh_noise
         self.prefill_chunk = int(prefill_chunk)
         self.block_size = block_size
-        self.paged = bool(paged)
+        # paging changes the attention caches only: a stack without
+        # attention (pure xLSTM) is contiguous whatever is asked, as in JAX
+        self.paged = bool(paged) and any(k in ATTN_KINDS
+                                         for k in cfg.blocks())
+        self.recurrent = lm.recurrent_layers(cfg)
         self.kv = None
         if self.paged:
             self.page_lens = lm.paged_lens(cfg, max_len)
@@ -405,7 +420,7 @@ class ServingEngine:
                 raise RuntimeError("admission raced the block budget")
             self._tables_dev = None
             paged_insert(self.cache, small, *self.kv.scatter_rows(sid),
-                         ring=self.ring)
+                         ring=self.ring, slot=sid, recurrent=self.recurrent)
         else:
             self._insert_slot(small, sid)
         prefill_e = float(aux["energy_pj"])
@@ -710,12 +725,16 @@ class ServingEngine:
 
     def _insert_slot(self, small, slot: int) -> None:
         """Copy a prefilled batch-1 cache into slot `slot`'s contiguous
-        region, zero-padding entries shorter than it (the legacy bucket's
-        cross K/V)."""
+        region (or state row), zero-padding entries shorter than it (the
+        legacy bucket's cross K/V)."""
         for name, blk in self.cache.items():
             for key, t in blk.items():
                 v = small[name][key][0].to(t.dtype)
-                t[slot] = F.pad(v, (0, 0, 0, 0, 0, t.shape[1] - v.shape[0]))
+                pad = []
+                for big, have in zip(reversed(t.shape[1:]),
+                                     reversed(v.shape)):
+                    pad += [0, big - have]
+                t[slot] = F.pad(v, pad)
 
     def _retire(self, slot_id: int, reason: str) -> GenResult:
         """Release the slot; its cache region, or the blocks that became
@@ -730,6 +749,9 @@ class ServingEngine:
             ids_l = self._dev(np.asarray(freed_l, np.int64))
             for name, blk in self.cache.items():
                 for key, pool in blk.items():
+                    if name in self.recurrent:
+                        pool[slot_id] = 0.0
+                        continue
                     ring = name in self.ring and key in ("k", "v")
                     pool[ids_l if ring else ids_g] = 0.0
         else:

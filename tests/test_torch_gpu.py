@@ -2,8 +2,11 @@
 small shapes (and K3's experts entry at moonshot-v1-16b-a3b's full expert
 stacks), and the shrunk engines on the card (gemma3-1b analog and on the
 mixed placement; seamless-m4t-medium through the legacy prefill and the
-cross-attention kernel; moonshot's MoE stack on the mixed placement).  Marked ``gpu``: the fixture skips them
-where torch sees no CUDA device; on a machine with an H100 run them with
+cross-attention kernel; moonshot's MoE stack on the mixed placement; the
+recurrent stacks, xlstm-350m and jamba-v0.1-52b, with K3 at their
+projections' shapes and the experts entry at jamba's widths).  Marked
+``gpu``: the fixture skips them where torch sees no CUDA device; on a
+machine with an H100 run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -719,3 +722,117 @@ def _serve_on_card(placement, arch="gemma3-1b"):
     assert [len(r.tokens) for r in res] == [4, 4, 4]
     assert all(c.launches > b for c, b in zip(counters, before))
     assert eng.energy_conserved(res)
+
+
+# -- the recurrent stacks (xlstm-350m, jamba-v0.1-52b) ------------------------
+# (M, K, N) of K3 at the recurrent stacks' projections, at a decode step
+# (M = 4, the GEMV) and an admission (the tensor-core kernel): the mLSTM
+# gates' one output a head (N = 4, far below every tile width), mamba's
+# x_proj (8,192 -> dt_rank 256 + 2 x 16) and dt_proj (K = 256), the sLSTM
+# up projection (1,024 -> 2 x 1,408), the mLSTM up projection
+RECURRENT_K3 = [(4, 2048, 4), (64, 2048, 4), (4, 8192, 288),
+                (128, 8192, 288), (4, 256, 8192), (128, 256, 8192),
+                (4, 1024, 2816), (64, 1024, 2816), (32, 1024, 4096)]
+
+
+@pytest.mark.parametrize("M,K,N", RECURRENT_K3)
+def test_k3_at_the_recurrent_shapes_on_card(cuda, M, K, N):
+    """Within 1e-5 of the plain version, one launch, two calls bit-identical
+    and rows of I the noisy weight's rows bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    w = torch.randn((K, N), generator=g, device=cuda)
+    dev, rho = DeviceModel(), torch.tensor(3.5, device=cuda)
+    sig = dev.sigma_rel(rho)
+    kw = dict(device=dev, seed=99, plane=1234)
+    before = k3.emt_matmul.launches
+    y = k3.emt_matmul(x, w, sig, **kw)
+    assert k3.emt_matmul.launches == before + 1
+    assert _rel(y, k3.plain(x, w, sig, **kw)) <= 1e-5
+    assert torch.equal(y, k3.emt_matmul(x, w, sig, **kw))
+    ref = noise.fluctuate(w, rho, dev, noise.NoiseConfig(), seed=99,
+                          plane=1234)
+    rows = torch.randperm(K, generator=g, device=cuda)[:M]
+    eye = torch.eye(K, device=cuda)[rows]
+    assert torch.equal(k3.emt_matmul(eye, w, sig, **kw), ref[rows])
+
+
+@pytest.mark.parametrize("M", [4, 128])
+def test_dt_proj_with_bias_on_card(cuda, M):
+    """mamba's dt_proj (K = 256 -> 8,192, with a bias) through emt_dense on
+    the card (K3, then the bias) against the same layer on K3's plain
+    version, and its energy equal."""
+    from repro_torch.configs.common import emt_preset
+    from repro_torch.core.emt_linear import dense_specs, emt_dense
+    from repro_torch.nn.param import init_params
+    emt = emt_preset("analog")
+    params = init_params(dense_specs(256, 8192, emt, bias=True), 3, cuda)
+    params["b"] = torch.randn(8192, device=cuda)
+    x = torch.randn((2, M // 2, 256), device=cuda)
+    tag = "dec/layer_000/mamba/dt"
+    y, a = emt_dense(params, x, emt, tag=tag, seed=5)
+    orig = ops._emt_matmul
+    ops._emt_matmul = k3.plain
+    try:
+        yp, ap = emt_dense(params, x, emt, tag=tag, seed=5)
+    finally:
+        ops._emt_matmul = orig
+    assert y.shape == (2, M // 2, 8192)
+    assert _rel(y, yp) <= 1e-5
+    assert float(a["energy_pj"]) == float(ap["energy_pj"])
+
+
+@pytest.mark.parametrize("M,K,N", [(20, 4096, 14336), (20, 14336, 4096),
+                                   (4, 4096, 14336), (4, 14336, 4096)])
+def test_k3_experts_at_jamba_widths_on_card(cuda, M, K, N):
+    """K3's experts entry at jamba's 16 experts of 14,336: at a 128-token
+    admission's capacity (M = 20, the tiled kernel) and a decode step's
+    (M = 4, the GEMV): within 1e-5 of the plain version, the noisy stack's
+    max |w~| exact and sum within rtol 1e-6, two calls bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn((16, M, K), generator=g, device=cuda)
+    w = torch.randn((16, K, N), generator=g, device=cuda) * 0.02
+    dev = DeviceModel()
+    sig = dev.sigma_rel(torch.tensor(3.5, device=cuda))
+    kw = dict(device=dev, seed=99, plane=1234)
+    y, s, m = k3.emt_matmul_experts(x, w, sig, **kw)
+    yp, sp, mp = k3.plain_experts(x, w, sig, **kw)
+    assert _rel(y, yp) <= 1e-5
+    assert float(m) == float(mp)
+    assert abs(float(s) - float(sp)) <= 1e-6 * float(sp)
+    del yp
+    y2, s2, m2 = k3.emt_matmul_experts(x, w, sig, **kw)
+    assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(m, m2)
+    want = "emt_tiled" if M > k3.GEMV_MAX_M else "emt_matmul_gemv"
+    names = launched(lambda: k3.emt_matmul_experts(x, w, sig, **kw), want)
+    assert any(want in n for n in names), names
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-v0.1-52b"])
+def test_recurrent_engine_on_card_launches_its_kernels(cuda, arch):
+    """The smoke stacks (jamba's cut to 4 layers) served on the card
+    through the legacy prefill: xlstm K3 alone; jamba (mixed, paged) K1,
+    K3, the experts entry and K5; neither K2 nor K4."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import GenRequest, ServingEngine
+    from repro_torch.serve.spec import build_config
+    cfg = build_config(arch, smoke=True, a_per_row=True,
+                       placement="mixed" if arch == "jamba-v0.1-52b" else None,
+                       model_overrides={"num_layers": 4})
+    params = lm.init_model_params(cfg, 0)
+    eng = ServingEngine(cfg, params, batch_size=3, max_len=32, seed=7,
+                        block_size=8, paged=True, fresh_noise=False)
+    on = [k3.emt_matmul]
+    off = [k2.paged_prefill, k1.paged_attention]
+    jamba = [k1.paged_attention_decode, k3.emt_matmul_experts,
+             k5.emt_bitserial]
+    (on if arch == "jamba-v0.1-52b" else off).extend(jamba)
+    before = {c: c.launches for c in on + off}
+    rng = np.random.default_rng(0)
+    res = eng.serve([GenRequest(prompt=rng.integers(0, 512, n)
+                                .astype(np.int32), max_new=4)
+                     for n in (5, 12, 9)], stagger=1)
+    assert [len(r.tokens) for r in res] == [4, 4, 4]
+    assert eng.paged == (arch == "jamba-v0.1-52b") and not eng.chunked
+    assert all(c.launches > before[c] for c in on)
+    assert all(c.launches == before[c] for c in off)

@@ -21,6 +21,9 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = list(_modules())
     assert len(mods) > 25
+    assert {"repro_torch.models.mamba", "repro_torch.models.xlstm",
+            "repro_torch.configs.xlstm_350m",
+            "repro_torch.configs.jamba_v0_1_52b"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

@@ -109,7 +109,7 @@ def test_build_config_rejects_unknown_names():
         lambda m: m.ServeSpec(device="memristor-9000").build_config())
 
 
-@pytest.mark.parametrize("arch", ["llama3-405b", "jamba-v0.1-52b",
+@pytest.mark.parametrize("arch", ["llama3-405b", "deepseek-67b",
                                   "qwen2-vl-72b"])
 def test_unported_arch_is_not_yet_ported(arch):
     """An architecture JAX registers and the port has not ported yet is
