@@ -23,8 +23,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("emt_bitserial", "emt_matmul", "emt_matmul_bwd",
-           "emt_matmul_fwd", "paged_attention", "paged_prefill")
+SOURCES = ("emt_bitserial", "emt_experts_tc", "emt_matmul",
+           "emt_matmul_bwd", "emt_matmul_fwd", "paged_attention",
+           "paged_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -254,6 +254,37 @@ __device__ __forceinline__ void cta_stats(double s, float m, double* stats) {
   }
 }
 
+// The experts' statistics: the per-CTA partial sums (float64, n slots,
+// then the n maxima) added in slot order by each thread, then the threads
+// in a fixed tree; the maxima likewise; out = {float(sum), float(max)}.
+// One CTA of kThreadsT threads.  (A template, so a source that takes no
+// statistics compiles none.)
+template <int kThreadsT>
+__global__ void stats_finish(const double* __restrict__ part, long long n,
+                             float* __restrict__ out) {
+  __shared__ double s[kThreadsT], m[kThreadsT];
+  const int t = threadIdx.x;
+  double a = 0.0, b = 0.0;
+  for (long long i = t; i < n; i += kThreadsT) {
+    a += part[i];
+    b = fmax(b, part[n + i]);
+  }
+  s[t] = a;
+  m[t] = b;
+  __syncthreads();
+  for (int o = kThreadsT / 2; o > 0; o >>= 1) {
+    if (t < o) {
+      s[t] += s[t + o];
+      m[t] = fmax(m[t], m[t + o]);
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    out[0] = (float)s[0];
+    out[1] = (float)m[0];
+  }
+}
+
 // -- split-K ---------------------------------------------------------------
 // A kernel split along K writes slab z's partial (M, N) sums to
 // part[z * M * N ...]; split_sum adds the slabs in slab order into y, so the

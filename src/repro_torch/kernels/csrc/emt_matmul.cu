@@ -55,17 +55,16 @@
 //   last CTA of each output tile, on a ticket) measured slower in device
 //   time (PERF.md).
 // * A stack of E experts (the MoE layer's three projections, JAX's
-//   moe._emt_stacked + einsum), at any M: the ring GEMV and, above 16
-//   rows, the tiled kernel of emt_tiled.cuh, each with an expert grid
-//   axis (template EX; GEMV z = e, tiled z = e * splits + slab).  Expert e
-//   reads x + e * sxe and w + e * swe and hashes its element (k, n) at row
-//   e * K + k: the folded (E * K, N) draw of the reference, the TPU
-//   kernel's row base k0_base.  One launch covers a projection of every
-//   expert, and the planner counts all the experts' CTAs before it splits
-//   K.  Each CTA also sums |w'| (a float partial a row, folded into
-//   float64) and takes its max over the weight elements it hashed
-//   (disjoint regions: GEMV CTAs each hash their own slab of 128 columns,
-//   tiled CTAs of the first row tile only), and a one-CTA pass adds the
+//   moe._emt_stacked + einsum) at M <= 16: the ring GEMV with an expert
+//   grid axis (template EX, z = e); above 16 rows the tensor-core kernel
+//   of emt_experts_tc.cu.  Expert e reads x + e * sxe and w + e * swe and
+//   hashes its element (k, n) at row e * K + k: the folded (E * K, N) draw
+//   of the reference, the TPU kernel's row base k0_base.  One launch
+//   covers a projection of every expert, and the planner counts all the
+//   experts' CTAs before it splits K.  Each CTA also sums |w'| (a float
+//   partial a row, folded into float64) and takes its max over the weight
+//   elements it hashed (disjoint regions: each CTA its own slab of 128
+//   columns), and a one-CTA pass (common.cuh stats_finish) adds the
 //   per-CTA partials in a fixed order: the noisy stack's statistics, which
 //   the layer's accounting reads, without a noisy stack in memory.
 // Not yet done (later work): at decode the host's two launches and the
@@ -77,7 +76,6 @@
 #include <cstdint>
 
 #include "common.cuh"
-#include "emt_tiled.cuh"
 
 namespace {
 
@@ -656,16 +654,7 @@ void launch_gemv(const Args& a, bool kc, int splits, cudaStream_t s) {
 }
 
 template <int NS, bool I8, bool EX>
-void launch(const Args& a, bool kc, int splits, int xvec, cudaStream_t s) {
-  if constexpr (EX) {
-    if (a.M > kGemvMaxM) {
-      repro::launch_tiled<NS>(a.x, static_cast<const float*>(a.w), a.out,
-                              a.sig, a.M, a.N, a.K, a.k_slab, a.sxm, a.sxk,
-                              a.swk, a.vw, xvec, a.seed, a.plane, a.np,
-                              splits, a.E, a.ex, s);
-      return;
-    }
-  }
+void launch(const Args& a, bool kc, int splits, cudaStream_t s) {
   switch (a.M) {
     case 1: launch_gemv<1, NS, I8, EX>(a, kc, splits, s); break;
     case 2: launch_gemv<2, NS, I8, EX>(a, kc, splits, s); break;
@@ -683,8 +672,8 @@ bool aligned(const void* p, int bytes) {
 
 
 // The shared body of the C entries: check the plan, pick the weight
-// loads' width, launch, and sum the slabs.  M <= 16, or EX: a stack of E
-// experts at the strides of `ex` (n-major weights only), at any M.
+// loads' width, launch, and sum the slabs.  M <= 16; EX: a stack of E
+// experts at the strides of `ex` (n-major weights only).
 template <bool I8, bool EX>
 int run(const float* x, const void* w, const float* scale, float* y,
         float* part, const float* sig, const long long* dims,
@@ -695,12 +684,11 @@ int run(const float* x, const void* w, const float* scale, float* y,
   const int splits = (int)dims[3], k_slab = (int)dims[4];
   const long long sxm = dims[5], sxk = dims[6], swk = dims[7], swn = dims[8];
   const bool kc = swn != 1;
-  const bool gemv = M <= kGemvMaxM;
-  const int bk = !gemv ? repro::kTBK : kc ? kGemvBKk : kGemvBK;
+  const int bk = kc ? kGemvBKk : kGemvBK;
   const int mt = M <= 4 ? M : M <= 8 ? 8 : 16;     // the GEMV row template
-  if (M < 1 || N < 1 || (!EX && !gemv) ||
+  if (M < 1 || N < 1 || M > kGemvMaxM ||
       !repro::split_plan_ok(K, splits, k_slab, bk) ||
-      (gemv && (long long)sizeof(float) * mt * k_slab > kGemvXBytes) ||
+      (long long)sizeof(float) * mt * k_slab > kGemvXBytes ||
       (EX && (kc || E < 1 || (long long)splits * E > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
   int vw = 1;
@@ -717,46 +705,16 @@ int run(const float* x, const void* w, const float* scale, float* y,
   } else if (swk == 1 && swn % 4 == 0 && aligned(w, 16)) {
     vw = 4;
   }
-  const int xvec = sxk == 1 && sxm % 4 == 0 && ex.sxe % 4 == 0 &&
-                   aligned(x, 16);
   Args a{x, w, scale, splits > 1 ? part : y, sig, M, N, K, k_slab, sxm, sxk,
          swk, swn, vw, seed, plane, *np, E, ex};
   if (np->n_states == 2)
-    launch<2, I8, EX>(a, kc, splits, xvec, s);
+    launch<2, I8, EX>(a, kc, splits, s);
   else
-    launch<0, I8, EX>(a, kc, splits, xvec, s);
+    launch<0, I8, EX>(a, kc, splits, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(
       repro::split_sum(part, y, (long long)E * M * N, splits, s));
-}
-
-// The experts' statistics: the per-CTA partial sums (float64) added in
-// slot order by each thread, then the threads in a fixed tree; the maxima
-// likewise; out = {float(sum), float(max)}.
-__global__ void stats_finish(const double* __restrict__ part, long long n,
-                             float* __restrict__ out) {
-  __shared__ double s[kThreads], m[kThreads];
-  const int t = threadIdx.x;
-  double a = 0.0, b = 0.0;
-  for (long long i = t; i < n; i += kThreads) {
-    a += part[i];
-    b = fmax(b, part[n + i]);
-  }
-  s[t] = a;
-  m[t] = b;
-  __syncthreads();
-  for (int o = kThreads / 2; o > 0; o >>= 1) {
-    if (t < o) {
-      s[t] += s[t + o];
-      m[t] = fmax(m[t], m[t + o]);
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    out[0] = (float)s[0];
-    out[1] = (float)m[0];
-  }
 }
 
 }  // namespace
@@ -794,14 +752,14 @@ extern "C" int emt_matmul_i8(const float* x, const int8_t* w,
                           stream);
 }
 
-// A stack of E experts: y (E, M, N) = x (E, M, K) @ noisy(w (E, K, N))
-// per expert, expert e's element (k, n) hashed at row e * K + k; w
-// n-major (swn == 1).  dims = {M, N, K, splits, k_slab, sxm, sxk, swk, swn,
-// E, sxe, swe, slots}: the plan is emt_matmul.py::plan's for the experts
-// entry (the tiled kernel above 16 rows), its tiles counted; `part` holds
-// splits * E * M * N floats, `parts` 2 * slots float64 values, slots
-// being the grid's CTAs (checked), and `stats` receives {sum |w'|,
-// max |w'|} of the noisy stack.
+// A stack of E experts at M <= 16: y (E, M, N) = x (E, M, K) @
+// noisy(w (E, K, N)) per expert, expert e's element (k, n) hashed at row
+// e * K + k; w n-major (swn == 1).  dims = {M, N, K, splits, k_slab, sxm,
+// sxk, swk, swn, E, sxe, swe, slots}: the plan is emt_matmul.py::plan's
+// for the experts entry, its tiles counted; `part` holds splits * E * M *
+// N floats, `parts` 2 * slots float64 values, slots being the grid's CTAs
+// (checked), and `stats` receives {sum |w'|, max |w'|} of the noisy
+// stack.  (M > 16: emt_experts_tc.cu's emt_matmul_experts_tc_f32.)
 extern "C" int emt_matmul_experts_f32(const float* x, const float* w,
                                       float* y, float* part, double* parts,
                                       float* stats, const float* sig,
@@ -812,17 +770,14 @@ extern "C" int emt_matmul_experts_f32(const float* x, const float* w,
   const int M = (int)dims[0], N = (int)dims[1];
   const long long splits = dims[3], E = dims[9], slots = dims[12];
   const long long ctas =
-      M <= kGemvMaxM
-          ? (long long)((N + kGemvBN - 1) / kGemvBN) * splits * E
-          : (long long)((N + repro::kTBN - 1) / repro::kTBN) *
-                ((M + repro::kTBM - 1) / repro::kTBM) * splits * E;
-  if (dims[8] != 1 || E < 1 || E > 65535 || slots != ctas)
+      (long long)((N + kGemvBN - 1) / kGemvBN) * splits * E;
+  if (M > kGemvMaxM || dims[8] != 1 || E < 1 || E > 65535 || slots != ctas)
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = run<false, true>(x, w, nullptr, y, part, sig, dims, seed,
                                    plane, np, stream, (int)E,
                                    repro::Experts{dims[10], dims[11], parts});
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  stats_finish<<<1, kThreads, 0, s>>>(parts, slots, stats);
+  repro::stats_finish<kThreads><<<1, kThreads, 0, s>>>(parts, slots, stats);
   return static_cast<int>(cudaGetLastError());
 }

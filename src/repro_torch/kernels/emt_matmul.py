@@ -29,8 +29,10 @@ dequantizes first.  It is serve-only: a gradient through it raises, and
 K3-dx and K3-dw take float32 weights only.
 
 :func:`emt_matmul_experts` computes a stack of E experts' products in one
-launch (``emt_matmul_experts_f32``: the GEMV and, above 16 rows, the
-tiled kernel of ``csrc/emt_tiled.cuh``, with an expert grid axis), expert
+launch (``emt_matmul_experts_f32``, the GEMV with an expert grid axis, at
+M <= 16; above, ``emt_matmul_experts_tc_f32`` in
+``csrc/emt_experts_tc.cu``, on the tensor cores with the noisy weight
+built in registers as wgmma's A operand), expert
 e's weight hashed at rows e * K + k of the folded (E * K, N) stack, as
 JAX's MoE layer draws its noise (``repro/models/moe.py`` ``_emt_stacked``;
 the TPU kernel's row base ``k0_base``), and returns the noisy stack's
@@ -67,8 +69,7 @@ MAX_STATES = 8
 # on 1-4, 8 and 16); its CTA covers 128 columns of an n-major weight (slabs
 # in multiples of 32 rows), or 32 columns of any other weight (multiples of
 # 128), and stages its slab's x rows, at most GEMV_X_BYTES, in shared
-# memory; the experts' tiled kernel covers 64 x 64 outputs in 32-row K
-# tiles.  K3's forward above GEMV_MAX_M rows and its backward (the
+# memory.  K3's forward above GEMV_MAX_M rows and its backward (the
 # template csrc/emt_tc.cuh) cover 128 x 128 outputs in 32-deep reduction
 # tiles, one CTA per SM.
 GEMV_MAX_M = 16
@@ -86,8 +87,21 @@ SMEM_PER_SM = 227 * 1024
 RESERVED_SMEM = 1024
 GEMV_N = dict(bn=128, bk=32, min_slab=64)
 GEMV_K = dict(bn=32, bk=128, min_slab=256)
-TILED = dict(bm=64, bn=64, bk=32, min_slab=64)
 TC = dict(bm=128, bn=128, bk=32)
+# The experts entry above GEMV_MAX_M rows (csrc/emt_experts_tc.cu,
+# mirrored here): a CTA of experts_tc_cols(M) // 64 consumer warpgroups
+# and a producer one covers that many weight columns by one x row tile of
+# experts_tile_rows(M) rows up to row_tile rows, two of row_tile above
+# (later row tiles in the grid), in 32-deep k-tiles, one CTA an SM.  Its
+# shared memory: x's ring stages of two TF32 pieces (x_stages by (row
+# tiles, tile rows)), the weight's (w_stages by columns and row tiles; 32
+# rows of the CTA's columns), 1 KB of alignment, the static mbarriers (a
+# full and an empty one a stage) and the statistics' slots (12 bytes a
+# consumer warp).
+EXPERTS_TC = dict(bk=32, row_tile=64,
+                  x_stages={(1, 24): 8, (1, 32): 8, (1, 48): 6, (1, 64): 5,
+                            (2, 64): 3},
+                  w_stages={(256, 1): 5, (128, 1): 8, (128, 2): 6})
 
 
 class NoiseParams(ctypes.Structure):
@@ -156,7 +170,7 @@ def _fn(lib: str, entry: str, pointers: int = 6):
 
 
 def plan(M: int, N: int, K: int, sms: int, n_major: bool,
-         experts: int = 1, tiled: bool = False) -> splitk.Plan:
+         experts: int = 0) -> splitk.Plan:
     """The kernel's cut of (M, K) @ (K, N).  At M <= 16 (the GEMV): K split
     until the grid holds two CTAs per SM (what ~128 registers per thread
     allow), in whole chunks.  Above: the tensor-core kernel's 128 x 128
@@ -175,19 +189,66 @@ def plan(M: int, N: int, K: int, sms: int, n_major: bool,
 
     `experts`: a stack of that many products in one grid (the experts
     entry, :func:`emt_matmul_experts`), whose split counts every
-    expert's tiles.  `tiled`: the tiled kernel's plan above 16 rows (64 x
-    64 tiles, two CTAs per SM), which the experts entry keeps."""
+    expert's tiles; 0 (the default), K3's single product.  Above 16 rows
+    a stack takes the experts' tensor-core kernel's cut (experts_tc_cols(M)
+    columns by experts_tc_rows(M) rows a CTA, one CTA an SM, K in whole
+    32-row k-tiles by splitk.plan_waves), a single product K3's."""
     if M <= GEMV_MAX_M:
         kw = GEMV_N if n_major else GEMV_K
         rows = M if M <= 4 else 8 if M <= 8 else 16      # the row template
         max_slab = GEMV_X_BYTES // (4 * rows) // kw["bk"] * kw["bk"]
         return splitk.plan(M, N, K, bm=M, sms=sms, max_slab=max_slab,
-                           experts=experts, **kw)
-    if tiled:
-        return splitk.plan(M, N, K, sms=sms, experts=experts, **TILED)
-    if experts != 1:
-        raise ValueError("the tensor-core plan takes one product a grid")
+                           experts=max(experts, 1), **kw)
+    if experts:
+        return splitk.plan_waves(M, N, K, sms=sms, bm=experts_tc_rows(M),
+                                 bn=experts_tc_cols(M),
+                                 bk=EXPERTS_TC["bk"], experts=experts)
     return splitk.plan_waves(M, N, K, sms=sms, **TC)
+
+
+def experts_tc_rows(M: int) -> int:
+    """The x rows a CTA of the experts' tensor-core kernel covers at M >
+    16 rows: one row tile up to 64 rows, two above (csrc/emt_experts_tc.cu
+    row_tiles), which share each k-tile's noisy weight, so a weight element
+    is hashed once a call wherever M <= 128."""
+    t = EXPERTS_TC["row_tile"]
+    return t if M <= t else 2 * t
+
+
+def experts_tile_rows(M: int) -> int:
+    """The rows of one row tile at M > 16 rows, wgmma's N: M rounded up to
+    24, 32, 48 or 64 up to 64 rows, 64 above (csrc/emt_experts_tc.cu
+    tile_rows)."""
+    for n in (24, 32, 48):
+        if M <= n:
+            return n
+    return 64
+
+
+def experts_tc_cols(M: int) -> int:
+    """The weight columns a CTA of the experts' tensor-core kernel covers
+    at M > 16 rows: 256 (four consumer warpgroups) up to 32 rows, 128 above
+    (csrc/emt_experts_tc.cu cta_cols)."""
+    return 256 if M <= 32 else 128
+
+
+def experts_tc_smem(M: int) -> int:
+    """Shared-memory bytes of one CTA of the experts' tensor-core kernel
+    at M rows, as its launcher sizes it (dynamic) and declares it
+    (static)."""
+    g = EXPERTS_TC
+    tiles = experts_tc_rows(M) // g["row_tile"]
+    rows, cols = experts_tile_rows(M), experts_tc_cols(M)
+    xs, ws = g["x_stages"][tiles, rows], g["w_stages"][cols, tiles]
+    stage = 2 * tiles * rows * g["bk"] * 4
+    weights = ws * g["bk"] * cols * 4
+    return xs * stage + weights + 1024 + 2 * 8 * (xs + ws) + cols // 64 * 48
+
+
+def experts_grid(p: splitk.Plan) -> tuple:
+    """The experts' tensor-core launch's grid under plan `p`, as the C
+    entry builds it: (column tiles, row tiles, experts x slabs)."""
+    return (splitk.cdiv(p.N, p.bn), splitk.cdiv(p.M, p.bm), p.E * p.splits)
 
 
 def gemv_ring_smem(M: int, k_slab: int, int8: bool) -> int:
@@ -382,7 +443,7 @@ def _forward_int8(x, q, scale, sig, *, device: DeviceModel, seed: int,
 def _launch_experts(index, E, M, N, K, sxe, sxm, sxk, swe, swk):
     """(plan, the experts entry's int64 dims array, its address) for one
     call shape; dims[12] is the number of per-CTA statistics slots."""
-    p = plan(M, N, K, splitk.sm_count(index), True, experts=E, tiled=True)
+    p = plan(M, N, K, splitk.sm_count(index), True, experts=E)
     dims = (ctypes.c_longlong * 13)(M, N, K, p.splits, p.k_slab, sxm, sxk,
                                     swk, 1, E, sxe, swe, p.ctas)
     return p, dims, ctypes.addressof(dims)
@@ -412,7 +473,10 @@ def _forward_experts(x, w, sig, *, device: DeviceModel, seed: int = 0,
     # per-CTA partial sums and maxima (float64), then the two results
     parts = torch.empty(2 * p.ctas, dtype=torch.float64, device=x.device)
     stats = torch.empty(2, dtype=torch.float32, device=x.device)
-    err = _fn("emt_matmul", "emt_matmul_experts_f32", 8)(
+    lib, entry = (("emt_matmul", "emt_matmul_experts_f32")
+                  if M <= GEMV_MAX_M else
+                  ("emt_experts_tc", "emt_matmul_experts_tc_f32"))
+    err = _fn(lib, entry, 8)(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), part, parts.data_ptr(),
         stats.data_ptr(), sig.data_ptr(), dims, int(seed) & 0xFFFFFFFF,
         int(plane) & 0xFFFFFFFF, ctypes.addressof(noise_params(device)),

@@ -78,7 +78,7 @@ def plan(M: int, N: int, K: int, *, bm: int, bn: int, bk: int, sms: int,
 
 
 def plan_waves(M: int, N: int, K: int, *, bm: int, bn: int, bk: int,
-               sms: int) -> Plan:
+               sms: int, experts: int = 1) -> Plan:
     """The split of K for a kernel that holds one CTA per SM (K3's
     backward, 225 KB of shared memory a CTA): the slab count s that
     minimizes the modelled time, in units of one bk-deep tile of one CTA,
@@ -90,8 +90,9 @@ def plan_waves(M: int, N: int, K: int, *, bm: int, bn: int, bk: int,
     fill, and the partial tiles' write and read-back by the slab sum
     (split_sum, or K3-dw's slab epilogue) spread over the card (none
     without a split).  Ties go to fewer slabs.  Slabs
-    are whole bk tiles; the last may be shorter, none is empty."""
-    tiles = cdiv(N, bn) * cdiv(M, bm)
+    are whole bk tiles; the last may be shorter, none is empty.  A stack
+    of `experts` products in one grid counts every expert's tiles."""
+    tiles = cdiv(N, bn) * cdiv(M, bm) * experts
     kt = max(1, cdiv(K, bk))
     best = None
     for s in range(1, kt + 1):
@@ -103,7 +104,7 @@ def plan_waves(M: int, N: int, K: int, *, bm: int, bn: int, bk: int,
         if best is None or cost < best[0]:
             best = (cost, s, per)
     _, s, per = best
-    return Plan(M, N, K, bm, bn, bk, s, per * bk)
+    return Plan(M, N, K, bm, bn, bk, s, per * bk, experts)
 
 
 def outputs(p: Plan, like: torch.Tensor):

@@ -29,6 +29,7 @@ from repro_torch.core import regularizer as treg
 from repro_torch.core.quant import QuantConfig as TQC
 from repro_torch.kernels import emt_matmul as k3
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.ref import noisy_experts
 
 
 def _np(rng, *shape, scale=1.0):
@@ -150,23 +151,41 @@ def test_k3_plain_matches_ref_and_interpret_pallas(shape):
 def test_k3_noise_independent_of_layout_and_batching():
     """The noisy weight is a function of the logical (row, col) only: a
     strided (transposed) weight, a leading batch shape and any row split
-    give the same product as the contiguous call."""
+    give the same product as the contiguous call, bit for bit on rows of
+    I (each output is one noisy weight element, whatever order BLAS sums
+    in), and within float32 summation order on random rows (BLAS sums a
+    6-row, a 2-row and a transposed product in different orders, and the
+    thread count changes the order too)."""
     rng = np.random.default_rng(5)
-    x, w = _np(rng, 6, 64), _np(rng, 64, 96, scale=0.1)
+    w = _np(rng, 64, 96, scale=0.1)
     dev = t_emt_preset("analog").device
     sig = torch.tensor(0.04)
-    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
-    base = k3.emt_matmul(xt, wt, sig, device=dev, seed=3, plane=8)
-    strided = k3.emt_matmul(xt, wt.T.contiguous().T, sig, device=dev,
-                            seed=3, plane=8)
-    batched = tops.emt_matmul(xt.reshape(2, 3, 64), wt, sig, device=dev,
-                              seed=3, plane=8).reshape(6, 96)
-    split = torch.cat([k3.emt_matmul(xt[:2], wt, sig, device=dev, seed=3,
-                                     plane=8),
-                       k3.emt_matmul(xt[2:], wt, sig, device=dev, seed=3,
-                                     plane=8)])
-    for other in (strided, batched, split):
+    wt = torch.from_numpy(w)
+    rows = torch.from_numpy(rng.permutation(64)[:6])
+    eye = torch.eye(64)[rows]
+    xr = torch.from_numpy(_np(rng, 6, 64))
+
+    def variants(xt):
+        base = k3.emt_matmul(xt, wt, sig, device=dev, seed=3, plane=8)
+        strided = k3.emt_matmul(xt, wt.T.contiguous().T, sig, device=dev,
+                                seed=3, plane=8)
+        batched = tops.emt_matmul(xt.reshape(2, 3, 64), wt, sig, device=dev,
+                                  seed=3, plane=8).reshape(6, 96)
+        split = torch.cat([k3.emt_matmul(xt[:2], wt, sig, device=dev,
+                                         seed=3, plane=8),
+                           k3.emt_matmul(xt[2:], wt, sig, device=dev,
+                                         seed=3, plane=8)])
+        return base, (strided, batched, split)
+
+    base, others = variants(eye)
+    want = noisy_experts(wt[None], sig, device=dev, seed=3, plane=8)[0]
+    np.testing.assert_array_equal(base.numpy(), want[rows].numpy())
+    for other in others:
         np.testing.assert_array_equal(other.numpy(), base.numpy())
+    base, others = variants(xr)
+    for other in others:
+        np.testing.assert_allclose(other.numpy(), base.numpy(), rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_emt_config_rejects_unported_modes():

@@ -116,7 +116,7 @@ def test_k3_matches_plain_and_noise_bit_exact(cuda, M, K, N, transposed, dev):
     want = "emt_matmul_tc" if M > k3.GEMV_MAX_M else "emt_matmul_gemv"
     names = launched(lambda: k3.emt_matmul(x, w, sig, **kw), want)
     assert any(want in n for n in names), names
-    assert not any("emt_tiled" in n for n in names), names
+    assert not any("emt_experts_tc" in n for n in names), names
     assert _rel(y, k3.plain(x, w, sig, **kw)) <= 1e-5, p
     assert torch.equal(y, k3.emt_matmul(x, w, sig, **kw)), p
     ref = noise.fluctuate(w, rho, dev, noise.NoiseConfig(), seed=99,
@@ -129,12 +129,16 @@ def test_k3_matches_plain_and_noise_bit_exact(cuda, M, K, N, transposed, dev):
 
 # (E, M, K, N, strided x) for K3's experts entry: moonshot-v1-16b-a3b's 64
 # experts at its decode and chunk rows (M = 4 and 8 on the GEMV templates,
-# 20 on the tiled kernel, 1 the smallest template), wg/wu's (D, F) =
+# 20 on the tensor-core kernel, 1 the smallest template), wg/wu's (D, F) =
 # (2048, 1408) and wd's (1408, 2048); small ragged stacks with x a strided
 # view (rows not 16-byte aligned).  The GEMV's ring at every row template
 # (1-4, 8, 16), K not a multiple of its 16-row stage, N not a multiple of
 # 128 or of 4 (weight rows 16-, 8- or 4-byte aligned: its 16-, 8- and
-# 4-byte copies), slabs split or not.
+# 4-byte copies), slabs split or not.  The tensor-core kernel above 16
+# rows at 17, 24, 40, 64, 65, 70, 128 and 130 rows: wgmma's N a multiple of
+# 8 above M, one and two 64-row tiles a CTA and a third row tile in the
+# grid; odd N (4-byte weight copies), strided x and K not a multiple of
+# the 32-deep k-tile.
 EXPERT_CASES = [(64, 4, 2048, 1408, False), (64, 8, 2048, 1408, False),
                 (64, 20, 2048, 1408, False), (64, 4, 1408, 2048, False),
                 (64, 8, 1408, 2048, False), (64, 20, 1408, 2048, False),
@@ -142,7 +146,10 @@ EXPERT_CASES = [(64, 4, 2048, 1408, False), (64, 8, 2048, 1408, False),
                 (2, 70, 300, 66, True), (5, 16, 777, 514, True),
                 (4, 2, 200, 131, False), (3, 3, 1000, 130, False),
                 (2, 16, 1000, 260, True), (6, 8, 40, 4100, False),
-                (1, 4, 333, 9, True)]
+                (1, 4, 333, 9, True), (3, 17, 300, 130, False),
+                (4, 24, 1000, 260, False), (2, 40, 777, 514, True),
+                (2, 64, 256, 130, False), (3, 65, 200, 131, False),
+                (2, 128, 1000, 260, False), (2, 130, 333, 129, True)]
 
 
 @pytest.mark.parametrize("E,M,K,N,strided", EXPERT_CASES)
@@ -153,8 +160,8 @@ def test_k3_experts_matches_plain(cuda, E, M, K, N, strided, dev):
     stack, then bmm); the statistics max exact and sum within rtol 1e-6;
     one launch a call; two calls bit-identical; rows of I give each
     expert's noisy rows bit for bit (expert e hashed at rows e * K + k);
-    above 16 rows the tiled kernel (emt_tiled) runs, not the tensor-core
-    one."""
+    above 16 rows the experts' tensor-core kernel (emt_experts_tc) runs,
+    not K3's (emt_matmul_tc)."""
     g = torch.Generator(device=cuda).manual_seed(E + M + K + N)
     if strided:
         x = torch.randn((E, M, K + 3), generator=g, device=cuda)[..., :K]
@@ -163,7 +170,7 @@ def test_k3_experts_matches_plain(cuda, E, M, K, N, strided, dev):
     w = torch.randn((E, K, N), generator=g, device=cuda)
     sig = dev.sigma_rel(torch.tensor(3.5, device=cuda))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    p = k3.plan(M, N, K, sms, True, experts=E, tiled=True)
+    p = k3.plan(M, N, K, sms, True, experts=E)
     kw = dict(device=dev, seed=99, plane=1234)
     before = k3.emt_matmul_experts.launches
     y, s, m = k3.emt_matmul_experts(x, w, sig, **kw)
@@ -175,7 +182,7 @@ def test_k3_experts_matches_plain(cuda, E, M, K, N, strided, dev):
                                                            float(sp), p)
     y2, s2, m2 = k3.emt_matmul_experts(x, w, sig, **kw)
     assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(m, m2)
-    want = "emt_tiled" if M > k3.GEMV_MAX_M else "emt_matmul_gemv"
+    want = "emt_experts_tc" if M > k3.GEMV_MAX_M else "emt_matmul_gemv"
     names = launched(lambda: k3.emt_matmul_experts(x, w, sig, **kw), want)
     assert any(want in n for n in names), names
     assert not any("emt_matmul_tc" in n for n in names), names
@@ -194,10 +201,10 @@ def test_k3_experts_matches_plain(cuda, E, M, K, N, strided, dev):
 def test_k3_experts_row_base_zero_is_k3(cuda, M, K, N):
     """A stack of one expert (row base 0) is plain K3 on its weight, bit
     for bit, on the GEMV (M <= 16); above 16 rows, where the experts'
-    tiled kernel (FP32 FMAs) and K3's tensor-core kernel (3xTF32 with a
-    three-piece weight) sum in different ways, within 1e-5, and bit for
-    bit on rows of I (both the noisy weight itself); a gradient through
-    the experts entry on the card raises (serve-only)."""
+    tensor-core kernel and K3's (both four TF32 products on a three-piece
+    weight) sum in different orders and split K differently, within 1e-5,
+    and bit for bit on rows of I (both the noisy weight itself); a
+    gradient through the experts entry on the card raises (serve-only)."""
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = torch.randn((1, M, K), generator=g, device=cuda)
     w = torch.randn((1, K, N), generator=g, device=cuda)
@@ -217,6 +224,29 @@ def test_k3_experts_row_base_zero_is_k3(cuda, M, K, N):
     y, _, _ = k3.emt_matmul_experts(xg, w, sig, **kw)
     with pytest.raises(NotImplementedError, match="MoE training"):
         y.sum().backward()
+
+
+def test_k3_experts_one_expert_at_64_rows_is_k3_tc(cuda):
+    """A stack of one expert at M = 64 (one full row tile of the experts'
+    tensor-core kernel, its weight through a tensor map: N a multiple of
+    4) against K3's tensor-core forward (emt_matmul_tc) on the same
+    weight: the same four TF32 products on the same three-piece weight and
+    two-piece x, summed in another order, within 1e-6."""
+    M, K, N = 64, 1000, 512
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn((1, M, K), generator=g, device=cuda)
+    w = torch.randn((1, K, N), generator=g, device=cuda)
+    dev = DeviceModel()
+    sig = dev.sigma_rel(torch.tensor(3.5, device=cuda))
+    kw = dict(device=dev, seed=7, plane=77)
+    names = launched(lambda: k3.emt_matmul_experts(x, w, sig, **kw),
+                     "emt_experts_tc")
+    assert any("emt_experts_tc" in n for n in names), names
+    before = k3._forward_tc.launches
+    y1 = k3.emt_matmul(x[0], w[0], sig, **kw)
+    assert k3._forward_tc.launches == before + 1
+    y, _, _ = k3.emt_matmul_experts(x, w, sig, **kw)
+    assert _rel(y[0], y1) <= 1e-6
 
 
 # (M, K, N, transposed) for K3's backward: the 3xTF32 template in both
@@ -786,7 +816,7 @@ def test_dt_proj_with_bias_on_card(cuda, M):
                                    (4, 4096, 14336), (4, 14336, 4096)])
 def test_k3_experts_at_jamba_widths_on_card(cuda, M, K, N):
     """K3's experts entry at jamba's 16 experts of 14,336: at a 128-token
-    admission's capacity (M = 20, the tiled kernel) and a decode step's
+    admission's capacity (M = 20, the tensor-core kernel) and a decode step's
     (M = 4, the GEMV): within 1e-5 of the plain version, the noisy stack's
     max |w~| exact and sum within rtol 1e-6, two calls bit-identical."""
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
@@ -803,7 +833,7 @@ def test_k3_experts_at_jamba_widths_on_card(cuda, M, K, N):
     del yp
     y2, s2, m2 = k3.emt_matmul_experts(x, w, sig, **kw)
     assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(m, m2)
-    want = "emt_tiled" if M > k3.GEMV_MAX_M else "emt_matmul_gemv"
+    want = "emt_experts_tc" if M > k3.GEMV_MAX_M else "emt_matmul_gemv"
     names = launched(lambda: k3.emt_matmul_experts(x, w, sig, **kw), want)
     assert any(want in n for n in names), names
 

@@ -154,8 +154,9 @@ def test_k3_main_path_grids():
     split.  At a chunk step the tensor-core forward cuts the down
     projection's K (9 output tiles) into 14 slabs of 512 rows (126 CTAs:
     15 would pass one wave), and at a training step into 7 (504 CTAs);
-    the unembed's 2,048 and 16,384 tiles need no split.  The experts entry
-    keeps the tiled kernel's 64 x 64 tiles above 16 rows."""
+    the unembed's 2,048 and 16,384 tiles need no split.  Above 16 rows the
+    experts entry takes its tensor-core kernel's cut (256 columns by a
+    64-row tile at 20 rows, one CTA an SM), a single product K3's."""
     for K, N in ((1152, 1024), (1024, 1152), (1152, 6912), (6912, 1152)):
         assert k3.plan(4, N, K, SMS, True).ctas >= SMS
     unembed = k3.plan(4, 262144, 1152, SMS, False)
@@ -167,12 +168,13 @@ def test_k3_main_path_grids():
     assert k3.plan(1024, 1152, 6912, SMS, True).ctas == 504
     assert k3.plan(64, 262144, 1152, SMS, False).ctas == 2048
     assert k3.plan(1024, 262144, 1152, SMS, False).ctas == 16384
-    chunk = k3.plan(20, 2048, 1408, SMS, True, experts=64, tiled=True)
-    assert (chunk.bm, chunk.bn, chunk.E) == (64, 64, 64)
-    assert chunk == splitk.plan(20, 2048, 1408, sms=SMS, experts=64,
-                                **k3.TILED)
-    with pytest.raises(ValueError):     # the tensor-core plan: one product
-        k3.plan(20, 2048, 1408, SMS, True, experts=64)
+    chunk = k3.plan(20, 2048, 1408, SMS, True, experts=64)
+    assert (chunk.bm, chunk.bn, chunk.E) == (64, 256, 64)
+    assert chunk == splitk.plan_waves(20, 2048, 1408, sms=SMS, bm=64,
+                                      bn=256, bk=32, experts=64)
+    # one product above 16 rows: K3's tensor-core plan
+    assert k3.plan(20, 2048, 1408, SMS, True) == splitk.plan_waves(
+        20, 2048, 1408, sms=SMS, **k3.TC)
 
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8", "experts"])
@@ -192,6 +194,36 @@ def test_gemv_ring_geometry(int8):
     assert 24 * 1024 <= in_flight <= 32 * 1024
 
 
+@pytest.mark.parametrize("M", [17, 20, 24, 33, 40, 48, 64, 65, 128, 130])
+def test_experts_tc_geometry(M):
+    """The experts' tensor-core kernel above 16 rows as
+    csrc/emt_experts_tc.cu sizes it: a row tile is M rounded up to a
+    multiple of 8 (wgmma's N: 24, 32, 48 or 64 rows), two 64-row tiles a
+    CTA above 64 rows and later row tiles in the grid above 128; 256
+    weight columns a CTA up to 32 rows, 128 above; one CTA's shared memory
+    within what an SM gives it; the statistics slots the C entry counts
+    from its grid equal the plan's CTAs; jamba's stacks (16 experts of
+    4,096 x 14,336 and back) fill the card unsplit."""
+    rows = k3.experts_tile_rows(M)
+    assert rows in (24, 32, 48, 64) and rows >= min(M, 64)
+    assert rows - min(M, 64) < 16
+    assert k3.experts_tc_rows(M) == (64 if M <= 64 else 128)
+    cols = k3.experts_tc_cols(M)
+    assert cols == (256 if M <= 32 else 128)
+    assert k3.experts_tc_smem(M) + k3.RESERVED_SMEM <= k3.SMEM_PER_SM
+    for E, K, N in ((16, 4096, 14336), (16, 14336, 4096), (3, 100, 130),
+                    (1, 777, 514)):
+        p = k3.plan(M, N, K, SMS, True, experts=E)
+        gx, gy, gz = k3.experts_grid(p)
+        assert gx * gy * gz == p.ctas
+        assert (gx, gy) == (splitk.cdiv(N, cols),
+                            splitk.cdiv(M, k3.experts_tc_rows(M)))
+        assert (p.bn, p.bk, p.E) == (cols, 32, E) and p.k_slab % 32 == 0
+        assert p.splits * p.k_slab >= K > (p.splits - 1) * p.k_slab
+        if E == 16:
+            assert p.splits == 1 and p.ctas >= SMS
+
+
 # the ring's main-path calls (kind, E, M, K, N): gemma3-1b's n-major
 # projections as int8 levels at a decode step, moonshot-v1-16b-a3b's
 # expert stacks at a decode step's and a chunk step's rows
@@ -207,12 +239,12 @@ def test_gemv_ring_plan(kind, E, M, K, N):
     gives slabs of whole ring stages, and two CTAs' rings, x rows and
     statistics fit the shared memory an SM gives its CTAs."""
     int8 = kind == "int8"
-    p = k3.plan(M, N, K, SMS, True, experts=E, tiled=not int8)
+    p = k3.plan(M, N, K, SMS, True, experts=E)
     assert (p.bn, p.bk, p.E) == (128, 32, E)
     assert p.k_slab % k3.GEMV_RING[int8]["rows"] == 0
     assert (splitk.CTAS_PER_SM * (k3.gemv_ring_smem(M, p.k_slab, int8)
                                   + k3.RESERVED_SMEM) <= k3.SMEM_PER_SM)
-    one = k3.plan(M, N, K, SMS, True, experts=1, tiled=not int8)
+    one = k3.plan(M, N, K, SMS, True, experts=1)
     assert (one.k_slab, one.bk) == (k3.plan(M, N, K, SMS, True).k_slab, 32)
 
 
