@@ -165,7 +165,29 @@ Phases (any failure exits non-zero and prints no result line):
    three legacy prefills and a decode step with an idle row against its
    plain version and the logits against the plain path's (1e-3 at the
    24-bit DAC, the 8-bit gaps reported), and the experts entry timed at
-   20 rows on one jamba MoE layer's calls beside torch.bmm.
+   20 rows on one jamba MoE layer's calls beside torch.bmm;
+12. (run between phases 11 and 8) the five last architectures: gemma2-9b
+   at full published width (42 layers alternating local and global,
+   window 4,096, 16 heads over 8 of 256, vocab 256,000 tied, softcaps 50
+   and 30: 9.24 B parameters, 37.0 GB), analog, paged, chunked prefill,
+   batch 4, 6 staggered requests of GEMMA2_MAX_NEW tokens with exact
+   launch counts (K3 295 a step, K1 42 a decode step, K2 42 a chunk step:
+   max_len 128 is below the window, so no layer pages through a ring
+   table), one profiled step of each kind; every kernel call of a
+   history chunk step, a chunk step and a decode step against its plain
+   version (K1 in float64) and their logits against the plain path's
+   (1e-3 at the 24-bit DAC, the 8-bit gap and its level flips reported);
+   then CUT_ARCHS at published widths cut in depth (llama3-405b 1 layer,
+   deepseek-67b 2, qwen2-vl-72b 2 with M-RoPE and the embeds input,
+   llama4-scout 2 on the mixed placement, its 16 experts top-1 through
+   the experts entry), one after another: a chunk step (or, for the
+   M-RoPE and embeds stacks, a legacy prefill of batch 3 on random
+   embeddings) and a decode step at batch 4 with an idle row, launch
+   counts exact, every kernel call against its plain version, the logits
+   against the plain path's at the 24-bit DAC (1e-3); llama3's decode
+   step runs K1 at G = 16.  Phase 3 also holds K1 and K4 at those
+   architectures' query groups (ATTN_GROUPS: G = 16, 5, 8 and 2 x 256,
+   softcap 50) against their float64 plain versions.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Every "ms" is the kernel's time in one
@@ -199,10 +221,16 @@ their counts in the two ring runs, and ``prefix_launches`` and
 ``poisson_launches``, their counts in the prefix cache's cache-on run and
 in the Poisson stream; K2's and K3's ``spec_paged_launches`` and
 ``spec_contiguous_launches`` are their counts in the two speculative
-runs; K3's ``train_launches``, ``train_ms``,
-``train_bound_ms`` and ``train_library_ms`` are its forward's in the
-training run; K3-dx's and K3-dw's "launches" count the training run's
-three uninterrupted steps and ``cnn_launches`` the two CNN runs'.
+runs; K1-K3's (and ``emt_matmul_tc``'s) ``gemma2_launches`` their counts
+in the gemma2-9b run, and ``llama3_launches``, ``deepseek_launches``,
+``qwen2_launches`` and ``llama4_launches`` (K1, K2, K3 and the experts
+entry, where the path launched them) their counts in each cut
+architecture's two steps; K1's and K4's ``groups`` the device time and
+bound of one launch at each ATTN_GROUPS shape ("G x hd"); K3's
+``train_launches``, ``train_ms``, ``train_bound_ms`` and
+``train_library_ms`` are its forward's in the training run; K3-dx's and
+K3-dw's "launches" count the training run's three uninterrupted steps
+and ``cnn_launches`` the two CNN runs'.
 Bounds are the largest of the bytes over the H100 SXM's published 3.35
 TB/s, the FP32 pipe's operations (FLOPs, and for the noisy matmuls the
 hash's integer multiplies and the noise factor's FMULs as two each) over
@@ -315,6 +343,29 @@ JAMBA_STEPS = ((100, 128), (40, 64), (13, 16))
 # GB of weights) drop the 64 bucket, whose calls the kernel check holds
 JAMBA_LOGIT_STEPS = ((100, 128), (13, 16))
 BATCH, BLOCK, CHUNK, MAX_LEN, MAX_NEW = 4, 16, 16, 128, 8
+# the decode-attention kernels' query groups (G, hd) beyond gemma3's and
+# seamless's, over 8 kv heads at softcap 50: llama3-405b's 16 x 128 (8
+# outputs a thread), llama4-scout's 5 (no power of two), deepseek-67b's
+# and qwen2-vl-72b's 8 and gemma2-9b's 2 x 256
+ATTN_GROUPS = ((16, 128, "llama3-405b"), (5, 128, "llama4-scout-17b-a16e"),
+               (8, 128, "deepseek-67b, qwen2-vl-72b"), (2, 256, "gemma2-9b"))
+# gemma2-9b at its full published width (42 layers alternating local and
+# global attention, window 4,096, d_model 3,584, 16 heads over 8 of 256,
+# d_ff 14,336, vocab 256,000 tied and scaled, softcaps 50 and 30: 9.24 B
+# parameters, 37.0 GB in float32), analog, paged, chunked; max_len MAX_LEN
+# is below the window, so no layer pages through a ring table and the
+# local layers see every position; requests of GEMMA2_MAX_NEW tokens
+GEMMA2_ARCH, GEMMA2_MAX_NEW = "gemma2-9b", 4
+# the architectures checked at published widths with the depth cut to fit
+# the card (arch, layers, published layers, placement): llama3-405b's 126
+# layers hold 1.6 TB in float32, one 29.6 GB of which 8.4 GB is the untied
+# head; deepseek-67b 2 layers 12.3 GB; qwen2-vl-72b 2 layers 17.0 GB
+# (M-RoPE, the embeds stub); llama4-scout 2 layers 24.9 GB, on the mixed
+# placement so that its 16 experts (top-1) read in analog, as moonshot's do
+CUT_ARCHS = (("llama3-405b", 1, 126, "analog"),
+             ("deepseek-67b", 2, 95, "analog"),
+             ("qwen2-vl-72b", 2, 80, "analog"),
+             ("llama4-scout-17b-a16e", 2, 48, "mixed"))
 SEED = 0
 # the ring paths: prompts past gemma3-1b's 512-position window, so that
 # every ring wraps
@@ -1313,6 +1364,91 @@ class Smoke:
               f"plain {plain_ms:.4f} ms, SDPA on the gathered view "
               f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({by}), roofline share "
               f"{100 * b_ms / ms:.2f}%")
+        self.records["paged_attention_decode"]["groups"] = \
+            self._attn_groups(True)
+
+    def _attn_groups(self, write):
+        """K1 (`write`) or K4 at ATTN_GROUPS, batch 4 over 8 blocks of 16,
+        softcap 50: against the float64 plain version (1e-5), K1's pools
+        bit-identical to the plain write (K4's unchanged), a fully masked
+        row exact zeros, two calls bit-identical; one launch's device time
+        beside its bound (the bytes and FLOPs of the k1 phase's count).
+        Returns {"G x hd": {"device_ms": a launch's, "bound_ms": ...}}."""
+        from repro_torch.kernels import paged_attention as k
+        from repro_torch.kernels.ref import NEG_INF
+        torch = self.torch
+        name = "K1" if write else "K4"
+        KV, T, cap = 8, MAX_LEN // BLOCK, 50.0
+        nb = BATCH * T
+        gen = torch.Generator(device=self.dev).manual_seed(11 + write)
+        times = {}
+        for G, hd, arch in ATTN_GROUPS:
+            kp = torch.randn((nb + 1, BLOCK, KV, hd), generator=gen,
+                             device=self.dev)
+            vp = torch.randn((nb + 1, BLOCK, KV, hd), generator=gen,
+                             device=self.dev)
+            kp[nb] = vp[nb] = 0.0
+            table = torch.randperm(nb, generator=gen, device=self.dev)
+            table = table.reshape(BATCH, T).to(torch.int32)
+            pos = torch.tensor([MAX_LEN - 28, 37, 100, MAX_LEN - 1],
+                               device=self.dev)
+            mask = torch.where(torch.arange(MAX_LEN, device=self.dev)[None]
+                               <= pos[:, None], 0.0, NEG_INF)
+            mask[1] = NEG_INF                      # fully masked row -> zeros
+            q = torch.randn((BATCH, KV, G, hd), generator=gen,
+                            device=self.dev)
+            kn = torch.randn((BATCH, KV, hd), generator=gen, device=self.dev)
+            vn = torch.randn((BATCH, KV, hd), generator=gen, device=self.dev)
+            wblk = torch.gather(table, 1, (pos // BLOCK)[:, None])[:, 0]
+            wblk = wblk.to(torch.int32).contiguous()
+            woff = (pos % BLOCK).to(torch.int32)
+            wok = torch.tensor([1, 1, 1, 0], dtype=torch.int32,
+                               device=self.dev)
+            kp2, vp2 = kp.double(), vp.double()
+            if write:
+                def call():
+                    return k.paged_attention_decode(
+                        q, kp, vp, table, mask, kn, vn, wblk, woff, wok,
+                        softcap=cap)
+                out, out2 = call(), call()
+                ref = k.plain(q.double(), kp2, vp2, table, mask.double(),
+                              kn.double(), vn.double(), wblk, woff, wok,
+                              softcap=cap)
+            else:
+                def call():
+                    return k.paged_attention(q, kp, vp, table, mask,
+                                             softcap=cap)
+                out, out2 = call(), call()
+                ref = k.plain_attend(q.double(), kp2, vp2, table,
+                                     mask.double(), softcap=cap)
+            self.sync()
+            d, r = rel_err(out.double(), ref)
+            pools = (torch.equal(kp.double(), kp2)
+                     and torch.equal(vp.double(), vp2))
+            zero_row = bool((out[1] == 0).all())
+            same = torch.equal(out, out2)
+            dev_ms = device_ms(lambda: [call() for _ in range(10)],
+                               f"paged_decode_kernel<{str(write).lower()}>")
+            per = None if dev_ms is None else dev_ms / 10
+            vis = int((mask > NEG_INF / 2).sum().item())
+            nbytes = 4 * (2 * q.numel() + mask.numel() + table.numel()
+                          + 4 * write * kn.numel() + 2 * vis * KV * hd)
+            b_ms, by, _ = bound(nbytes, 4 * hd * KV * G * vis)
+            times[f"{G} x {hd}"] = dict(device_ms=per, bound_ms=b_ms)
+            kept = "as the plain write" if write else "unchanged"
+            print(f"  {name} G={G} hd={hd} ({arch}): KV={KV} B={BATCH} "
+                  f"T={T} softcap {cap:g}, {k.threads(G, hd)} threads, "
+                  f"{k.kv_splits(BATCH, KV, G, hd, T, self.sms)} CTAs per "
+                  f"(row, kv head): rel diff vs the float64 plain version "
+                  f"{r:.3e}; pools {kept}: "
+                  f"{pools}; fully masked row zeros: {zero_row}; two calls "
+                  f"bit-identical: {same}; device time a launch "
+                  f"{fmt(per, 4)}, bound {b_ms:.5f} ms ({by}), roofline "
+                  f"share {share(b_ms, per)}")
+            self.check(r <= 1e-5 and pools and zero_row and same,
+                       f"{name} at G={G} hd={hd}: rel {r:.3e}, pools "
+                       f"{pools}, zero row {zero_row}, same {same}")
+        return times
 
     def k2(self):
         """Chunked prefill at the engine's chunk-step shapes."""
@@ -1512,12 +1648,13 @@ class Smoke:
               f"view {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({by}; "
               f"{nbytes / 1e6:.3f} MB), roofline share "
               f"{100 * b_ms / ms:.2f}%")
+        self.records["paged_attention"]["groups"] = self._attn_groups(False)
 
     # -- phase 4 -------------------------------------------------------------
-    def _requests(self, cfg, ring=False, prompts=None):
-        """6 requests, 2 of them sampled; prompts of 20 to 120 tokens, or,
-        for the ring paths, 520 to 600 (every window-512 ring wraps), or
-        of the range `prompts`."""
+    def _requests(self, cfg, ring=False, prompts=None, max_new=MAX_NEW):
+        """6 requests of `max_new` tokens, 2 of them sampled; prompts of 20
+        to 120 tokens, or, for the ring paths, 520 to 600 (every window-512
+        ring wraps), or of the range `prompts`."""
         import numpy as np
         from repro_torch.serve.engine import GenRequest
         rng = np.random.default_rng(SEED + (13 if ring else 11))
@@ -1528,7 +1665,7 @@ class Smoke:
         for i in range(6):
             plen = int(rng.integers(lo, hi + 1))
             kw = dict(prompt=rng.integers(0, cfg.vocab_size, plen)
-                      .astype(np.int32), max_new=MAX_NEW, seed=1000 + i)
+                      .astype(np.int32), max_new=max_new, seed=1000 + i)
             if i in (1, 4):
                 kw.update(temperature=0.8, top_k=40)
             reqs.append(GenRequest(**kw))
@@ -1575,15 +1712,16 @@ class Smoke:
                 continue
             seen[kind] += 1
             # device events only: an aten op's entry carries the device
-            # time of the kernels it launched, which are entries too
-            ev = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
+            # time of the kernels it launched, which are entries too (the
+            # averages are read once: a trace holds tens of thousands of
+            # ops)
+            avg = prof.key_averages()
+            ev = [e for e in avg if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0]
             ev.sort(key=lambda e: e.self_device_time_total, reverse=True)
             busy = sum(e.self_device_time_total for e in ev) / 1e3
             busy_ms[kind].append(busy)
-            ops = sum(e.count for e in prof.key_averages()
-                      if e.key.startswith("aten::"))
+            ops = sum(e.count for e in avg if e.key.startswith("aten::"))
             print(f"  profiled {kind} step {n}: wall {wall:.1f} ms "
                   f"(profiler on), device busy {busy:.1f} ms "
                   f"({100 * busy / wall:.1f}%), {ops} aten ops; top:")
@@ -1632,14 +1770,15 @@ class Smoke:
                 setattr(lm, n, fn)
 
     def _serve(self, cfg, params, label, per_kind, paged=True, ring=False,
-               warm=True, prompts=None, max_len=None):
-        """Serve the 6 requests on `cfg` (after one warm-up run, unless
-        `warm` is False) with every launch count reset just before and read
-        just after; profile `per_kind` prefill and decode steps of another
-        run.  `paged` chooses the KV layout; `ring` the long prompts and
-        max_len of the ring paths; `prompts` (lo, hi) and `max_len`
-        another prompt range and cache length.  Returns (summary, launches,
-        metrics, results)."""
+               prompts=None, max_len=None, max_new=MAX_NEW):
+        """Profile `per_kind` prefill and decode steps of one run of the 6
+        requests on `cfg` (its first steps, unprofiled, warm the path up),
+        then serve them on a fresh engine with every launch count reset
+        just before and read just after.  `paged` chooses the KV layout;
+        `ring` the long prompts and max_len of the ring paths; `prompts`
+        (lo, hi), `max_len` and `max_new` another prompt range, cache
+        length and request length.  Returns (summary, launches, metrics,
+        results)."""
         import numpy as np
         from repro_torch.serve.engine import ServingEngine
         torch = self.torch
@@ -1653,10 +1792,10 @@ class Smoke:
                                  block_size=BLOCK, prefill_chunk=CHUNK,
                                  device=self.dev)
 
-        if warm:
-            make().serve(self._requests(cfg, ring, prompts), stagger=2)
+        busy = self._profile_steps(
+            make(), self._requests(cfg, ring, prompts, max_new), per_kind)
         eng = make()
-        reqs = self._requests(cfg, ring, prompts)
+        reqs = self._requests(cfg, ring, prompts, max_new)
         counters = self._counters()
         steps = {"chunk_step": 0, "decode_step": 0}
         self.sync()
@@ -1689,7 +1828,7 @@ class Smoke:
                   f"{r.tokens.tolist()} energy {r.energy_pj:.6g} pJ")
         self.check(len(results) == 6, f"{len(results)} results, want 6")
         for r in results:
-            ok = (r.done_reason == "max_new" and len(r.tokens) == MAX_NEW
+            ok = (r.done_reason == "max_new" and len(r.tokens) == max_new
                   and ((r.tokens >= 0) & (r.tokens < cfg.vocab_size))
                   .all() and np.isfinite(r.energy_pj) and r.energy_pj > 0)
             self.check(bool(ok), f"request {r.rid} result malformed: {r}")
@@ -1699,9 +1838,6 @@ class Smoke:
                    <= 1e-6 * m["total_energy_pj"],
                    f"{label}: corners sum to {total}, total "
                    f"{m['total_energy_pj']}")
-        busy = self._profile_steps(make(),
-                                   self._requests(cfg, ring, prompts),
-                                   per_kind)
         summary = dict(tok_s=ntok / wall, wall_s=wall, tokens=ntok,
                        steps=m["steps"], chunk_steps=steps["chunk_step"],
                        decode_steps=steps["decode_step"],
@@ -1727,7 +1863,7 @@ class Smoke:
         """The analog path: K1, K2 and K3 (183 per step), no K5."""
         L = self.cfg.num_layers
         summary, launches, m, self.engine_results = self._serve(
-            self.cfg, self.params, "analog", 2)
+            self.cfg, self.params, "analog", 1)
         self._check_launches("analog", launches, m["steps"], {
             "paged_attention_decode": None, "paged_prefill": None,
             "emt_matmul": 7 * L + 1, "emt_matmul_tc": None,
@@ -2235,7 +2371,8 @@ class Smoke:
                 self.check(d <= limit, f"{label} {what} logits differ by "
                                        f"{d:.3e} > {limit:g}")
 
-    def _logits_vs_plain(self, cfg, label, steps, quiet=True):
+    def _logits_vs_plain(self, cfg, label, steps, quiet=True, dac8=True,
+                         vs_f64=True):
         """End-to-end logits of the kernel path (K1, K2, K3, K4 and, on the
         mixed path, K5, as the path runs them) against the plain path on
         the card, noise on, over the model steps of `steps`.
@@ -2256,7 +2393,10 @@ class Smoke:
         and counts the DAC levels that differ between the kernel and plain
         paths.  With `quiet` False every corner keeps its noise in the gated
         run: the MoE experts' rule is bit-serial, but they read in analog
-        (technique A), so their products are continuous in their inputs."""
+        (technique A), so their products are continuous in their inputs.
+        `dac8` False leaves the 8-bit runs out, `vs_f64` False the plain
+        float64 one (the cut architectures, gemma2-9b: each plain run over
+        their tens of GB of weights takes seconds)."""
         import dataclasses
         from repro_torch.core.placement import as_placement, map_corners
         from repro_torch.kernels import emt_bitserial as k5
@@ -2302,15 +2442,19 @@ class Smoke:
                           self._run_path(dac24(False), steps),
                           self._run_path(dac24(False), steps, plain=plain))
 
+        if not dac8:
+            return
         self.__dict__.pop("_tokens", None)
         lk, lp, l64 = [], [], []
         kern = self._run_path(cfg, steps, levels=lk)
         ref = self._run_path(cfg, steps, plain=plain, levels=lp)
-        ref64 = self._run_path(cfg, steps, plain=plain64, levels=l64)
         self._compare(f"{label}, 8-bit DAC: kernel vs plain path", kern, ref)
+        self._level_flips(label, "kernel vs plain path", lk, lp, kern)
+        if not vs_f64:
+            return
+        ref64 = self._run_path(cfg, steps, plain=plain64, levels=l64)
         self._compare(f"{label}, 8-bit DAC: plain f32 vs plain f64 "
                       "accumulation", ref, ref64)
-        self._level_flips(label, "kernel vs plain path", lk, lp, kern)
         self._level_flips(label, "plain f32 vs plain f64 accumulation", lp,
                           l64, kern)
 
@@ -3301,6 +3445,10 @@ class Smoke:
                         for (_, x, _), (_, y, _) in zip(a, b))
             print(f"  int8, {bits}-bit DAC: logits bit-identical to the "
                   f"float32 path's: {exact}")
+        # no later phase reads the int8 tree: drop it before the larger
+        # stacks of phases 10-12
+        self.__dict__.pop("params_q", None)
+        self.torch.cuda.empty_cache()
 
     # -- phase 10: mixture of experts ------------------------------------------
     def engine_moe(self):
@@ -3333,7 +3481,7 @@ class Smoke:
         print(f"  moe placement: {plan} sites per (corner, mode)")
         L = cfg.num_layers
         summary, launches, m, _ = self._serve(cfg, self.moe_params,
-                                              "moe mixed", 1, warm=False)
+                                              "moe mixed", 1)
         self._check_launches("moe mixed", launches, m["steps"], {
             "emt_matmul": 5 * L + 1, "emt_matmul_experts": 3 * L,
             "paged_attention_decode": None, "paged_prefill": None,
@@ -3492,7 +3640,7 @@ class Smoke:
         rest = [m for p, _, m in plan if not p.endswith("/moe/experts")]
         return rest.count("analog"), rest.count("bitserial"), 3 * len(experts)
 
-    def _recurrent_model(self, cfg, label, arch, depth):
+    def _arch_model(self, cfg, label, arch, depth):
         from repro_torch.models import lm
         t0 = time.perf_counter()
         params = lm.init_model_params(cfg, SEED, device=self.dev)
@@ -3518,7 +3666,7 @@ class Smoke:
         from repro_torch.serve.spec import build_config
         self.xlstm = cfg = build_config(XLSTM_ARCH, "analog", smoke=False,
                                         a_per_row=True)
-        self.xlstm_params = self._recurrent_model(cfg, "full width",
+        self.xlstm_params = self._arch_model(cfg, "full width",
                                                   XLSTM_ARCH, 24)
         k3, k5, ex = self._sites(cfg)
         self.check((k3, k5, ex) == (166, 0, 0),
@@ -3558,7 +3706,7 @@ class Smoke:
         self.jamba = cfg = build_config(
             JAMBA_ARCH, smoke=False, placement="mixed", a_per_row=True,
             model_overrides={"num_layers": JAMBA_LAYERS})
-        self.jamba_params = self._recurrent_model(
+        self.jamba_params = self._arch_model(
             cfg, f"published widths ({cfg.num_heads} heads of "
             f"{cfg.head_dim}, kv {cfg.num_kv_heads}; {cfg.num_experts} "
             f"experts top-{cfg.experts_per_token} of {cfg.moe_d_ff}; d_inner "
@@ -3572,7 +3720,7 @@ class Smoke:
         print(f"  jamba admission buckets {buckets}")
         self.check(128 in buckets, f"no 128-token bucket in {buckets}")
         summary, launches, m, results = self._serve(
-            cfg, self.jamba_params, "jamba mixed", 1, warm=False,
+            cfg, self.jamba_params, "jamba mixed", 1,
             prompts=JAMBA_PROMPTS, max_len=JAMBA_MAX_LEN)
         steps, admitted = m["steps"], len(results)
         self._check_launches("jamba mixed", launches, steps, {
@@ -3828,6 +3976,222 @@ class Smoke:
             lambda c: self._jamba_steps(c, JAMBA_LOGIT_STEPS))
         self.__dict__.pop("jamba_params", None)
         self.torch.cuda.empty_cache()
+
+    # -- phase 12: the five last architectures -------------------------------
+    def engine_gemma2(self):
+        """gemma2-9b at full published width, analog, paged, chunked
+        prefill, batch 4, 6 requests of GEMMA2_MAX_NEW tokens: 295 K3 a
+        step (42 layers x 7 and the tied unembed), K1 42 a decode step and
+        K2 42 a chunk step (max_len 128 is below the 4,096 window: every
+        layer pages through the global table), softcap 50 in both and 30
+        on the logits; no K4, K5, int8 or expert K3."""
+        from repro_torch.models import lm
+        from repro_torch.serve.spec import build_config
+        self.gemma2 = cfg = build_config(GEMMA2_ARCH, "analog", smoke=False,
+                                         a_per_row=True)
+        self.gemma2_params = self._arch_model(
+            cfg, f"full width ({cfg.num_heads} heads over "
+            f"{cfg.num_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, window "
+            f"{cfg.sliding_window}, softcaps {cfg.attn_softcap:g} / "
+            f"{cfg.final_softcap:g}, tied scaled embedding)", GEMMA2_ARCH, 42)
+        k3, k5, ex = self._sites(cfg)
+        L = cfg.num_layers
+        self.check((k3, k5, ex, L) == (295, 0, 0, 42),
+                   f"gemma2 sites {(k3, k5, ex)} over {L} layers, want "
+                   f"(295, 0, 0) over 42")
+        ring = lm.ring_layers(cfg, lm.paged_lens(cfg, MAX_LEN))
+        print(f"  gemma2 blocks {cfg.blocks().count('local')} local, "
+              f"{cfg.blocks().count('global')} global; max_len {MAX_LEN}: "
+              f"layers paging through ring tables (lm.ring_layers): "
+              f"{sorted(ring) or 'none'}")
+        summary, launches, m, _ = self._serve(
+            cfg, self.gemma2_params, "gemma2 analog", 1,
+            max_new=GEMMA2_MAX_NEW)
+        chunk, decode = summary["chunk_steps"], summary["decode_steps"]
+        want = {"emt_matmul": k3 * m["steps"],
+                "paged_attention_decode": L * decode,
+                "paged_prefill": (L - len(ring)) * chunk,
+                "paged_attention": 0, "emt_bitserial": 0,
+                "emt_matmul_int8": 0, "emt_matmul_experts": 0}
+        print(f"  gemma2 launches want {want} ({chunk} chunk and {decode} "
+              f"decode steps)")
+        for name, n in want.items():
+            self.check(chunk + decode == m["steps"] and launches[name] == n,
+                       f"gemma2: {name} launched {launches[name]} times, "
+                       f"want {n} ({chunk} chunk and {decode} decode steps "
+                       f"of {m['steps']})")
+        for name in ("paged_attention_decode", "paged_prefill", "emt_matmul",
+                     "emt_matmul_tc"):
+            self.records.setdefault(name, {})["gemma2_launches"] = \
+                launches[name]
+        self.gemma2_summary = summary
+
+    def gemma2_calls_vs_plain(self):
+        """A history chunk step, a chunk step and a decode step (_step_pair):
+        every K3 call (295 a step), K2 call (42 a chunk step) and K1 call
+        (42, in float64) against its plain version."""
+        self.__dict__.pop("_tokens", None)
+        cfg, L = self.gemma2, self.gemma2.num_layers
+        self._calls_vs_plain(cfg, "gemma2 analog", {
+            "emt_matmul": 3 * 295, "paged_attention_decode": L,
+            "paged_prefill": 2 * L},
+            lambda c: self._step_pair(c, self.gemma2_params))
+
+    def gemma2_logits_vs_plain(self):
+        """The chunk and decode steps' logits against the plain path at the
+        24-bit DAC (1e-3), the 8-bit gap and its level flips reported;
+        then the gemma2 weights are dropped."""
+        self._logits_vs_plain(
+            self.gemma2, "gemma2 analog",
+            lambda c: self._step_pair(c, self.gemma2_params), vs_f64=False)
+        self.__dict__.pop("gemma2_params", None)
+        self.torch.cuda.empty_cache()
+
+    def _cut_steps(self, cfg, params):
+        """One prefill and one decode step at batch 4 with row 3 idle, paged
+        (max_len 128, block 16).  A stack that chunks: one chunk step of
+        16, 9 and 16 tokens from position 0.  An M-RoPE or embeds stack
+        (the legacy path): one legacy prefill of batch 3, a 32-token bucket
+        (prompts of 32, 20 and 13 tokens, left-padded), scattered into
+        slots 0-2; an embeds stack's prefill takes random embeddings (the
+        engine serves all-zero ones, which give all-zero K/V and logits
+        and would hold nothing; the seamless phase's encoder frames are
+        random for the same reason).  Returns [(step, logits, projections
+        it quantizes)]."""
+        import numpy as np
+        from repro_torch.models import lm
+        from repro_torch.models.context import Ctx
+        from repro_torch.serve.engine import (can_chunk, paged_insert,
+                                              view_bucket)
+        from repro_torch.serve.kv_pool import PagedKV
+        torch = self.torch
+        n = sum(1 for path, _, mode in cfg.placement_plan()
+                if mode != "fp32" and not path.endswith("/moe/experts"))
+        nb = BATCH * (MAX_LEN // BLOCK)
+        kv = PagedKV(BATCH, MAX_LEN, BLOCK, nb)
+        cache = lm.init_paged_cache(cfg, BATCH, MAX_LEN, BLOCK, nb,
+                                    device=self.dev)
+        lens = lm.paged_lens(cfg, MAX_LEN)
+        rng = np.random.default_rng(9)
+        act = torch.tensor([True, True, True, False], device=self.dev)
+
+        def tables(pos):
+            view = view_bucket(int(pos.max()) + 1, BLOCK, MAX_LEN)
+            return dict(page_tables={"global": torch.as_tensor(
+                kv.gather_tables()[0][:, :view // BLOCK],
+                device=self.dev).contiguous()},
+                page_lens=lm.clamped_lens(lens, view))
+
+        if can_chunk(cfg):
+            ntok = np.array([CHUNK, 9, CHUNK, 1])
+            for s in range(3):
+                self.check(kv.admit(s, int(ntok[s]), MAX_NEW),
+                           "admission refused")
+                kv.ensure(s, int(ntok[s]))
+            toks = rng.integers(0, cfg.vocab_size, (BATCH, CHUNK))
+            first, cache, _ = lm.chunk_step(
+                params, cache, torch.as_tensor(toks, device=self.dev),
+                torch.zeros(BATCH, dtype=torch.int64, device=self.dev),
+                torch.as_tensor(ntok, device=self.dev), cfg, Ctx(seed=SEED),
+                active=act, **tables(ntok))
+            pos = np.where(np.arange(BATCH) < 3, ntok, 0)
+            label = "chunk step (16, 9 and 16 tokens, row 3 idle)"
+        else:
+            S, plens = 32, (32, 20, 13)
+            toks = np.zeros((3, S), np.int64)
+            for r, plen in enumerate(plens):
+                toks[r, S - plen:] = rng.integers(0, cfg.vocab_size, plen)
+            batch = {"tokens": torch.as_tensor(toks, device=self.dev)}
+            if cfg.input_kind == "embeds":
+                batch["embeds"] = torch.as_tensor(rng.standard_normal(
+                    (3, S, cfg.d_model), dtype=np.float32), device=self.dev)
+            small = lm.init_cache(cfg, 3, MAX_LEN, device=self.dev)
+            small, first, _ = lm.prefill(params, batch, cfg, Ctx(seed=SEED),
+                                         small)
+            for s in range(3):
+                self.check(kv.admit(s, S, MAX_NEW), "admission refused")
+                paged_insert(cache, {name: {k: t[s:s + 1]
+                                            for k, t in blk.items()}
+                                     for name, blk in small.items()},
+                             *kv.scatter_rows(s))
+                kv.ensure(s, S)
+            pos = np.array([S, S, S, 0])
+            label = (f"legacy prefill (batch 3, bucket {S}, prompts "
+                     f"{plens})")
+        tok = np.zeros(BATCH, np.int64)
+        tok[:3] = self._first_tokens(first)[:3]
+        tok, pos_d = (torch.as_tensor(a, device=self.dev) for a in (tok, pos))
+        ld, _, _ = lm.decode_step(params, cache, tok, pos_d, cfg,
+                                  Ctx(seed=SEED), active=act, **tables(pos))
+        return [(label, first, n),
+                ("decode step (batch 4, one idle row)", ld, n)]
+
+    def model_cut_archs(self):
+        """CUT_ARCHS at published widths, their depth cut
+        (model_overrides), one after another, each model's memory freed
+        before the next: _cut_steps' two steps with every launch count
+        reset just before and read just after (exact: K3 and expert K3 at
+        the placement's sites a step, K1 a layer in the decode step, K2 a
+        layer in a chunk step), every kernel call against its plain version
+        on the way, then the logits against the plain path at the 24-bit
+        DAC (1e-3)."""
+        from repro_torch.serve.engine import can_chunk
+        from repro_torch.serve.spec import build_config
+        torch = self.torch
+        self.cut_summaries = {}
+        for arch, depth, published, place in CUT_ARCHS:
+            t0 = time.perf_counter()
+            kw = (dict(placement="mixed") if place == "mixed"
+                  else dict(mode="analog"))
+            cfg = build_config(arch, smoke=False, a_per_row=True,
+                               model_overrides={"num_layers": depth}, **kw)
+            desc = (f"{place}, {cfg.num_heads} heads over "
+                    f"{cfg.num_kv_heads} of {cfg.head_dim}, d_ff "
+                    f"{cfg.d_ff}, rope {cfg.rope_type}, input "
+                    f"{cfg.input_kind}")
+            if cfg.num_experts:
+                desc += (f", {cfg.num_experts} experts top-"
+                         f"{cfg.experts_per_token} of {cfg.moe_d_ff}")
+            params = self._arch_model(cfg, desc, arch, published)
+            k3, k5, ex = self._sites(cfg)
+            L = cfg.num_layers
+            chunked = can_chunk(cfg)
+            counters = self._counters()
+            for w in counters.values():
+                w.launches = 0
+            self.__dict__.pop("_tokens", None)
+            torch.cuda.reset_peak_memory_stats()
+            # calls (checked against their plain versions) and launches
+            want = {"emt_matmul": 2 * k3, "emt_matmul_experts": 2 * ex,
+                    "emt_bitserial": 2 * k5, "paged_attention_decode": L,
+                    "paged_prefill": L if chunked else 0,
+                    "paged_attention": 0, "emt_matmul_int8": 0}
+            self._calls_vs_plain(cfg, arch, want,
+                                 lambda c: self._cut_steps(c, params))
+            launches = {name: w.launches for name, w in counters.items()}
+            print(f"  {arch}: launches in the two steps {launches}")
+            for name, n in want.items():
+                self.check(launches[name] == n,
+                           f"{arch}: {name} launched {launches[name]} "
+                           f"times, want {n}")
+            short = arch.split("-")[0]
+            for name in ("emt_matmul", "emt_matmul_experts",
+                         "paged_attention_decode", "paged_prefill"):
+                if launches[name]:
+                    self.records.setdefault(name, {})[
+                        f"{short}_launches"] = launches[name]
+            self._logits_vs_plain(cfg, arch,
+                                  lambda c: self._cut_steps(c, params),
+                                  quiet=False, dac8=False)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            del params
+            torch.cuda.empty_cache()
+            secs = time.perf_counter() - t0
+            self.cut_summaries[arch] = dict(layers=L, published=published,
+                                            launches=launches,
+                                            peak_gib=peak, seconds=secs)
+            print(f"  {arch}: peak device memory {peak:.2f} GiB; "
+                  f"{secs:.2f} s")
 
     def _level_flips(self, path, label, la, lb, steps):
         """Count the DAC levels that differ between two runs of `steps`
@@ -4547,6 +4911,10 @@ def main() -> int:
               ("engine, jamba mixed", s.engine_jamba),
               ("kernel calls vs plain, jamba", s.jamba_calls_vs_plain),
               ("logits vs plain, jamba", s.jamba_logits_vs_plain),
+              ("engine, gemma2 analog", s.engine_gemma2),
+              ("kernel calls vs plain, gemma2", s.gemma2_calls_vs_plain),
+              ("logits vs plain, gemma2", s.gemma2_logits_vs_plain),
+              ("model, cut archs", s.model_cut_archs),
               ("train, gemma3-1b analog", s.train_gemma3),
               ("train vs plain", s.train_vs_plain),
               ("train, paper CNN", s.train_cnn)]
@@ -4579,6 +4947,8 @@ def main() -> int:
     print("engine, moe mixed: " + json.dumps(s.moe_summary))
     print("engine, xlstm analog: " + json.dumps(s.xlstm_summary))
     print("engine, jamba mixed: " + json.dumps(s.jamba_summary))
+    print("engine, gemma2 analog: " + json.dumps(s.gemma2_summary))
+    print("model, cut archs: " + json.dumps(s.cut_summaries))
     print("train, gemma3-1b analog: " + json.dumps(s.train_summary))
     print("train, paper CNN: " + json.dumps(s.cnn_summary))
     print(s.smi)

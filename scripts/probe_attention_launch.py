@@ -100,7 +100,7 @@ def probe(KV: int, G: int, hd: int, dev) -> None:
           f"{k.threads(G, hd)}")
     for S in (1, 2, 4, 8):
         for nt in (64, 128, 256):
-            if -(-G * hd // nt) > k.MAX_G * k.MAX_HD // k.MAX_THREADS:
+            if -(-G * hd // nt) > k.MAX_GH // k.MAX_THREADS:
                 continue
             dims = (ctypes.c_int * 8)(B, KV, G, hd, bs, T, S, nt)
 

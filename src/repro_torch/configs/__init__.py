@@ -1,5 +1,7 @@
-"""Architecture registry of the port (gemma3-1b, seamless-m4t-medium,
-moonshot-v1-16b-a3b, xlstm-350m, jamba-v0.1-52b).
+"""Architecture registry of the port: the reference's ten architectures
+(gemma3-1b, gemma2-9b, llama3-405b, deepseek-67b, qwen2-vl-72b,
+llama4-scout-17b-a16e, seamless-m4t-medium, moonshot-v1-16b-a3b,
+xlstm-350m, jamba-v0.1-52b).
 
     from repro_torch.configs import get_config
     cfg = get_config("gemma3-1b", emt_mode="analog")
@@ -7,14 +9,21 @@ moonshot-v1-16b-a3b, xlstm-350m, jamba-v0.1-52b).
 """
 from __future__ import annotations
 
-from repro_torch.configs import (gemma3_1b, jamba_v0_1_52b,
-                                 moonshot_v1_16b_a3b, seamless_m4t_medium,
+from repro_torch.configs import (deepseek_67b, gemma2_9b, gemma3_1b,
+                                 jamba_v0_1_52b, llama3_405b,
+                                 llama4_scout_17b_a16e, moonshot_v1_16b_a3b,
+                                 qwen2_vl_72b, seamless_m4t_medium,
                                  xlstm_350m)
 from repro_torch.configs.common import (PLACEMENTS, emt_preset,
                                         mixed_placement, placement_preset,
                                         shrink)
 
 ARCHS = {"gemma3-1b": gemma3_1b,
+         "gemma2-9b": gemma2_9b,
+         "llama3-405b": llama3_405b,
+         "deepseek-67b": deepseek_67b,
+         "qwen2-vl-72b": qwen2_vl_72b,
+         "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
          "seamless-m4t-medium": seamless_m4t_medium,
          "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
          "xlstm-350m": xlstm_350m,
@@ -32,7 +41,7 @@ def get_config(name: str, *, emt_mode: str = None, rng: str = "hash",
     replaces the single-corner emt_* preset; passing an explicit emt knob
     beside it is an error, not a silent override."""
     if name not in ARCHS:
-        raise KeyError(f"architecture {name!r} is not ported yet; ported: "
+        raise KeyError(f"unknown architecture {name!r}; known: "
                        f"{sorted(ARCHS)}")
     if placement is not None:
         knobs = dict(emt_mode=emt_mode, intensity=intensity, **emt_kw)

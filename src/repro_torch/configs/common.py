@@ -83,9 +83,10 @@ PLACEMENTS = ("mixed", "attn-pcm", "digital-router")
 
 def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Reduced same-family smoke config: tiny widths, few layers and
-    experts (top-k capped by them), fp32.  As in JAX, the SSM fields keep
-    their values (state 16, conv 4, expand 2; dt_rank follows d_model:
-    ceil(64 / 16) = 4)."""
+    experts (top-k capped by them), fp32; an M-RoPE stack's sections become
+    (2, 3, 3) of head_dim 16's 8 lanes.  As in JAX, the SSM fields, the
+    rope flavor and the input kind keep their values (state 16, conv 4,
+    expand 2; dt_rank follows d_model: ceil(64 / 16) = 4)."""
     heads = max(2, min(4, cfg.num_heads))
     kv = max(1, min(cfg.num_kv_heads, heads))
     if cfg.num_kv_heads == cfg.num_heads:
@@ -102,6 +103,8 @@ def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
         else 0,
         moe_d_ff=64 if cfg.moe_d_ff else 0,
         sliding_window=8 if cfg.sliding_window else 0,
-        encoder_layers=2 if cfg.encoder_layers else 0, dtype=torch.float32)
+        encoder_layers=2 if cfg.encoder_layers else 0, dtype=torch.float32,
+        mrope_sections=(2, 3, 3) if cfg.rope_type == "mrope"
+        else cfg.mrope_sections)
     kw.update(overrides)
     return cfg.replace(name=cfg.name + "-smoke", **kw)

@@ -48,6 +48,10 @@
 //   most 256, thread e owning outputs e, e + threads, ... of the G x hd
 //   tile (K1 on gemma3-1b: 256 threads, 4 outputs each; K1 and K4 on
 //   seamless-m4t-medium: 128 threads, the first 64 owning one each).
+//   Any group G <= 16 with G * hd <= 2048 is taken (llama3-405b's 16 x
+//   128, gemma2-9b's 2 x 256, llama4-scout's 5 x 128): at most 8 outputs
+//   a thread, and a warp scores heads g, g + 8, ... of a chunk.  The TPU
+//   kernel pads G up to its sublane tile; here no head is padded.
 // Ordering (K1): the Pallas kernel wrote at grid step c == 0 of a sequential
 // grid axis.  Here rank 0 of the cluster writes the row in place, and every
 // CTA that reads position (wblk[b], woff[b]) takes that row from
@@ -76,9 +80,10 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 16;              // llama3-405b: 128 heads over 8
 constexpr int kMaxHd = 256;
-constexpr int kMaxOut = kMaxG * kMaxHd / kMaxThreads;   // outputs a thread
+constexpr int kMaxGH = 2048;           // G * hd: 16 x 128, 8 x 256
+constexpr int kMaxOut = kMaxGH / kMaxThreads;          // outputs a thread
 constexpr int kStage = 4096;            // floats per K (or V) chunk
 constexpr int kMaxSplits = 8;           // a portable cluster
 
@@ -127,7 +132,7 @@ paged_decode_kernel(const float* __restrict__ q, float* kpool, float* vpool,
                     const int* __restrict__ wok, float* __restrict__ out,
                     Shape s) {
   extern __shared__ __align__(16) float smem[];   // 3 x T ints, K[2], V[2]
-  __shared__ __align__(16) float qs[kMaxG * kMaxHd];
+  __shared__ __align__(16) float qs[kMaxGH];
   __shared__ float ps[kMaxG][32];                 // a chunk's probabilities
   __shared__ float cs[kMaxG], ms[kMaxG], ls[kMaxG];
   __shared__ int wcount[kMaxWarps];
@@ -346,7 +351,7 @@ int launch(const float* q, float* kpool, float* vpool, const int* table,
   const int B = dims[0], KV = dims[1], G = dims[2], hd = dims[3];
   const int bs = dims[4], T = dims[5], S = dims[6], nt = dims[7];
   if (B < 1 || KV < 1 || G < 1 || G > kMaxG || hd < 1 || hd > kMaxHd ||
-      bs < 1 || T < 1 || S < 1 || S > kMaxSplits || (S & (S - 1)) != 0 ||
+      G * hd > kMaxGH || bs < 1 || T < 1 || S < 1 || S > kMaxSplits || (S & (S - 1)) != 0 ||
       nt < 32 || nt > kMaxThreads || nt % 32 != 0 ||
       (G * hd + nt - 1) / nt > kMaxOut)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -32,8 +32,9 @@ from repro_torch.kernels import _build, splitk
 from repro_torch.kernels.ref import paged_attention_decode_ref as plain
 from repro_torch.kernels.ref import paged_attention_ref as plain_attend
 
-MAX_G = 8               # csrc kMaxG
+MAX_G = 16              # csrc kMaxG
 MAX_HD = 256            # csrc kMaxHd
+MAX_GH = 2048           # csrc kMaxGH: G * hd, at most 8 outputs a thread
 MAX_THREADS = 256       # csrc kMaxThreads
 MAX_SPLITS = 8          # csrc kMaxSplits: a portable cluster
 # A CTA's threads and the grid's warps an SM, from launches timed on an H100
@@ -102,20 +103,27 @@ def _require(cond: bool, msg: str, what: str = "paged_attention_decode"):
         raise ValueError(f"{what}: {msg}")
 
 
-def _check_attend(q, k_pool, v_pool, table, mask, what):
-    """The shape, type and layout checks shared by both kernels (five shape
-    reads; messages formatted only on failure: K1 runs 26 times a step).
-    Returns the device index and the launch's (dims array, address,
-    scale)."""
+def check_shapes(q, k_pool, v_pool, table, mask, what):
+    """The shapes both kernels take: any query group G <= MAX_G with
+    G * hd <= MAX_GH, hd <= MAX_HD (five shape reads; the message formatted
+    only on failure: K1 runs once a layer a step).  Raises ValueError."""
     B, KV, G, hd = q.shape
     ks = k_pool.shape
     T = table.shape[1]
     if not (ks == v_pool.shape and ks[2] == KV and ks[3] == hd
             and mask.shape == (B, T * ks[1]) and G <= MAX_G
-            and hd <= MAX_HD):
+            and hd <= MAX_HD and G * hd <= MAX_GH):
         _require(False, f"q {tuple(q.shape)}, pools {tuple(ks)} / "
                         f"{tuple(v_pool.shape)}, mask {tuple(mask.shape)} "
-                        f"(G <= {MAX_G}, hd <= {MAX_HD})", what)
+                        f"(G <= {MAX_G}, hd <= {MAX_HD}, G * hd <= "
+                        f"{MAX_GH})", what)
+    return B, KV, G, hd, ks[1], T
+
+
+def _check_attend(q, k_pool, v_pool, table, mask, what):
+    """The shape, type and layout checks shared by both kernels.  Returns
+    the device index and the launch's (dims array, address, scale)."""
+    B, KV, G, hd, bs, T = check_shapes(q, k_pool, v_pool, table, mask, what)
     index = q.get_device()
     f32 = torch.float32
     if not (q.dtype is f32 and k_pool.dtype is f32 and v_pool.dtype is f32
@@ -127,7 +135,7 @@ def _check_attend(q, k_pool, v_pool, table, mask, what):
             and mask.is_contiguous() and table.is_contiguous()):
         _require(False, f"inputs must be contiguous and on {q.device}, q, "
                         "the pools and mask float32, table int32", what)
-    return index, _launch(B, KV, G, hd, ks[1], T, splitk.sm_count(index))
+    return index, _launch(B, KV, G, hd, bs, T, splitk.sm_count(index))
 
 
 def paged_attention_decode(q, k_pool, v_pool, table, mask, k_new, v_new,

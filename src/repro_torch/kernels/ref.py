@@ -23,16 +23,43 @@ from repro_torch.core.regularizer import jax_abs
 NEG_INF = -1e30
 
 
+# Elements the plain noise hashes at a time.  The hash runs in several
+# weight-sized int64 temporaries: a whole tied unembed of gemma2-9b (3,584 x
+# 256,000) or llama3-405b's head (16,384 x 128,256, 2.1 G elements) in one
+# go would need tens of GB of them beside the model.
+NOISE_SLAB = 1 << 26
+
+
+def _row_slabs(kdim: int, n: int):
+    """(r0, r1) row ranges of at most NOISE_SLAB elements (one row at
+    least)."""
+    rows = max(1, NOISE_SLAB // max(n, 1))
+    return [(r, min(kdim, r + rows)) for r in range(0, kdim, rows)]
+
+
 def _noise(w, sig, device: DeviceModel, seed, plane, row0: int = 0):
     """(a, f): the RTN offsets hashed at every weight element's global
     (row0 + row, col) and the read factor fl(1 + a * sig),
-    weight-shaped."""
+    weight-shaped; hashed NOISE_SLAB elements of rows at a time (the same
+    values: every element's hash is its own)."""
     kdim, n = w.shape
-    offs = hashrng.tile_state_offsets(seed, row0, 0, (kdim, n),
-                                      device.state_offsets,
-                                      device.state_probs, plane,
-                                      device=w.device)
+    offs = torch.empty((kdim, n), dtype=torch.float32, device=w.device)
+    for r0, r1 in _row_slabs(kdim, n):
+        offs[r0:r1] = hashrng.tile_state_offsets(
+            seed, row0 + r0, 0, (r1 - r0, n), device.state_offsets,
+            device.state_probs, plane, device=w.device)
     return offs, noise_factor(offs, sig)
+
+
+def noisy_weight(w, sig, device: DeviceModel, seed=0, plane=0):
+    """fl(w * f) in w's dtype and strides (a BLAS product sums in an order
+    that follows them), built NOISE_SLAB elements of rows at a time, so
+    that no weight-sized offset or factor tensor exists beside it."""
+    out = torch.empty_like(w)
+    for r0, r1 in _row_slabs(*w.shape):
+        _, f = _noise(w[r0:r1], sig, device, seed, plane, row0=r0)
+        out[r0:r1] = (w[r0:r1].to(torch.float32) * f).to(w.dtype)
+    return out
 
 
 def dequantize(w_int8, w_scale):
@@ -49,8 +76,7 @@ def emt_matmul_ref(x, w, sig, *, device: DeviceModel, seed=0, plane=0):
     (M, N) fp32."""
     if isinstance(w, tuple):
         w = dequantize(*w)
-    _, f = _noise(w, sig, device, seed, plane)
-    wn = (w.to(torch.float32) * f).to(w.dtype)
+    wn = noisy_weight(w, sig, device, seed, plane)
     return torch.matmul(x, wn).to(torch.float32)
 
 

@@ -104,7 +104,8 @@ def setup(argv=None, *, torch_device="cuda", seed: int = 0) -> Run:
     state = init_state(cfg, opt, seed, device=dev)
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        batch_size=args.batch, d_model=cfg.d_model,
-                       encdec=cfg.is_encdec, device=dev)
+                       input_kind=cfg.input_kind, encdec=cfg.is_encdec,
+                       device=dev)
     loop = LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                       ckpt_dir=args.ckpt_dir,
                       metrics_path=os.path.join(args.ckpt_dir,

@@ -256,8 +256,9 @@ def _chunk_attend(q, k, v, cache, mask, *, start, ntok, positions, active,
 
 def self_attention(params, x, cfg: ModelConfig, *, positions, mask,
                    ctx: Ctx, tag: str, cache=None, cache_index=None,
-                   active=None, page_table=None, page_len: int = 0,
-                   page_ring: bool = False, chunk_lens=None):
+                   positions3=None, active=None, page_table=None,
+                   page_len: int = 0, page_ring: bool = False,
+                   chunk_lens=None):
     """Self-attention.
 
     No cache (the encoder): x (B, S, D) attends within itself under `mask`.
@@ -272,10 +273,17 @@ def self_attention(params, x, cfg: ModelConfig, *, positions, mask,
     `page_len` the cache is paged (the clamped global view, or the window
     of a ring table when `page_ring`); without it, contiguous.  Returns
     (y, aux, cache) with the cache's tensors updated in place (None without
-    a cache)."""
+    a cache).  An M-RoPE stack rotates by `positions3` (3, B, S), the
+    (t, h, w) streams, by default `positions` three times."""
     q, k, v, aux = _project_qkv(params, x, cfg, ctx, tag)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope_type == "mrope":
+        p3 = (positions3 if positions3 is not None
+              else positions[None].expand(3, *positions.shape))
+        q = common.apply_mrope(q, p3, cfg.mrope_sections, cfg.rope_theta)
+        k = common.apply_mrope(k, p3, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
     KV, hd, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
     B = x.shape[0]
     idx = cache_index

@@ -55,6 +55,26 @@ def apply_rope(x, positions, theta=10000.0):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, sections, theta=10000.0):
+    """Multimodal RoPE (qwen2-vl): positions3 (3, B, S) int, the (t, h, w)
+    streams.  The hd/2 frequency lanes are split into `sections` groups,
+    each rotated by its own stream; three equal streams give apply_rope."""
+    hd = x.shape[-1]
+    freqs = torch.as_tensor(_rope_freqs(hd, theta), dtype=torch.float32,
+                            device=x.device)
+    sec = np.asarray(sections)
+    assert sec.sum() == hd // 2, (sections, hd)
+    sec_id = torch.as_tensor(np.repeat(np.arange(len(sections)), sec),
+                             device=x.device)
+    pos = positions3[sec_id]                          # (hd/2, B, S)
+    ang = torch.movedim(pos, 0, -1).to(torch.float32) * freqs
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def causal_mask(q_pos, k_pos, window: int = 0):
     """q_pos (B, Sq), k_pos (B, Sk) -> (B, 1, Sq, Sk) additive mask."""
     q = q_pos[:, None, :, None]

@@ -29,7 +29,9 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 128
     rope_theta: float = 10000.0
-    rope_type: str = "default"
+    rope_type: str = "default"       # default | mrope
+    # M-RoPE (qwen2-vl): lanes of each (t, h, w) stream, of head_dim / 2
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
     sliding_window: int = 0
@@ -54,6 +56,9 @@ class ModelConfig:
     # xlstm: True runs sLSTM's exact R-matrix recurrence token by token
     slstm_recurrent: bool = False
     encoder_layers: int = 0          # > 0: encoder-decoder (seamless)
+    # tokens | embeds (the vision and early-fusion front ends' stubs:
+    # precomputed (B, S, d_model) input embeddings)
+    input_kind: str = "tokens"
     tie_embeddings: bool = False
     embed_scale: bool = False
     norm_eps: float = 1e-6
@@ -63,10 +68,10 @@ class ModelConfig:
     logit_dtype: Any = torch.float32
 
     def __post_init__(self):
-        if self.rope_type != "default":
-            raise NotImplementedError(
-                f"rope_type {self.rope_type!r} (M-RoPE) is ported with a "
-                f"later slice (ROADMAP Queue 1, remaining architectures)")
+        if self.rope_type not in ("default", "mrope"):
+            raise ValueError(f"unknown rope_type {self.rope_type!r}")
+        if self.input_kind not in ("tokens", "embeds"):
+            raise ValueError(f"unknown input_kind {self.input_kind!r}")
         bad = sorted(set(self.layer_pattern) - set(ATTN_KINDS)
                      - set(RECURRENT_KINDS))
         if bad:

@@ -97,16 +97,19 @@ def _logits(params, h, cfg: ModelConfig, ctx: Ctx):
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig, ctx: Ctx):
-    """The embedded ``batch["tokens"]`` (B, S).  (JAX's "embeds" input kind
-    belongs to the vision and audio stubs, which come with their
-    architectures, ROADMAP Queue 1 item 9.)"""
+    """The model's input (B, S, D): ``batch["embeds"]`` when the config's
+    input kind is "embeds" and the batch has them (the vision and
+    early-fusion front ends' stubs), else the embedded ``batch["tokens"]``."""
+    if cfg.input_kind == "embeds" and "embeds" in batch:
+        return batch["embeds"].to(cfg.dtype)
     return common.embed(params["embed"], batch["tokens"], cfg.embed_scale,
                         cfg.d_model)
 
 
 def train_loss(params, batch, cfg: ModelConfig, ctx: Ctx, lam: float = 0.0):
-    """Training forward and loss of ``batch`` (``tokens`` and ``labels``
-    (B, S); enc-dec adds ``enc_embeds`` or ``enc_tokens``): next-token
+    """Training forward and loss of ``batch`` (``tokens`` or, for an
+    "embeds" input kind, ``embeds`` (B, S, D), and ``labels`` (B, S);
+    enc-dec adds ``enc_embeds`` or ``enc_tokens``): next-token
     cross-entropy + ``lam * aux["reg"]`` (technique B) + ``aux["aux_loss"]``.
     Every layer attends within the sequence under the causal mask, the
     sliding-window layers under its windowed form.  Returns (loss,
@@ -248,13 +251,13 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params, batch, cfg: ModelConfig, ctx: Ctx, cache):
-    """Run ``batch["tokens"]`` (B, S) through the model (and, enc-dec, the
-    encoder over ``batch["enc_embeds"]``), filling positions [0, S) of the
+    """Run ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B, S, D) for
+    an "embeds" input kind, through the model (and, enc-dec, the encoder
+    over ``batch["enc_embeds"]``), filling positions [0, S) of the
     contiguous `cache` in place.  Returns (cache, last-token logits
     (B, vocab), aux); an enc-dec cache's ``ck``/``cv`` come back at the
     encoder's length S, not max_len."""
-    x = common.embed(params["embed"], batch["tokens"], cfg.embed_scale,
-                     cfg.d_model).to(cfg.dtype)
+    x = _embed_inputs(params, batch, cfg, ctx).to(cfg.dtype)
     B, S = x.shape[:2]
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
     # prefill attends within the prompt (the unfilled cache tail would be
@@ -337,7 +340,8 @@ def decode_step(params, cache, tokens, index, cfg: ModelConfig, ctx: Ctx,
     in :func:`chunk_step`.  `enc_lens` (B,) masks an
     enc-dec stack's cross attention to each row's real encoder positions
     (the cross K/V pools hold zeros past them; a row of length 0 attends
-    nothing and gets zeros).  Returns (logits (B, vocab), cache, aux)."""
+    nothing and gets zeros).  An "embeds" stack still decodes text
+    tokens, as JAX's.  Returns (logits (B, vocab), cache, aux)."""
     B = tokens.shape[0]
     x = common.embed(params["embed"], tokens[:, None], cfg.embed_scale,
                      cfg.d_model).to(cfg.dtype)

@@ -89,8 +89,8 @@ def _gate_state(new, cache, active):
 
 
 def apply_block(params, x, cfg: ModelConfig, *, kind: str, use_moe: bool,
-                tag: str, ctx: Ctx, positions, mask, cache=None,
-                cache_index=None,
+                tag: str, ctx: Ctx, positions, mask, positions3=None,
+                cache=None, cache_index=None,
                 active=None, page_tables=None, page_lens=None,
                 chunk_lens=None, enc_out=None, enc_mask=None):
     """One residual block.  Paged steps give `page_tables`/`page_lens`
@@ -133,8 +133,8 @@ def apply_block(params, x, cfg: ModelConfig, *, kind: str, use_moe: bool,
     y, aux, cache = self_attention(
         params["attn"], h, cfg.replace(sliding_window=window),
         positions=positions, mask=m, ctx=ctx, tag=f"{tag}/attn", cache=cache,
-        cache_index=cache_index, active=active, page_table=pt, page_len=pl,
-        page_ring=ring, chunk_lens=chunk_lens)
+        cache_index=cache_index, positions3=positions3, active=active,
+        page_table=pt, page_len=pl, page_ring=ring, chunk_lens=chunk_lens)
     x = x + y
     if enc_out is not None or (cache is not None and "ck" in cache):
         h = common.rmsnorm(params["norm_x"], x, cfg.norm_eps)
@@ -173,7 +173,8 @@ def stack_specs(cfg: ModelConfig, num_layers: int, kinds, moe_mask,
 
 def apply_stack(params, x, cfg: ModelConfig, kinds, moe_mask, *, ctx: Ctx,
                 tag: str,
-                positions, mask, caches=None, cache_index=None, active=None,
+                positions, mask, positions3=None, caches=None,
+                cache_index=None, active=None,
                 page_tables=None, page_lens=None, chunk_lens=None,
                 enc_out=None, enc_mask=None):
     """Apply the whole stack.  `caches` (layer name -> block cache) is None
@@ -197,7 +198,7 @@ def apply_stack(params, x, cfg: ModelConfig, kinds, moe_mask, *, ctx: Ctx,
         x, a, upd = apply_block(
             params[name], x, cfg, kind=kind, use_moe=moe_mask[i],
             tag=f"{tag}/{name}", ctx=ctx,
-            positions=positions, mask=mask,
+            positions=positions, mask=mask, positions3=positions3,
             cache=None if caches is None else caches[name],
             cache_index=cache_index, active=active, page_tables=page_tables,
             page_lens=page_lens, chunk_lens=chunk_lens, enc_out=enc_out,

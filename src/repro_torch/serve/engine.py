@@ -95,6 +95,17 @@ def prefill_bucket(n: int, lo: int = 4) -> int:
     return b
 
 
+def can_chunk(cfg: ModelConfig) -> bool:
+    """Whether chunked prefill can serve `cfg`: it streams prompts at their
+    exact positions, so an enc-dec stack (the encoder pass of the legacy
+    path), a recurrent state (which cannot skip a chunk's padding lanes),
+    M-RoPE (three position streams) and the embeds input keep the legacy
+    bucketed path, as in JAX."""
+    return (not cfg.is_encdec
+            and all(k in ATTN_KINDS for k in cfg.blocks())
+            and cfg.rope_type != "mrope" and cfg.input_kind != "embeds")
+
+
 def paged_insert(cache, small, row_g, row_l=None, ring=frozenset(),
                  slot=None, recurrent=frozenset()) -> None:
     """Scatter a prefilled batch-1 contiguous cache into the pools, in
@@ -221,16 +232,12 @@ class ServingEngine:
             # config's EMT surface for this engine; params must have been
             # built for the same placement
             cfg = cfg.replace(emt=placement)
-        # chunked prefill streams prompts at their exact positions; an
-        # enc-dec stack needs the encoder pass of the legacy bucketed path,
-        # and a recurrent state cannot skip a chunk's padding lanes
-        can_chunk = (not cfg.is_encdec
-                     and all(k in ATTN_KINDS for k in cfg.blocks()))
-        self.chunked = (can_chunk if chunked_prefill is None
+        chunkable = can_chunk(cfg)
+        self.chunked = (chunkable if chunked_prefill is None
                         else bool(chunked_prefill))
-        if self.chunked and not can_chunk:
+        if self.chunked and not chunkable:
             raise ValueError("chunked_prefill requires a decoder-only "
-                             "attention stack")
+                             "attention stack without mrope/embeds input")
         if n_shards != 1:
             raise _later("sharded serving (n_shards > 1)",
                          "item 11, multi-device serving")
@@ -408,6 +415,13 @@ class ServingEngine:
         toks = np.zeros((1, S), np.int64)
         toks[0, S - len(prompt):] = prompt               # left-padded
         batch = {"tokens": self._dev(toks)}
+        if cfg.input_kind == "embeds":
+            # the front end is a stub: the prompt is served on all-zero
+            # embeddings, its tokens reach the model from decode on (JAX's
+            # engine)
+            batch["embeds"] = torch.zeros((1, S, cfg.d_model),
+                                          dtype=torch.float32,
+                                          device=self.device)
         if cfg.is_encdec:
             batch["enc_embeds"] = torch.zeros((1, S, cfg.d_model),
                                               dtype=torch.float32,

@@ -31,7 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCHS, PLACEMENTS, get_config
+from repro_torch.configs import PLACEMENTS, get_config
 from repro_torch.core.device import get_device
 from repro_torch.core.placement import map_corners
 from repro_torch.serve.engine import GenRequest, _later
@@ -43,8 +43,7 @@ ARRIVALS = ("lockstep", "stagger", "poisson")
 # spec files load; the port's build_config takes only "auto"
 PAGED_ATTN_IMPLS = ("auto", "pallas", "interpret", "ref")
 
-# every architecture the JAX package registers; those the port has not
-# ported yet are refused as not yet ported, not as unknown
+# every architecture the JAX package registers (the port's configs.ARCHS)
 REFERENCE_ARCHS = ("jamba-v0.1-52b", "qwen2-vl-72b", "moonshot-v1-16b-a3b",
                    "llama4-scout-17b-a16e", "xlstm-350m", "deepseek-67b",
                    "gemma3-1b", "llama3-405b", "gemma2-9b",
@@ -186,11 +185,6 @@ class ServeSpec:
         """Resolve the :class:`ModelConfig` this spec serves (float32)."""
         _err(self.arch not in REFERENCE_ARCHS,
              f"unknown arch {self.arch!r}; known: {sorted(REFERENCE_ARCHS)}")
-        if self.arch not in ARCHS:
-            raise NotImplementedError(
-                f"arch {self.arch!r} is ported with a later slice of the "
-                f"port (ROADMAP Queue 1 item 9, remaining architectures); "
-                f"ported: {sorted(ARCHS)}")
         _err(self.paged_attn_impl != "auto",
              f"paged_attn_impl {self.paged_attn_impl!r}: the port picks its "
              f"kernel by the tensors' device (a CUDA tensor launches the "

@@ -188,6 +188,41 @@ def test_k3_noise_independent_of_layout_and_batching():
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("slab", [1, 21, 45])
+def test_k3_plain_noise_slabs_equal_the_whole_weight(slab, monkeypatch):
+    """The plain version hashes its noise NOISE_SLAB elements of rows at a
+    time (here 1 row; 3 rows of 7, edges 3, 6, 9 of K = 10; 6 rows): the
+    offsets, the factors and the noisy weight equal the whole weight's
+    hashed at once, bit for bit, on a contiguous and a transposed (tied
+    unembed) weight, at a row base, and so does the product."""
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(9)
+    w = torch.from_numpy(_np(rng, 7, 10, scale=0.1)).T     # (10, 7) strided
+    x = torch.from_numpy(_np(rng, 3, 10))
+    dev = t_emt_preset("analog").device
+    sig = torch.tensor(0.04)
+
+    def noise(wt, row0, elems):
+        monkeypatch.setattr(tref, "NOISE_SLAB", elems)
+        return tref._noise(wt, sig, dev, 5, 3, row0=row0)
+
+    for wt in (w, w.contiguous()):
+        for row0 in (0, 4096):
+            a0, f0 = noise(wt, row0, 10 * 7)
+            a1, f1 = noise(wt, row0, slab)
+            np.testing.assert_array_equal(a1.numpy(), a0.numpy())
+            np.testing.assert_array_equal(f1.numpy(), f0.numpy())
+        _, f0 = noise(wt, 0, 10 * 7)
+        monkeypatch.setattr(tref, "NOISE_SLAB", slab)
+        wn = tref.noisy_weight(wt, sig, dev, 5, 3)
+        np.testing.assert_array_equal(wn.numpy(), (wt * f0).numpy())
+        assert wn.stride() == wt.stride()
+        np.testing.assert_array_equal(
+            tref.emt_matmul_ref(x, wt, sig, device=dev, seed=5,
+                                plane=3).numpy(),
+            torch.matmul(x, wt * f0).numpy())
+
+
 def test_emt_config_rejects_unported_modes():
     """bitserial (technique C, kernel K5) and store_int8 are ported (the
     int8 parity tests are tests/test_torch_int8.py); an unknown mode is

@@ -549,10 +549,15 @@ def test_k4_matches_plain_and_only_reads(cuda, KV, G, hd):
 # (KV, G, hd, softcap, bs): gemma3-1b's decode attention and seamless-m4t-
 # medium's self and cross attention (block 16, batch 4), then a head size
 # that rules out 16-byte copies with an odd block, and 8 query heads with
-# blocks walked in two chunks; T from 1 to 128 blocks gives every cluster
-# size the planner picks (1, 2, 4, 8).
+# blocks walked in two chunks; then the query groups of llama3-405b (16 x
+# 128, 8 outputs a thread), llama4-scout (5, no power of two),
+# deepseek-67b and qwen2-vl-72b (8 x 128) and gemma2-9b (2 x 256) over 8
+# kv heads, softcap 50; T from 1 to 128 blocks gives every cluster size
+# the planner picks (1, 2, 4, 8).
 ATTN_SHAPES = [(1, 4, 256, 0.0, 16), (16, 1, 64, 30.0, 16),
-               (2, 3, 98, 0.0, 5), (1, 8, 256, 20.0, 32)]
+               (2, 3, 98, 0.0, 5), (1, 8, 256, 20.0, 32),
+               (8, 16, 128, 50.0, 16), (8, 5, 128, 50.0, 16),
+               (8, 8, 128, 50.0, 16), (8, 2, 256, 50.0, 16)]
 
 
 @pytest.mark.parametrize("KV,G,hd,softcap,bs", ATTN_SHAPES)
@@ -650,7 +655,9 @@ def test_k1_k4_cluster_sizes(cuda):
                           (16, 2, 3, 256, 0.0, False),
                           (32, 1, 2, 256, 0.0, False),
                           (16, 4, 16, 256, 0.0, True),
-                          (4, 3, 5, 64, 0.0, True)])
+                          (4, 3, 5, 64, 0.0, True),
+                          (16, 16, 16, 128, 50.0, False),
+                          (16, 5, 16, 128, 50.0, False)])
 def test_k2_matches_plain(cuda, bs, G, C, hd, softcap, alias):
     """Rows from position 0, one token at a block's last position, a chunk
     ending at the view's end, and a padded row (qpos -1: exact zeros).  The

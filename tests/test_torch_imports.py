@@ -23,7 +23,11 @@ def test_every_module_imports_without_jax():
     assert len(mods) > 25
     assert {"repro_torch.models.mamba", "repro_torch.models.xlstm",
             "repro_torch.configs.xlstm_350m",
-            "repro_torch.configs.jamba_v0_1_52b"} <= set(mods)
+            "repro_torch.configs.jamba_v0_1_52b",
+            "repro_torch.configs.gemma2_9b", "repro_torch.configs.llama3_405b",
+            "repro_torch.configs.deepseek_67b",
+            "repro_torch.configs.qwen2_vl_72b",
+            "repro_torch.configs.llama4_scout_17b_a16e"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

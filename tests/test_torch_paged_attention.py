@@ -52,7 +52,8 @@ def _decode_case(rng, B, KV, G, hd, bs, T, L):
 
 
 @pytest.mark.parametrize("bs,KV,G,L_short", [(2, 1, 4, 0), (4, 2, 2, 3),
-                                             (8, 1, 3, 5)])
+                                             (8, 1, 3, 5), (4, 2, 16, 0),
+                                             (4, 1, 5, 3)])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_k1_plain_matches_interpret_and_ref(bs, KV, G, L_short, softcap):
     """L_short > 0: mask shorter than the table view (partial last block,
@@ -82,6 +83,83 @@ def test_k1_plain_matches_interpret_and_ref(bs, KV, G, L_short, softcap):
         np.testing.assert_array_equal(vpt.numpy(), vj, err_msg=impl)
     assert (o.numpy()[1] == 0).all() and np.isfinite(o.numpy()).all()
     assert not np.array_equal(kp, kpt.numpy())     # active rows did write
+
+
+@pytest.mark.parametrize("G,hd,ok", [(16, 128, True), (5, 128, True),
+                                     (2, 256, True), (8, 256, True),
+                                     (16, 256, False), (17, 64, False),
+                                     (9, 256, False)])
+def test_k1_k4_wrapper_group_limit(G, hd, ok):
+    """The kernels take any query group up to 16 heads with G * hd <= 2,048
+    (llama3-405b's 16 x 128, gemma2-9b's 2 x 256, llama4-scout's 5 x 128)
+    and refuse the rest with the limits in the message."""
+    B, KV, bs, T = 2, 8, 16, 3
+    m = dict(device="meta")
+    args = (torch.empty((B, KV, G, hd), **m),
+            torch.empty((7, bs, KV, hd), **m),
+            torch.empty((7, bs, KV, hd), **m),
+            torch.empty((B, T), dtype=torch.int32, **m),
+            torch.empty((B, T * bs), **m))
+    for what in ("paged_attention_decode", "paged_attention"):
+        if ok:
+            assert k1.check_shapes(*args, what) == (B, KV, G, hd, bs, T)
+            continue
+        with pytest.raises(ValueError, match=rf"^{what}: .*\(G <= 16, hd <= "
+                                             r"256, G \* hd <= 2048\)"):
+            k1.check_shapes(*args, what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hd", [(16, 128), (5, 128), (8, 128), (2, 256)])
+def test_k1_k4_cuda_match_plain_at_new_groups(G, hd):
+    """On the card: K1 and K4 at the query groups of llama3-405b (16 x
+    128), llama4-scout (5), deepseek-67b and qwen2-vl-72b (8) and gemma2-9b
+    (2 x 256), softcap 50, on the inputs of the plain-vs-interpret cases
+    above, against the plain version in float64 (1e-5; the plain version
+    is held to JAX's interpret-mode kernel at these groups on the CPU,
+    and JAX is not run on the card): K1's pools bit-identical to the
+    plain write, a fully masked row exact zeros, two calls bit-identical;
+    K4 leaves the pools as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    rng = np.random.default_rng(G * hd)
+    B, KV, bs, T = 4, 8, 16, 5
+    q, kp, vp, table, mask, kn, vn, wpos, active = _decode_case(
+        rng, B, KV, G, hd, bs, T, T * bs)
+    dev = torch.device("cuda")
+
+    def cu(a):
+        return _t(a).to(dev)
+
+    kp64, vp64 = _t(kp).double(), _t(vp).double()
+    ref, _, _ = tops.paged_attention_decode(
+        _t(q).double(), kp64, vp64, _t(table), _t(mask).double(),
+        _t(kn).double(), _t(vn).double(), _t(wpos), _t(active),
+        softcap=50.0)
+    outs = []
+    for _ in range(2):
+        kpt, vpt = cu(kp), cu(vp)
+        o, _, _ = tops.paged_attention_decode(
+            cu(q), kpt, vpt, cu(table), cu(mask), cu(kn), cu(vn), cu(wpos),
+            cu(active), softcap=50.0)
+        outs.append(o.cpu())
+    scale = ref.abs().max().item()
+    np.testing.assert_allclose(outs[0].double().numpy(), ref.numpy(),
+                               rtol=0, atol=ATOL * scale)
+    assert torch.equal(outs[0], outs[1])
+    assert (outs[0][1] == 0).all()
+    assert torch.equal(kpt.cpu().double(), kp64)
+    assert torch.equal(vpt.cpu().double(), vp64)
+    ref = tops.paged_attention(_t(q).double(), _t(kp).double(),
+                               _t(vp).double(), _t(table),
+                               _t(mask).double(), softcap=50.0)
+    kpt, vpt = cu(kp), cu(vp)
+    o = tops.paged_attention(cu(q), kpt, vpt, cu(table), cu(mask),
+                             softcap=50.0).cpu()
+    np.testing.assert_allclose(o.double().numpy(), ref.numpy(), rtol=0,
+                               atol=ATOL * ref.abs().max().item())
+    assert (o[1] == 0).all()
+    assert torch.equal(kpt.cpu(), _t(kp)) and torch.equal(vpt.cpu(), _t(vp))
 
 
 def test_k1_wrapper_takes_plain_version_on_cpu():

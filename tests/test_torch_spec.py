@@ -109,16 +109,22 @@ def test_build_config_rejects_unknown_names():
         lambda m: m.ServeSpec(device="memristor-9000").build_config())
 
 
-@pytest.mark.parametrize("arch", ["llama3-405b", "deepseek-67b",
-                                  "qwen2-vl-72b"])
-def test_unported_arch_is_not_yet_ported(arch):
-    """An architecture JAX registers and the port has not ported yet is
-    refused as such (Queue 1 item 9), not as an unknown name."""
+@pytest.mark.parametrize("arch", tspec.REFERENCE_ARCHS)
+def test_every_reference_arch_builds_as_jax(arch):
+    """Every architecture JAX registers is ported: ServeSpec builds its
+    config, equal to JAX's on every field the port's ModelConfig keeps
+    (JAX's kernel switch and remat are JAX's own; both build float32)."""
+    import dataclasses
     from repro.configs import ARCHS
-    assert set(tspec.REFERENCE_ARCHS) == set(ARCHS)
-    jspec.ServeSpec(arch=arch).validate()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServeSpec(arch=arch).build_config()
+    from repro_torch.configs import ARCHS as TARCHS
+    from repro_torch.models.config import ModelConfig
+    assert set(tspec.REFERENCE_ARCHS) == set(ARCHS) == set(TARCHS)
+    cj = jspec.ServeSpec(arch=arch).build_config()
+    ct = ServeSpec(arch=arch).build_config()
+    for f in dataclasses.fields(ModelConfig):
+        if f.name not in ("dtype", "emt", "logit_dtype"):
+            assert getattr(ct, f.name) == getattr(cj, f.name), f.name
+    assert ct.placement_plan() == cj.placement_plan()
 
 
 @pytest.mark.parametrize("impl", ["pallas", "interpret", "ref"])
