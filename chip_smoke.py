@@ -187,7 +187,28 @@ Phases (any failure exits non-zero and prints no result line):
    against the plain path's at the 24-bit DAC (1e-3); llama3's decode
    step runs K1 at G = 16.  Phase 3 also holds K1 and K4 at those
    architectures' query groups (ATTN_GROUPS: G = 16, 5, 8 and 2 x 256,
-   softcap 50) against their float64 plain versions.
+   softcap 50) against their float64 plain versions;
+13. (run after phase 8) training the MoE and recurrent families:
+   the experts' K3-dx and K3-dw (``emt_matmul_experts_dx`` /
+   ``_dw``, one launch over a stack, expert e hashed at rows e * K + k,
+   the noisy stack's sum |w~| cotangent in dw's epilogue) at
+   moonshot-v1-16b-a3b's training shapes (E 64, M 120) and jamba's (E
+   16, M 20) against float64 plain versions (K3_BWD_TOL), dw bit for bit
+   on integer inputs, two calls bit-identical, timed beside torch.bmm on
+   pre-noised stacks and their bounds; moonshot at published widths cut
+   to TRAIN_MOE_LAYERS on the mixed placement and xlstm-350m at full
+   width (batch 8 x 64), each built as ``launch.train`` builds a run
+   (AdamW, lam 1e-6): a gradient step with exact launch counts and
+   finite nonzero gradients, TRAIN_STEPS steps through ``train_loop``
+   with its checkpoints off (gemma3's phase holds the round trip), the
+   last profiled, then the trained weights' loss and every gradient
+   against the plain versions at a 24-bit DAC (TRAIN_PLAIN_TOL; xlstm's
+   plain run on the kernel run's branch at the gates' kinks and on its
+   DAC levels); jamba at
+   published widths cut to TRAIN_JAMBA_LAYERS (mamba + a K5 MLP, mamba +
+   MoE at M = 20): one gradient step at batch 2 x 64 and a 24-bit DAC
+   (the bit-serial MLPs' read noise off), launches exact, against the
+   plain versions with the kernels' gradients moved to the host first.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Every "ms" is the kernel's time in one
@@ -230,7 +251,12 @@ bound of one launch at each ATTN_GROUPS shape ("G x hd"); K3's
 ``train_launches``, ``train_ms``, ``train_bound_ms`` and
 ``train_library_ms`` are its forward's in the training run; K3-dx's and
 K3-dw's "launches" count the training run's three uninterrupted steps
-and ``cnn_launches`` the two CNN runs'.
+and ``cnn_launches`` the two CNN runs'; the experts' K3-dx and K3-dw
+(``emt_matmul_experts_dx``, ``emt_matmul_experts_dw``) = the 6 calls each
+of a moonshot training step at 2 layers (E 64, M 120; their "launches":
+the moonshot run's three steps, ``jamba_*`` the 3 calls of jamba's step
+at E 16, M 20, ``library_ms`` torch.bmm on the pre-noised stacks, and
+for dw the factor's multiply after it).
 Bounds are the largest of the bytes over the H100 SXM's published 3.35
 TB/s, the FP32 pipe's operations (FLOPs, and for the noisy matmuls the
 hash's integer multiplies and the noise factor's FMULs as two each) over
@@ -406,7 +432,18 @@ POISSON_PROBE = (2, 10)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 3
 CNN_BATCH, CNN_STEPS, CNN_LR, CNN_LAM = 32, 3, 5e-3, 3e-8
 TRAIN_KERNELS = ("emt_matmul", "emt_matmul_tc", "emt_matmul_dx",
-                 "emt_matmul_dw", "emt_bitserial")
+                 "emt_matmul_dw", "emt_bitserial", "emt_matmul_experts",
+                 "emt_matmul_experts_dx", "emt_matmul_experts_dw")
+# training the MoE and recurrent families (phase 13): moonshot-v1-16b-a3b
+# at published widths cut from 48 layers to TRAIN_MOE_LAYERS (1.81 B
+# parameters, 29 GB with AdamW) and xlstm-350m at full width, each
+# TRAIN_STEPS steps at batch TRAIN_BATCH (xlstm's sequences
+# XLSTM_TRAIN_SEQ: the reference's mLSTM gives NaN on a 128-position
+# chunk); jamba-v0.1-52b at published widths cut from 32 layers to
+# TRAIN_JAMBA_LAYERS (mamba + MLP, mamba + MoE: 3.7 B parameters), one
+# gradient step at JAMBA_TRAIN_BATCH x JAMBA_TRAIN_SEQ (expert capacity 20)
+TRAIN_MOE_LAYERS, TRAIN_JAMBA_LAYERS, XLSTM_TRAIN_SEQ = 2, 2, 64
+JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ = 2, 64
 # K3-dx and K3-dw against their float64 plain versions: dx sums up to
 # 262,144 float32 products in one thread's sequence (the tied unembed),
 # ~eps * sqrt(N) = 3e-5 of the result
@@ -1747,6 +1784,8 @@ class Smoke:
                 "emt_matmul_experts": k3.emt_matmul_experts,
                 "emt_matmul_dx": k3.emt_matmul_dx,
                 "emt_matmul_dw": k3.emt_matmul_dw,
+                "emt_matmul_experts_dx": k3.emt_matmul_experts_dx,
+                "emt_matmul_experts_dw": k3.emt_matmul_experts_dw,
                 "emt_bitserial": k5.emt_bitserial}
 
     @contextlib.contextmanager
@@ -2188,7 +2227,7 @@ class Smoke:
             and the noisy stack's max |w~| exactly, its sum within rtol
             1e-6 (float64 partials against a float32 sum)."""
             y, s, m = orig["_emt_matmul_experts"](x, w, sig, **kw)
-            yp, sp, mp = k3.plain_experts(x, w, sig, **kw)
+            yp, sp, mp = k3.plain_experts_differentiable(x, w, sig, **kw)
             worst["emt_matmul_experts"] = max(worst["emt_matmul_experts"],
                                               rel_err(y, yp)[1])
             stats["max_equal"] &= bool(torch.equal(m, mp))
@@ -2421,7 +2460,7 @@ class Smoke:
             return cfg.replace(emt=map_corners(cfg.emt, corner))
 
         plain = dict(_emt_matmul=k3.plain, _emt_bitserial=k5.plain,
-                     _emt_matmul_experts=k3.plain_experts)
+                     _emt_matmul_experts=k3.plain_experts_differentiable)
         plain64 = dict(_emt_matmul=f64(k3.plain),
                        _emt_bitserial=f64(k5.plain),
                        _emt_matmul_experts=f64_experts)
@@ -4483,14 +4522,17 @@ class Smoke:
             self.check(got == want, f"{label} step {i}: launches {got}, "
                                     f"want {want}")
 
-    def _grad_report(self, label, grads, leaves):
-        """Every leaf of `leaves` (path suffixes) finite with a nonzero
-        gradient."""
+    def _grad_report(self, label, grads, leaves, skip=()):
+        """Every leaf of `leaves` (path suffixes) but those of `skip` (the
+        MoE routers' rho: their SRAM corner keeps it fixed, trainable_rho
+        False) finite with a nonzero gradient."""
+        def held(p):
+            return p.endswith(leaves) and not (skip and p.endswith(skip))
         bad = [p for p, gr in _flat(grads)
-               if p.endswith(leaves) and not (
+               if held(p) and not (
                    bool(self.torch.isfinite(gr).all())
                    and gr.abs().max().item() > 0)]
-        n = sum(1 for p, _ in _flat(grads) if p.endswith(leaves))
+        n = sum(1 for p, _ in _flat(grads) if held(p))
         print(f"  {label}: {n} gradient leaves ({', '.join(leaves)}) finite "
               f"and nonzero: {n - len(bad)} of {n}")
         self.check(not bad, f"{label}: zero or non-finite gradients {bad[:5]}")
@@ -4524,7 +4566,8 @@ class Smoke:
         L = run.cfg.num_layers
         want = dict(emt_matmul=7 * L + 1, emt_matmul_tc=7 * L + 1,
                     emt_matmul_dx=7 * L + 1, emt_matmul_dw=7 * L + 1,
-                    emt_bitserial=0)
+                    emt_bitserial=0, emt_matmul_experts=0,
+                    emt_matmul_experts_dx=0, emt_matmul_experts_dw=0)
         n = sum(p.numel() for _, p in _flat(run.state["params"]))
         state_gb = sum(t.numel() * t.element_size()
                        for _, t in _flat(run.state)) / 1e9
@@ -4649,10 +4692,11 @@ class Smoke:
         for p in fb:
             if p in rho:
                 continue
-            d = (fa[p] - fb[p]).abs().max().item()
+            d = (fa[p].to(fb[p].device) - fb[p]).abs().max().item()
             worst.append((d / max(fb[p].abs().max().item(), 1e-30), p))
         if rho:
-            va = torch.stack([fa[p].reshape(()) for p in rho])
+            va = torch.stack([fa[p].reshape(()).to(fb[p].device)
+                              for p in rho])
             vb = torch.stack([fb[p].reshape(()) for p in rho])
             d = (va - vb).abs().max().item()
             worst.append((d / max(vb.abs().max().item(), 1e-30),
@@ -4735,7 +4779,9 @@ class Smoke:
                         emt_matmul_tc=0 if bitserial else convs + 1,
                         emt_matmul_dx=0 if bitserial else convs,
                         emt_matmul_dw=0 if bitserial else convs + 1,
-                        emt_bitserial=convs + 1 if bitserial else 0)
+                        emt_bitserial=convs + 1 if bitserial else 0,
+                        emt_matmul_experts=0, emt_matmul_experts_dx=0,
+                        emt_matmul_experts_dw=0)
             tcfg = TrainConfig(lam=CNN_LAM, lr=CNN_LR)
             train_step, opt = make_train_step(
                 cfg, tcfg, schedule=constant_schedule(CNN_LR))
@@ -4825,6 +4871,621 @@ class Smoke:
                 rec["cnn_launches"] = rec.get("cnn_launches", 0) + sum(
                     c[name] for c in per_step)
             del state
+
+    # -- phase 13: training the mixture-of-experts and recurrent families ----
+    def k3_experts_backward(self):
+        """The experts' K3-dx and K3-dw (one launch each over a stack of
+        experts, expert e hashed at rows e * K + k) at the training paths'
+        shapes: moonshot-v1-16b-a3b's 64 experts at M = 120 (capacity of a
+        1,024-token batch), (K, N) = (2,048, 1,408) for wg/wu and (1,408,
+        2,048) for wd, and jamba's 16 at M = 20 (a 128-token batch), 4,096
+        <-> 14,336.  Each held to its float64 plain version within
+        K3_BWD_TOL (dx, dw with the sum |w~| term gs sgn(w~), dsigma), dw
+        bit for bit to the float32 plain pass on integer x, g and gs, two
+        calls bit-identical; timed by event and by device beside its plain
+        version, the torch.bmm yardsticks on pre-noised stacks (bmm(g,
+        w~^T); bmm(x^T, g) * f) and the bound (bytes, 3xTF32 products, the
+        hash).  "ms" sums one moonshot training step's 3 L calls."""
+        from repro_torch.configs import get_config
+        from repro_torch.core import quant, regularizer
+        from repro_torch.core.emt_linear import _tag_plane
+        from repro_torch.kernels import emt_matmul as k
+        from repro_torch.kernels.ref import _noise, noisy_experts
+        from repro_torch.models.moe import capacity
+        torch = self.torch
+        keys_dx = ("gemm_3xtf32", "noise_bits", "split_sum")
+        keys_dw = ("gemm_3xtf32", "dw_slab_epilogue", "partial_sum")
+        worst = {"dx": 0.0, "dw": 0.0}
+        totals = {}
+        graphs = set()       # the device times a graph replay stands in for
+        for arch, layers, tokens in ((MOE_ARCH, TRAIN_MOE_LAYERS,
+                                      TRAIN_BATCH * TRAIN_SEQ),
+                                     (JAMBA_ARCH, TRAIN_JAMBA_LAYERS,
+                                      JAMBA_TRAIN_BATCH * JAMBA_TRAIN_SEQ)):
+            cfg = get_config(arch, placement="mixed").replace(
+                num_layers=layers)
+            moe = sum(1 for p, _, _ in cfg.placement_plan()
+                      if p.endswith("/moe/experts"))
+            tag = next(p for p, _, _ in cfg.placement_plan()
+                       if p.endswith("/moe/experts"))
+            emt = cfg.emt_at(tag)
+            E, D, F = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+            M = capacity(cfg, tokens)
+            tot = totals[arch] = {}
+            gen = torch.Generator(device=self.dev).manual_seed(12)
+            sig = emt.device.sigma_rel(regularizer.rho_from_raw(
+                torch.tensor(regularizer.rho_init_raw(emt.rho_init),
+                             device=self.dev)))
+            for proj, K, N, per in (("wg", D, F, 2), ("wd", F, D, 1)):
+                kw = dict(device=emt.device, seed=SEED,
+                          plane=_tag_plane(tag.replace("experts", proj)))
+                w = torch.randn((E, K, N), generator=gen,
+                                device=self.dev) / K ** .5
+                wq, _ = quant.quantize_weights(w, emt.quant)
+                del w
+                x = torch.randn((E, M, K), generator=gen, device=self.dev)
+                g = torch.randn((E, M, N), generator=gen, device=self.dev)
+                # the sum |w~|'s cotangent, far above a training step's
+                # lam rho / N so that its term gs sgn(w~) shows in dw
+                gs = torch.tensor(0.5, device=self.dev)
+                zeros = int((wq == 0).sum())
+                dx = k.emt_matmul_experts_dx(g, wq, sig, **kw)
+                dw, dsig = k.emt_matmul_experts_dw(x, g, wq, sig, gs, **kw)
+                dw2, dsig2 = k.emt_matmul_experts_dw(x, g, wq, sig, gs, **kw)
+                same = (torch.equal(dx, k.emt_matmul_experts_dx(
+                    g, wq, sig, **kw)) and torch.equal(dw, dw2)
+                        and torch.equal(dsig, dsig2))
+                del dw2
+                xi = torch.randint(-4, 5, x.shape, generator=gen,
+                                   device=self.dev).float()
+                gi = torch.randint(-4, 5, g.shape, generator=gen,
+                                   device=self.dev).float()
+                gsi = torch.tensor(3.0, device=self.dev)
+                exact = torch.equal(
+                    k.emt_matmul_experts_dw(xi, gi, wq, sig, gsi, **kw)[0],
+                    k.plain_experts_dw(xi, gi, wq, sig, gsi, **kw)[0])
+                del xi, gi
+                dx64 = k.plain_experts_dx(g.double(), wq, sig, **kw)
+                d_dx, r_dx = rel_err(dx.double(), dx64)
+                del dx64
+                dw64, dsig64 = k.plain_experts_dw(x.double(), g.double(),
+                                                  wq, sig, gs, **kw)
+                d_dw, r_dw = rel_err(dw.double(), dw64)
+                terms = torch.sum(dw64.abs() * wq.double().abs()).item()
+                del dw64
+                r_sig = abs(dsig.item() - dsig64.item()) / max(terms, 1e-30)
+                self.sync()
+                worst["dx"] = max(worst["dx"], d_dx)
+                worst["dw"] = max(worst["dw"], d_dw)
+                p = k.plan_dx(M, K, N, self.sms, experts=E)
+                q = k.plan_dw(M, K, N, self.sms, experts=E)
+                print(f"  experts backward {arch} {proj} E={E} M={M} "
+                      f"{K}x{N} ({zeros:,} exact zeros in w): dx rel "
+                      f"{r_dx:.3e} ({p.splits} N slab(s), {p.ctas} CTAs), "
+                      f"dw rel {r_dw:.3e} ({q.splits} M slab(s), {q.ctas} "
+                      f"CTAs), dsigma {dsig.item():.6e} vs "
+                      f"{dsig64.item():.6e} (rel to sum|terms| "
+                      f"{r_sig:.3e}); dw on integer x, g, gs bit-identical "
+                      f"to the float32 plain pass: {exact}; two calls "
+                      f"bit-identical: {same}")
+                self.check(r_dx <= K3_BWD_TOL and r_dw <= K3_BWD_TOL
+                           and r_sig <= K3_BWD_TOL,
+                           f"experts backward {arch} {proj}: rel dx "
+                           f"{r_dx:.3e}, dw {r_dw:.3e}, dsigma {r_sig:.3e} "
+                           f"> {K3_BWD_TOL}")
+                self.check(exact and same, f"experts backward {arch} "
+                           f"{proj}: dw vs the plain pass {exact}, two "
+                           f"calls {same}")
+                del dx, dw
+                # the yardsticks: torch.bmm on the pre-noised stack, and
+                # x^T g then the factor
+                wn = noisy_experts(wq, sig, **kw)
+                f = torch.stack([_noise(wq[i], sig, emt.device, SEED,
+                                        kw["plane"], row0=i * K)[1]
+                                 for i in range(E)])
+                t = dict(
+                    dx=cuda_time(lambda: k.emt_matmul_experts_dx(
+                        g, wq, sig, **kw), 3),
+                    dx_lib=cuda_time(lambda: torch.bmm(
+                        g, wn.transpose(1, 2)), 3),
+                    dw=cuda_time(lambda: k.emt_matmul_experts_dw(
+                        x, g, wq, sig, gs, **kw), 3),
+                    dw_lib=cuda_time(lambda: torch.bmm(
+                        x.transpose(1, 2), g).mul_(f), 3),
+                    dx_plain=cuda_time(lambda: k.plain_experts_dx(
+                        g, wq, sig, **kw), 1, warmup=1),
+                    dw_plain=cuda_time(lambda: k.plain_experts_dw(
+                        x, g, wq, sig, gs, **kw), 1, warmup=1))
+                # device times; where the profiler's traces lost the
+                # events, the run captured once as a CUDA graph and
+                # replayed (no host dispatch between its kernels)
+                runs = dict(
+                    dx=(lambda: k.emt_matmul_experts_dx(g, wq, sig, **kw),
+                        keys_dx),
+                    dw=(lambda: k.emt_matmul_experts_dw(x, g, wq, sig, gs,
+                                                        **kw), keys_dw),
+                    dx_lib=(lambda: torch.bmm(g, wn.transpose(1, 2)), ""),
+                    dw_lib=(lambda: torch.bmm(x.transpose(1, 2), g).mul_(f),
+                            ""))
+                for key, (fn, keys) in runs.items():
+                    v = device_ms(fn, keys, need=keys[0] if keys else "")
+                    if v is None:
+                        v = graph_ms(fn)
+                        graphs.add(key)
+                        print(f"    ({key}: the profiler's device time not "
+                              f"measured; the graph replay's, {fmt(v)}, "
+                              f"stands in)")
+                    t[f"{key}_dev"] = v
+                del wn, f
+                alu, fma = hash_ops("K3", E * K * N)
+                mkn = 2 * E * M * K * N
+                # (bytes, FP32 FLOPs, ALU ops, other FP32-pipe ops, TF32
+                # FLOPs): 3xTF32 products; dw's epilogue c = gw + gs sgn,
+                # c f, c w and its product with a, once an element
+                b = dict(dx=(4 * (E * M * N + E * K * N + E * M * K), 0,
+                             alu, fma, 3 * mkn),
+                         dw=(4 * (E * M * K + E * M * N + 2 * E * K * N) + 4,
+                             4 * E * K * N, alu, fma, 3 * mkn))
+                bms = {n: bound(*v) for n, v in b.items()}
+                print(f"    per call: dx {t['dx']:.3f} ms, device "
+                      f"{fmt(t['dx_dev'])} (torch.bmm on the pre-noised "
+                      f"stack {t['dx_lib']:.3f}, device "
+                      f"{fmt(t['dx_lib_dev'])}; plain {t['dx_plain']:.3f}; "
+                      f"bound {bms['dx'][0]:.3f} {bms['dx'][2]}, "
+                      f"{share(bms['dx'][0], t['dx_dev'])} of it); dw "
+                      f"{t['dw']:.3f} ms, device {fmt(t['dw_dev'])} "
+                      f"(torch.bmm then the factor {t['dw_lib']:.3f}, device "
+                      f"{fmt(t['dw_lib_dev'])}; plain {t['dw_plain']:.3f}; "
+                      f"bound {bms['dw'][0]:.3f} {bms['dw'][2]}, "
+                      f"{share(bms['dw'][0], t['dw_dev'])} of it)")
+                n = per * moe
+                for key, v in t.items():
+                    tot[key] = (None if v is None or tot.get(key, 0.0) is None
+                                else tot.get(key, 0.0) + v * n)
+                for key, v in b.items():
+                    for i, part in enumerate(v):
+                        tot[f"{key}_b{i}"] = tot.get(f"{key}_b{i}", 0) + \
+                            part * n
+                del x, g, wq
+                torch.cuda.empty_cache()
+            tot["calls"] = 3 * moe
+            for key in ("dx", "dw"):
+                tot[f"{key}_bound"] = bound(*(tot[f"{key}_b{i}"]
+                                              for i in range(5)))
+            print(f"  per {arch} training step ({layers} layers, "
+                  f"{3 * moe} calls each, E={E}, M={M}): dx {tot['dx']:.3f}"
+                  f" ms, device {fmt(tot['dx_dev'])} (yardstick "
+                  f"{tot['dx_lib']:.3f}, device {fmt(tot['dx_lib_dev'])}; "
+                  f"bound {tot['dx_bound'][0]:.3f} {tot['dx_bound'][2]}, "
+                  f"{share(tot['dx_bound'][0], tot['dx_dev'])} of it); dw "
+                  f"{tot['dw']:.3f} ms, device {fmt(tot['dw_dev'])} "
+                  f"(yardstick {tot['dw_lib']:.3f}, device "
+                  f"{fmt(tot['dw_lib_dev'])}; bound "
+                  f"{tot['dw_bound'][0]:.3f} {tot['dw_bound'][2]}, "
+                  f"{share(tot['dw_bound'][0], tot['dw_dev'])} of it)")
+        src = "src/repro_torch/kernels/csrc/emt_matmul_bwd.cu"
+        replaces = ("src/repro/kernels/emt_matmul.py:57 (no TPU backward "
+                    "kernel: XLA's VJP of src/repro/models/moe.py:59-71 "
+                    "_emt_stacked + einsum)")
+        moon, jam = totals[MOE_ARCH], totals[JAMBA_ARCH]
+        for name, key in (("emt_matmul_experts_dx", "dx"),
+                          ("emt_matmul_experts_dw", "dw")):
+            self.records[name] = dict(
+                name=name, route="cuda", source=src, replaces=replaces,
+                launches=None, max_abs_err=worst[key], ms=moon[key],
+                device_ms=moon[f"{key}_dev"], plain_ms=moon[f"{key}_plain"],
+                bound_ms=moon[f"{key}_bound"][0],
+                bound_by=moon[f"{key}_bound"][1],
+                library_ms=moon[f"{key}_lib"],
+                library_device_ms=moon[f"{key}_lib_dev"],
+                jamba_ms=jam[key], jamba_device_ms=jam[f"{key}_dev"],
+                jamba_plain_ms=jam[f"{key}_plain"],
+                jamba_bound_ms=jam[f"{key}_bound"][0],
+                jamba_library_ms=jam[f"{key}_lib"],
+                jamba_library_device_ms=jam[f"{key}_lib_dev"],
+                device_source=("graph replay" if {key, f"{key}_lib"} & graphs
+                               else "profiler"))
+
+    @contextlib.contextmanager
+    def _no_checkpoint(self):
+        """train_loop's checkpoints off, for the duration: its
+        CheckpointManager restores and saves nothing (gemma3's phase holds
+        the checkpoint's round trip; a moonshot state is 29 GB)."""
+        from repro_torch.train import loop
+
+        class Off:
+            def __init__(self, *args, **kw):
+                pass
+
+            def restore_latest(self, template):
+                return None, None
+
+            def save(self, *args, **kw):
+                pass
+
+            def wait(self):
+                pass
+
+        orig = loop.CheckpointManager
+        loop.CheckpointManager = Off
+        try:
+            yield
+        finally:
+            loop.CheckpointManager = orig
+
+    def _lm_run(self, cfg, batch, seq, lam=1e-6):
+        """A training run of `cfg` built as launch.setup builds one (AdamW,
+        lam, TRAIN_STEPS steps, the port's seeded init, SyntheticLM)."""
+        from repro_torch.data.synthetic import SyntheticLM
+        from repro_torch.launch.train import Run
+        from repro_torch.train.loop import LoopConfig
+        from repro_torch.train.optimizer import OptimizerConfig
+        from repro_torch.train.step import (TrainConfig, init_state,
+                                            make_train_step)
+        cfg = cfg.replace(dtype=self.torch.float32)
+        tcfg = TrainConfig(lam=lam, lr=3e-4, total_steps=TRAIN_STEPS,
+                           opt=OptimizerConfig(name="adamw"))
+        train_step, opt = make_train_step(cfg, tcfg)
+        state = init_state(cfg, opt, SEED, device=self.dev)
+        data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                           batch_size=batch, d_model=cfg.d_model,
+                           input_kind=cfg.input_kind, encdec=cfg.is_encdec,
+                           device=self.dev)
+        loop = LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                          ckpt_dir=os.path.join(ROOT, "build",
+                                                "chip_smoke_no_ckpt"))
+        return Run(cfg, tcfg, train_step, state, data, loop)
+
+    def _train_want(self, cfg):
+        """Launches of one training step of `cfg` (every call above 16
+        rows): every analog site's K3 forward on the tensor cores, K3-dx
+        and K3-dw; K5 on every bit-serial site (its ideal-matmul VJP
+        launches nothing); three expert launches a MoE layer and their dx
+        and dw."""
+        k3, k5, ex = self._sites(cfg)
+        return dict(emt_matmul=k3, emt_matmul_tc=k3,
+                    emt_matmul_dx=k3, emt_matmul_dw=k3, emt_bitserial=k5,
+                    emt_matmul_experts=ex, emt_matmul_experts_dx=ex,
+                    emt_matmul_experts_dw=ex)
+
+    def _train_path(self, label, run, want, leaves):
+        """(1) A gradient step at step 0: exact launch counts `want`,
+        finite nonzero gradients on every leaf ending in `leaves`; (2)
+        TRAIN_STEPS steps through train_loop with its checkpoints off,
+        each step's launches exact, the last profiled (device busy, aten
+        ops; the top kernels), peak memory.  Returns (summary, the trained
+        parameters); the optimizer state is dropped."""
+        import dataclasses
+        from repro_torch.train.loop import train_loop
+        from repro_torch.train.step import make_grad_fn
+        from torch.profiler import DeviceType, ProfilerActivity, profile
+        torch = self.torch
+        n = sum(p.numel() for _, p in _flat(run.state["params"]))
+        state_gb = sum(t.numel() * t.element_size()
+                       for _, t in _flat(run.state)) / 1e9
+        print(f"  {label}: {run.cfg.name}, {run.cfg.num_layers} layers "
+              f"{run.cfg.blocks()}, {n:,} parameters, train state "
+              f"{state_gb:.2f} GB (float32 weights and AdamW m, v), batch "
+              f"{run.data.batch_size} x {run.data.seq_len}")
+        counters = self._reset_launches()
+        loss, _, grads = make_grad_fn(run.cfg, run.tcfg.lam)(
+            run.state["params"], run.data.batch_at(0), 0)
+        self.sync()
+        got = {k: counters[k].launches for k in TRAIN_KERNELS}
+        print(f"  {label} gradient step: loss {loss.item():.4f}, launches "
+              f"{got}")
+        self.check(got == want, f"{label} gradient step launches {got}, "
+                   f"want {want}")
+        self.check(bool(torch.isfinite(loss)), f"{label} loss not finite")
+        self._grad_report(f"{label} step 0", grads, leaves,
+                          skip=("router/rho_raw",))
+        del grads
+        per_step, box = [], {}
+        counted = self._counted(run.train_step, per_step)
+
+        def step(state, batch):
+            if len(per_step) < TRAIN_STEPS - 1:
+                return counted(state, batch)
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = counted(state, batch)
+            box["wall"] = (time.perf_counter() - t0) * 1e3
+            box["prof"] = prof
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        state, run.state = run.state, None
+        t0 = time.perf_counter()
+        with self._no_checkpoint():
+            state, hist = train_loop(state, step, run.data.batch_at,
+                                     dataclasses.replace(run.loop,
+                                                         log_every=1,
+                                                         metrics_path=None))
+        loop_s = time.perf_counter() - t0
+        events = box["prof"].key_averages()
+        ev = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+        ev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        busy = sum(e.self_device_time_total for e in ev) / 1e3
+        ops = sum(e.count for e in events if e.key.startswith("aten::"))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [h["loss"] for h in hist]
+        times = [h["step_time_s"] for h in hist]
+        norms = [round(h["grad_norm"], 4) for h in hist]
+        wall = box["wall"]
+        print(f"  {label}: {len(hist)} steps through train_loop in "
+              f"{loop_s:.1f} s (checkpoints off), step times {times} s "
+              f"(synchronized, the last profiled); losses {losses}, grad "
+              f"norms {norms}")
+        print(f"  {label} step {TRAIN_STEPS} profiled: wall {wall:.1f} ms "
+              f"(profiler on), device busy {busy:.1f} ms "
+              f"({100 * busy / wall:.1f}%), {ops} aten ops; peak device "
+              f"memory {peak:.2f} GiB; top:")
+        for e in ev[:8]:
+            print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+                  f"{e.count:6d}x {e.key[:80]}")
+        self.check(len(per_step) == TRAIN_STEPS
+                   and all(math.isfinite(v) for v in losses),
+                   f"{label}: {len(per_step)} steps, losses {losses}")
+        self._check_counts(label, per_step, want)
+        summary = dict(steps=len(per_step), losses=losses, grad_norms=norms,
+                       step_time_s=times, step3_busy_ms=busy,
+                       step3_wall_ms=wall, aten_ops=ops, peak_gib=peak,
+                       state_gb=state_gb, params=n, launches=per_step[-1])
+        params = state["params"]
+        del state
+        torch.cuda.empty_cache()
+        return summary, params, per_step
+
+    @contextlib.contextmanager
+    def _kinks(self, record=None, replay=None, flips=None):
+        """The recurrent gates' kinks, ``torch.clamp_max(x, 0.0)`` (the
+        exponential input gates, i = exp(min(i~, 0))) and
+        ``torch.clamp_min(x, 1.0)`` (the sLSTM's normalizer, max(n, 1)):
+        each call's clamped positions appended to `record` in call order;
+        or, with `replay`, taken from it (popped) as where(clamped, bound,
+        x), whose gradient follows the recorded branch and whose value
+        differs from the clamp's only where x, within float32 noise of the
+        bound, fell on the other side (those positions counted in
+        flips[0])."""
+        torch = self.torch
+        orig = {"clamp_max": torch.clamp_max, "clamp_min": torch.clamp_min}
+
+        def kink(name, bound, clamped_of):
+            def call(x, v, *args, **kw):
+                if v != bound or args or kw:
+                    return orig[name](x, v, *args, **kw)
+                mine = clamped_of(x.detach())
+                if replay is None:
+                    record.append(mine)
+                    return orig[name](x, v)
+                clamped = replay.pop(0)
+                flips[0] += int((clamped != mine).sum())
+                return torch.where(clamped, torch.tensor(
+                    bound, dtype=x.dtype, device=x.device), x)
+            return call
+
+        torch.clamp_max = kink("clamp_max", 0.0, lambda x: x > 0)
+        torch.clamp_min = kink("clamp_min", 1.0, lambda x: x < 1)
+        try:
+            yield
+        finally:
+            torch.clamp_max = orig["clamp_max"]
+            torch.clamp_min = orig["clamp_min"]
+
+    @contextlib.contextmanager
+    def _dac_replay(self, record=None, replay=None):
+        """Every projection's DAC (levels, scale) appended to `record` in
+        call order; or, with `replay`, taken from it (popped) with the
+        straight-through gradient kept, levels = x / scale + detach(
+        recorded - x / scale), as quant_levels builds its own."""
+        from repro_torch.core import emt_linear
+        orig = emt_linear.quant_levels
+
+        def quant(x, bits, axis=None):
+            if replay is None:
+                levels, scale = orig(x, bits, axis=axis)
+                record.append((levels.detach(), scale))
+                return levels, scale
+            levels, scale = replay.pop(0)
+            xs = x / scale
+            return xs + (levels - xs).detach(), scale
+
+        emt_linear.quant_levels = quant
+        try:
+            yield
+        finally:
+            emt_linear.quant_levels = orig
+
+    def _train_vs_plain(self, label, cfg, lam, params, batch, step,
+                        to_host=False, kinks=False):
+        """The loss and every gradient leaf of one step through the kernels
+        (K3, its experts entry, K5) and through their plain versions with
+        the same VJPs, at `cfg` (a 24-bit DAC), within TRAIN_PLAIN_TOL;
+        `to_host` moves the kernels' gradients to the host before the plain
+        run (the two sets would not fit the card beside the weights).
+        `kinks`: the plain run takes the kernel run's branch at every kink
+        of the recurrent gates (_kinks) and its DAC levels (_dac_replay):
+        the gradient is not continuous at a kink (one position of x within
+        float32 noise of 0 at an sLSTM input gate moved that gate's weight
+        gradient by 7% of its largest value at xlstm's smoke widths on the
+        CPU, 26% at full width on the H100), and with the kinks alone
+        replayed the two runs' forward differences still grew through
+        xlstm's 24 blocks into its first layers' gradients (1.6e-3 on the
+        H100); the positions whose branch the replay decided are
+        printed."""
+        from repro_torch.kernels import emt_bitserial as k5
+        from repro_torch.kernels import emt_matmul as k3
+        from repro_torch.train.step import make_grad_fn
+        torch = self.torch
+        grad_fn = make_grad_fn(cfg, lam)
+        branches, flips, levels = [], [0], []
+        with contextlib.ExitStack() as stack:
+            if kinks:
+                stack.enter_context(self._kinks(record=branches))
+                stack.enter_context(self._dac_replay(record=levels))
+            loss, _, gk = grad_fn(params, batch, step)
+        if to_host:
+            gk = {p: t.cpu() for p, t in _flat(gk)}
+        kern = (loss, gk)
+        n = sum(b.numel() for b in branches)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(self._ops_through(
+                _emt_matmul=k3.plain_differentiable,
+                _emt_matmul_experts=k3.plain_experts_differentiable,
+                _emt_bitserial=k5.plain_differentiable))
+            if kinks:
+                stack.enter_context(self._kinks(replay=branches,
+                                                flips=flips))
+                stack.enter_context(self._dac_replay(replay=levels))
+            loss, _, gp = grad_fn(params, batch, step)
+        if kinks:
+            print(f"  {label}: the gates' kinks and the DAC levels replayed "
+                  f"in the plain run: {flips[0]} of {n:,} kink positions "
+                  f"took the kernel run's branch against their own")
+            self.check(not branches and not levels,
+                       f"{label}: {len(branches)} kink calls and "
+                       f"{len(levels)} DAC calls left unreplayed")
+        self._compare_grads(label, kern, (loss, gp), TRAIN_PLAIN_TOL)
+        del kern, gk, gp
+        torch.cuda.empty_cache()
+
+    def train_moe(self):
+        """moonshot-v1-16b-a3b at published widths cut to
+        TRAIN_MOE_LAYERS of 48, on the mixed placement (attention analog
+        on PCM; routers on SRAM through K3 at N = 64; the experts technique
+        A on RRAM through the experts entry, their gradient through the
+        experts' K3-dx and K3-dw), float32, AdamW, lam 1e-6, batch 8 x 128
+        (expert capacity 120): a gradient step (launches exact: K3,
+        K3-dx, K3-dw 5 L + 1 each, all on the tensor cores; the experts
+        entry, its dx and its dw 3 L each; no K5), TRAIN_STEPS steps
+        through train_loop (checkpoints off), the last profiled; then the
+        trained weights' loss and every gradient through the kernels
+        against the plain versions at a 24-bit DAC (TRAIN_PLAIN_TOL)."""
+        from repro_torch.configs import get_config
+        self._free_serving()
+        cfg = get_config(MOE_ARCH, placement="mixed").replace(
+            num_layers=TRAIN_MOE_LAYERS)
+        run = self._lm_run(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        L = cfg.num_layers
+        want = self._train_want(run.cfg)
+        self.check(want["emt_matmul"] == 5 * L + 1
+                   and want["emt_matmul_experts"] == 3 * L,
+                   f"moonshot sites {want}")
+        summary, params, per_step = self._train_path(
+            "moonshot mixed", run, want,
+            ("/w", "/wg", "/wu", "/wd", "rho_raw", "embed/table"))
+        for name in ("emt_matmul_experts_dx", "emt_matmul_experts_dw"):
+            self.records.setdefault(name, {})["launches"] = sum(
+                c[name] for c in per_step)
+        self.records.setdefault("emt_matmul_experts", {})[
+            "train_launches"] = sum(c["emt_matmul_experts"]
+                                    for c in per_step)
+        self._train_vs_plain(
+            "moonshot mixed, 24-bit DAC: kernels vs plain",
+            run.cfg.replace(emt=_dac_bits(run.cfg.emt, 24)), run.tcfg.lam,
+            params, run.data.batch_at(TRAIN_STEPS), TRAIN_STEPS)
+        self.train_moe_summary = summary
+        del params, run
+        self.torch.cuda.empty_cache()
+
+    def train_xlstm(self):
+        """xlstm-350m at full width through launch.setup's path (analog,
+        AdamW, lam 1e-6, batch 8 x 64: the reference's mLSTM gives NaN on a
+        128-position chunk): a gradient step (K3, K3-dx, K3-dw 166 each,
+        all on the tensor cores, as a served admission's projections),
+        TRAIN_STEPS steps through train_loop (checkpoints off), the last
+        profiled; then the trained weights' loss and every gradient
+        through the kernels against the plain versions at a 24-bit DAC,
+        the plain run on the kernel run's branch at the gates' kinks and on
+        its DAC levels."""
+        from repro_torch.launch import train as launch
+        argv = ["--arch", XLSTM_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+                str(XLSTM_TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--lam",
+                "1e-6", "--opt", "adamw", "--ckpt-dir",
+                os.path.join(ROOT, "build", "chip_smoke_no_ckpt")]
+        run = launch.setup(argv, torch_device="cuda", seed=SEED)
+        print(f"  launch.train {' '.join(argv)}")
+        want = self._train_want(run.cfg)
+        self.check(want["emt_matmul"] == 166, f"xlstm sites {want}")
+        summary, params, _ = self._train_path(
+            "xlstm analog", run, want, ("/w", "rho_raw", "embed/table"))
+        self._train_vs_plain(
+            "xlstm analog, 24-bit DAC, kinks and levels replayed: kernels "
+            "vs plain", run.cfg.replace(emt=_dac_bits(run.cfg.emt, 24)),
+            run.tcfg.lam, params, run.data.batch_at(TRAIN_STEPS),
+            TRAIN_STEPS, kinks=True)
+        self.train_xlstm_summary = summary
+        del params, run
+        self.torch.cuda.empty_cache()
+
+    def train_jamba_vs_plain(self):
+        """jamba-v0.1-52b at published widths cut to TRAIN_JAMBA_LAYERS of
+        32 (mamba + a dense MLP on K5, technique C's ideal-matmul VJP;
+        mamba + MoE, the experts through the experts entry at M = 20) on
+        the mixed placement: one gradient step, no optimizer state, at
+        batch 2 x 64 and a 24-bit DAC with the bit-serial MLPs' read noise
+        off (a bit-serial read is not continuous in its level; the experts
+        on that corner read in analog and keep theirs): launches exact,
+        finite nonzero gradients, peak memory; then the loss and every
+        gradient leaf against the plain versions (the kernels' gradients
+        moved to the host first) within TRAIN_PLAIN_TOL."""
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.core.placement import LayerRule
+        from repro_torch.data.synthetic import SyntheticLM
+        from repro_torch.models import lm
+        from repro_torch.train.step import make_grad_fn
+        torch = self.torch
+        cfg = get_config(JAMBA_ARCH, placement="mixed").replace(
+            num_layers=TRAIN_JAMBA_LAYERS, dtype=torch.float32)
+        emt = _dac_bits(cfg.emt, 24)
+        emt = dataclasses.replace(emt, rules=tuple(
+            LayerRule(r.pattern, r.emt.replace(device=dataclasses.replace(
+                r.emt.device, amplitude=0.0)))
+            if r.pattern == "*/mlp/*" and r.emt.mode == "bitserial" else r
+            for r in emt.rules))
+        cfg = cfg.replace(emt=emt)
+        want = self._train_want(cfg)
+        self.check(want["emt_bitserial"] > 0
+                   and want["emt_matmul_experts"] == 3,
+                   f"jamba sites {want}")
+        params = self._arch_model(cfg, "published widths", JAMBA_ARCH, 32)
+        for _, p in _flat(params):
+            p.requires_grad_(True)
+        data = SyntheticLM(vocab_size=cfg.vocab_size,
+                           seq_len=JAMBA_TRAIN_SEQ,
+                           batch_size=JAMBA_TRAIN_BATCH, d_model=cfg.d_model,
+                           device=self.dev)
+        batch = data.batch_at(0)
+        torch.cuda.reset_peak_memory_stats()
+        counters = self._reset_launches()
+        t0 = time.perf_counter()
+        loss, _, grads = make_grad_fn(cfg, 1e-6)(params, batch, 0)
+        self.sync()
+        secs = time.perf_counter() - t0
+        got = {k: counters[k].launches for k in TRAIN_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  jamba mixed gradient step ({cfg.blocks()}, batch "
+              f"{JAMBA_TRAIN_BATCH} x {JAMBA_TRAIN_SEQ}): loss "
+              f"{loss.item():.4f} in {secs:.2f} s, launches {got}; peak "
+              f"device memory {peak:.2f} GiB")
+        self.check(got == want, f"jamba gradient step launches {got}, "
+                   f"want {want}")
+        self._grad_report("jamba mixed step 0", grads,
+                          ("/w", "/wg", "/wu", "/wd", "rho_raw", "A_log",
+                           "embed/table"), skip=("router/rho_raw",))
+        del grads
+        torch.cuda.empty_cache()
+        self._train_vs_plain("jamba mixed, 24-bit DAC (bit-serial MLPs "
+                             "read noise off): kernels vs plain", cfg, 1e-6,
+                             params, batch, 0, to_host=True)
+        self.train_jamba_summary = dict(
+            loss=loss.item(), step_s=secs, peak_gib=peak, launches=got,
+            params=sum(p.numel() for _, p in _flat(params)))
+        del params
+        torch.cuda.empty_cache()
 
 
 def _cancel_after_first_token(handle, timeout: float = 600.0):
@@ -4917,7 +5578,11 @@ def main() -> int:
               ("model, cut archs", s.model_cut_archs),
               ("train, gemma3-1b analog", s.train_gemma3),
               ("train vs plain", s.train_vs_plain),
-              ("train, paper CNN", s.train_cnn)]
+              ("train, paper CNN", s.train_cnn),
+              ("K3 experts backward", s.k3_experts_backward),
+              ("train, moonshot mixed", s.train_moe),
+              ("train, xlstm analog", s.train_xlstm),
+              ("train, jamba mixed vs plain", s.train_jamba_vs_plain)]
     for name, fn in phases:
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
@@ -4951,6 +5616,9 @@ def main() -> int:
     print("model, cut archs: " + json.dumps(s.cut_summaries))
     print("train, gemma3-1b analog: " + json.dumps(s.train_summary))
     print("train, paper CNN: " + json.dumps(s.cnn_summary))
+    print("train, moonshot mixed: " + json.dumps(s.train_moe_summary))
+    print("train, xlstm analog: " + json.dumps(s.train_xlstm_summary))
+    print("train, jamba mixed: " + json.dumps(s.train_jamba_summary))
     print(s.smi)
     print(json.dumps({"kernels": [s.records[n] for n in
                                   ("paged_attention_decode", "paged_prefill",
@@ -4958,7 +5626,9 @@ def main() -> int:
                                    "paged_attention",
                                    "emt_bitserial", "emt_matmul_dx",
                                    "emt_matmul_dw", "emt_matmul_int8",
-                                   "emt_matmul_experts")]}))
+                                   "emt_matmul_experts",
+                                   "emt_matmul_experts_dx",
+                                   "emt_matmul_experts_dw")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

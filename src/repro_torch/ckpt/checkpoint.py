@@ -13,13 +13,17 @@ package restores in the other.
   serialized and written on a background thread, one save in flight;
 * keep-N garbage collection.
 
-Restore lays each tensor onto the template's device and dtype (the
-template is a state of the same tree, any device).
+The payload is streamed, never held whole in memory: ``np.savez`` writes
+it straight to its file (the same bytes it would write to a buffer), and
+its sha256 is taken by reading the file back in chunks; a restore hashes
+the file on a thread while the tensors are parsed from it, and raises
+before returning if the digest differs.  Restore lays each tensor onto the
+template's device and dtype (the template is a state of the same tree,
+any device).
 """
 from __future__ import annotations
 
 import hashlib
-import io
 import json
 import os
 import shutil
@@ -31,6 +35,21 @@ import numpy as np
 import torch
 
 from repro_torch.utils.pytrees import flatten_with_paths, unflatten_paths
+
+
+# bytes a hash reads at a time
+_CHUNK = 64 << 20
+
+
+def _sha256_file(path: str) -> str:
+    """The sha256 of the file at `path`, read in chunks."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while True:
+            b = f.read(_CHUNK)
+            if not b:
+                return h.hexdigest()
+            h.update(b)
 
 
 def _tree_to_arrays(tree) -> dict:
@@ -47,8 +66,10 @@ def _rebuild(template, arrays: dict):
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{path}: checkpoint shape {arr.shape} != "
                              f"expected {tuple(leaf.shape)}")
-        t = torch.from_numpy(np.array(arr)).to(device=leaf.device,
-                                               dtype=leaf.dtype)
+        # an array parsed from the payload is the caller's own (a fresh
+        # writable array); a read-only one is copied first
+        arr = arr if arr.flags.writeable else np.array(arr)
+        t = torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
         leaves.append((path, t.requires_grad_(leaf.requires_grad)))
     return unflatten_paths(leaves)
 
@@ -69,16 +90,14 @@ class CheckpointManager:
         self.wait()                          # one in-flight save at a time
 
         def write():
-            buf = io.BytesIO()
-            np.savez(buf, **{k.replace("/", "\x1f"): v
-                             for k, v in arrays.items()})
-            payload = buf.getvalue()
-            digest = hashlib.sha256(payload).hexdigest()
             tmp = os.path.join(self.dir, f".tmp.{step}")
             final = os.path.join(self.dir, f"step_{step:09d}")
             os.makedirs(tmp, exist_ok=True)
-            with open(os.path.join(tmp, "state.npz"), "wb") as f:
-                f.write(payload)
+            payload = os.path.join(tmp, "state.npz")
+            with open(payload, "wb") as f:
+                np.savez(f, **{k.replace("/", "\x1f"): v
+                               for k, v in arrays.items()})
+            digest = _sha256_file(payload)
             meta = {"step": step, "sha256": digest, "time": time.time(),
                     "extra": extra or {}}
             with open(os.path.join(tmp, "meta.json"), "w") as f:
@@ -132,15 +151,34 @@ class CheckpointManager:
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
-        with open(os.path.join(path, "state.npz"), "rb") as f:
-            payload = f.read()
+        payload = os.path.join(path, "state.npz")
+        # the digest on a thread (hashlib releases the GIL) while the
+        # tensors are parsed; checked before anything is returned or
+        # raised, so a corrupt payload fails its integrity check whatever
+        # the parse made of it
+        digest = {}
+        hasher = threading.Thread(
+            target=lambda: digest.setdefault("sha256",
+                                             _sha256_file(payload)),
+            daemon=True)
         if verify:
-            digest = hashlib.sha256(payload).hexdigest()
-            if digest != meta["sha256"]:
-                raise IOError(f"checkpoint {path} failed integrity check")
-        npz = np.load(io.BytesIO(payload))
-        arrays = {k.replace("\x1f", "/"): npz[k] for k in npz.files}
-        return _rebuild(template, arrays), meta
+            hasher.start()
+        state, error = None, None
+        try:
+            with np.load(payload) as npz:
+                arrays = {k.replace("\x1f", "/"): npz[k]
+                          for k in npz.files}
+            state = _rebuild(template, arrays)
+        except Exception as e:               # raised after the check
+            error = e
+        if verify:
+            hasher.join()
+            if digest.get("sha256") != meta["sha256"]:
+                raise IOError(f"checkpoint {path} failed integrity "
+                              f"check") from error
+        if error is not None:
+            raise error
+        return state, meta
 
     def restore_latest(self, template):
         step = self.latest_step()

@@ -37,6 +37,22 @@
 //   partials in order (in double): four per output tile (its 32-row
 //   quarters), whatever the split or the SM count; no atomics, so two
 //   calls give the same bits.
+//
+// Both also run over a stack of E experts in one launch (the experts
+// entry's backward, emt_matmul_experts_dx_f32 / _dw_f32): the template's
+// gemm_3xtf32_experts, the grid's y the expert, each operand's base moved
+// by its expert stride, and the stages instantiated with EX = true, so
+// that expert e's weight is hashed at rows e * K + k of the folded (E * K,
+// N) stack, as the experts' forward draws it.  K3-dw's epilogue then also
+// adds the cotangent gs of the noisy stack's sum |w~| (technique B's term)
+// to x^T g before the factor: c = fl(x^T g + gs sgn(w~)), sgn +1 where
+// fl(w f) >= 0 (JAX's derivative of |.|, +1 at 0), dw = fl(c f) and
+// dsigma = sum fl(fl(c w) a), that is XLA's VJP of w * (1 + a sigma) once
+// the noisy stack's two cotangents are added.  The single products'
+// kernels (EX = false) are the code they were: an expert's offsets in the
+// producers cost K3-dx spills and 8% of its time at gemma3-1b's shapes.
+// The experts take two copy modes each (both operands 16-byte copies, or
+// both 4-byte), to keep the build short.
 #include <cstdint>
 
 #include "common.cuh"
@@ -85,11 +101,16 @@ struct NoiseArgs {
 
 using repro::tc::TileIdx;
 
-// Store the tile (row < M, col < N) at out (M, N) + z * M * N.
+// Store the tile (row < M, col < N) at out (M, N) + z * M * N; with EX,
+// expert blockIdx.y's at out + (z * E + e) * M * N: slab z's partials of
+// the E experts one after the other, so that split_sum adds the slabs of
+// (E, M, N) in slab order.
+template <bool EX>
 __device__ __forceinline__ void store_tile(const float (&acc)[64], float* out,
                                            int M, int N, const TileIdx& ti,
                                            int tid) {
-  float* o = out + (long long)ti.z * M * N;
+  const long long z = EX ? (long long)ti.z * gridDim.y + blockIdx.y : ti.z;
+  float* o = out + z * M * N;
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     const int m = ti.m0 + acc_row(tid, i), n = ti.n0 + acc_col(tid, i);
@@ -100,8 +121,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], float* out,
 // K3-dx: A = g, B = the noisy weight; the tile (or slab z's partial) to out.
 // Two-state tables read each element's state from `bits` (noise_bits:
 // bit n % 32 of word (k, n / 32)), so each weight element is hashed once
-// per call; other tables hash in the producers.
-template <int NS>
+// per call; other tables hash in the producers.  With EX, expert
+// blockIdx.y's weight rows are rows e * K + k of the folded stack (and of
+// its bits).
+template <int NS, bool EX = false>
 struct DxStage {
   // the producers' transform (the bits, the split) gains from 104
   // registers; the consumers need 152 (timed variants on the H100)
@@ -121,10 +144,18 @@ struct DxStage {
     repro::make_factors(args.nz.np, *args.nz.sig, F);
   }
   __device__ float a(float v, int, int) const { return v; }
+  // w's row k in the folded stack: k, or e * K + k with EX
+  __device__ uint32_t row(int k) const {
+    if constexpr (EX)
+      return blockIdx.y * (uint32_t)p.N + (uint32_t)k;
+    else
+      return (uint32_t)k;
+  }
   // B's row r is w's k, its reduction index c is w's n
   __device__ uint32_t b_aux(int k, int c) const {
     if constexpr (NS == 2)
-      return k < p.N ? __ldg(p.bits + (long long)k * p.words + (c >> 5)) : 0u;
+      return k < p.N ? __ldg(p.bits + (long long)row(k) * p.words + (c >> 5))
+                     : 0u;
     else
       return 0u;
   }
@@ -132,15 +163,17 @@ struct DxStage {
     if constexpr (NS == 2)
       return __fmul_rn(v, (aux >> (n & 31)) & 1u ? F.f[1] : F.f[0]);
     else
-      return repro::noisy<NS>(v, (uint32_t)k, (uint32_t)n, pk, F);
+      return repro::noisy<NS>(v, row(k), (uint32_t)n, pk, F);
   }
   __device__ void epilogue(const float (&acc)[64], const TileIdx& ti,
                            int tid) const {
-    store_tile(acc, p.out, p.M, p.N, ti, tid);
+    store_tile<EX>(acc, p.out, p.M, p.N, ti, tid);
   }
 };
 
-// x^T g split along M: slab z's partial tile to the workspace.
+// x^T g split along M: slab z's partial tile to the workspace (with EX,
+// expert blockIdx.y's after the slab's earlier experts').
+template <bool EX = false>
 struct SlabStage {
   static constexpr int kConsumerRegs = 152;
   struct Args {
@@ -154,7 +187,7 @@ struct SlabStage {
   __device__ float b(float v, int, int, uint32_t) const { return v; }
   __device__ void epilogue(const float (&acc)[64], const TileIdx& ti,
                            int tid) const {
-    store_tile(acc, p.out, p.M, p.N, ti, tid);
+    store_tile<EX>(acc, p.out, p.M, p.N, ti, tid);
   }
 };
 
@@ -166,37 +199,68 @@ struct SlabStage {
 // (tiles row-major over the output).  The thread's values of w are loaded
 // 32 at a time, in flight together (8-byte loads of column pairs where w
 // is n-major: `w2`), and dw's column pairs are stored together where N is
-// even.
-template <int NS>
+// even.  With EX (a stack of experts): c = fl(gw + gs sgn(w~)) in place
+// of gw, gs read on the device; expert e's w, dw and partials (an
+// expert's tiles after the earlier experts') at their strides, its noise
+// at rows e * K + k of the folded stack.
+struct DwArgs {
+  float* dw;
+  const float* w;
+  long long swk, swn;
+  float* part;
+  int K, N;
+  int w2;
+  NoiseArgs nz;
+  const float* gs;  // EX: the sum |w~|'s cotangent
+  long long swe;    // EX: w's expert stride
+};
+
+template <int NS, bool EX = false>
 struct DwStage {
   // the epilogue (64 accumulators, 32 values of w, the hash) runs on 168
   // registers
   static constexpr int kConsumerRegs = 168;
-  struct Args {
-    float* dw;
-    const float* w;
-    long long swk, swn;
-    float* part;
-    int K, N;
-    int w2;
-    NoiseArgs nz;
-  };
+  using Args = DwArgs;
   const Args p;
   uint32_t pk;
   Factors F;
   float off[kMaxStates];
-  __device__ explicit DwStage(const Args& args) : p(args) {
+  // EX: expert e's weight, dw and partials, its first row e * K, and gs
+  const float* w;
+  float* dw;
+  float* part;
+  uint32_t row0;
+  float gs;
+  // expert blockIdx.y (the GEMM's grid), or `e` (the slab epilogue's)
+  __device__ explicit DwStage(const Args& args) : DwStage(args, blockIdx.y) {}
+  __device__ DwStage(const Args& args, int e) : p(args) {
     pk = repro::hash_pk(args.nz.seed, args.nz.plane);
     repro::make_factors(args.nz.np, *args.nz.sig, F);
 #pragma unroll
     for (int i = 0; i < kMaxStates; ++i) off[i] = args.nz.np.off[i];
+    if constexpr (EX) {
+      const long long tiles =
+          (long long)((args.K + repro::tc::kBM - 1) / repro::tc::kBM) *
+          ((args.N + repro::tc::kBN - 1) / repro::tc::kBN);
+      w = args.w + e * args.swe;
+      dw = args.dw + (long long)e * args.K * args.N;
+      part = args.part + 4 * tiles * e;
+      row0 = (uint32_t)e * (uint32_t)args.K;
+      gs = *args.gs;
+    }
   }
   __device__ float a(float v, int, int) const { return v; }
   __device__ uint32_t b_aux(int, int) const { return 0u; }
   __device__ float b(float v, int, int, uint32_t) const { return v; }
+  __device__ const float* w_base() const {
+    if constexpr (EX)
+      return w;
+    else
+      return p.w;
+  }
   // w (k, n) and w (k, n + 1), zeros outside w
   __device__ float2 w_pair(int k, int n) const {
-    const float* q = p.w + k * p.swk + n * p.swn;
+    const float* q = w_base() + k * p.swk + n * p.swn;
     if (p.w2 && k < p.K && n + 1 < p.N)
       return __ldg(reinterpret_cast<const float2*>(q));
     return make_float2(k < p.K && n < p.N ? __ldg(q) : 0.f,
@@ -206,18 +270,28 @@ struct DwStage {
   __device__ void pair(float gw0, float gw1, float2 wv, int k, int n,
                        float& ds) const {
     if (k >= p.K) return;
-    const float g[2] = {gw0, gw1}, w[2] = {wv.x, wv.y};
+    const float g[2] = {gw0, gw1}, wk[2] = {wv.x, wv.y};
     float o[2] = {0.f, 0.f};
+    uint32_t r = (uint32_t)k;
+    if constexpr (EX) r += row0;
 #pragma unroll
     for (int e = 0; e < 2; ++e)
       if (n + e < p.N) {
         float f, oa;
-        factor_offset<NS>(repro::hash_mix(repro::hash_rc(k, n + e), pk), F,
+        factor_offset<NS>(repro::hash_mix(repro::hash_rc(r, n + e), pk), F,
                           off, f, oa);
-        o[e] = __fmul_rn(g[e], f);
-        ds = __fadd_rn(ds, __fmul_rn(__fmul_rn(g[e], w[e]), oa));
+        float c = g[e];
+        if constexpr (EX)
+          c = __fadd_rn(c, __fmul_rn(wk[e], f) >= 0.f ? gs : -gs);
+        o[e] = __fmul_rn(c, f);
+        ds = __fadd_rn(ds, __fmul_rn(__fmul_rn(c, wk[e]), oa));
       }
-    float* q = p.dw + (long long)k * p.N + n;
+    float* dwp;
+    if constexpr (EX)
+      dwp = dw;
+    else
+      dwp = p.dw;
+    float* q = dwp + (long long)k * p.N + n;
     if ((p.N & 1) == 0 && n + 1 < p.N) {
       *reinterpret_cast<float2*>(q) = make_float2(o[0], o[1]);
     } else {
@@ -247,28 +321,41 @@ struct DwStage {
     for (int o = 16; o > 0; o >>= 1) ds += __shfl_xor_sync(0xffffffffu, ds, o);
     if ((tid & 31) == 0) red[tid >> 5] = ds;
     repro::tc::consumers_sync();
-    if (tid < 4) p.part[4 * ti.index + tid] = red[2 * tid] + red[2 * tid + 1];
+    if (tid < 4) {
+      float* pp;
+      if constexpr (EX)
+        pp = part;
+      else
+        pp = p.part;
+      pp[4 * ti.index + tid] = red[2 * tid] + red[2 * tid + 1];
+    }
   }
 };
 
 // K3-dw after a split along M: one CTA per 32-row quarter of an output tile
-// (grid: N's tiles, K's tiles, 4).  Each thread takes a column pair and 8
-// rows, 4 apart; gw is the slabs of `ws` summed in slab order (4 slabs'
-// loads in flight at a time), then DwStage's pair epilogue; the quarter's
-// partial of dsigma, the threads' in a butterfly then warp order, to
-// part[4 tile index + quarter].
-template <int NS>
+// (grid: N's tiles, K's tiles, 4; with EX 4 quarters x E experts, slab z
+// of expert e at ws + (z * E + e) K N).  Each thread takes a column pair
+// and 8 rows, 4 apart; gw is the slabs of `ws` summed in slab order (4
+// slabs' loads in flight at a time), then DwStage's pair epilogue; the
+// quarter's partial of dsigma, the threads' in a butterfly then warp
+// order, to part[4 tile index + quarter] (the expert's partials).
+template <int NS, bool EX = false>
 __global__ void __launch_bounds__(256)
 dw_slab_epilogue(const float* __restrict__ ws, int splits,
-                 const typename DwStage<NS>::Args args) {
-  const DwStage<NS> st(args);
+                 const DwArgs args) {
+  const int quarter = EX ? blockIdx.z & 3 : blockIdx.z;
+  const int ex = EX ? blockIdx.z >> 2 : 0;
+  const DwStage<NS, EX> st(args, ex);
   const int tid = threadIdx.x;
   const TileIdx ti{(int)blockIdx.y * repro::tc::kBM,
                    (int)blockIdx.x * repro::tc::kBN,
                    (int)(blockIdx.y * gridDim.x + blockIdx.x), 0};
   const int n = ti.n0 + 2 * (tid & 63);
-  const int k0 = ti.m0 + 32 * blockIdx.z + (tid >> 6);
+  const int k0 = ti.m0 + 32 * quarter + (tid >> 6);
   const long long kn = (long long)args.K * args.N;
+  // slab z of this expert at ws + (z * experts + ex) * kn
+  const long long zs = EX ? (long long)(gridDim.z >> 2) * kn : kn;
+  if constexpr (EX) ws += ex * kn;
   auto at = [&](int j, int e) -> long long {
     const int k = k0 + 4 * j;
     return k < args.K && n + e < args.N ? (long long)k * args.N + n + e : -1;
@@ -284,7 +371,7 @@ dw_slab_epilogue(const float* __restrict__ ws, int splits,
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const long long o = at(i >> 1, i & 1);
-        v[u][i] = o >= 0 ? ws[(z + u) * kn + o] : 0.f;
+        v[u][i] = o >= 0 ? ws[(z + u) * zs + o] : 0.f;
       }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
@@ -295,7 +382,7 @@ dw_slab_epilogue(const float* __restrict__ ws, int splits,
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const long long o = at(i >> 1, i & 1);
-      const float v = o >= 0 ? ws[z * kn + o] : 0.f;
+      const float v = o >= 0 ? ws[z * zs + o] : 0.f;
       gw[i] = z ? gw[i] + v : v;
     }
   float2 wv[8];
@@ -314,13 +401,17 @@ dw_slab_epilogue(const float* __restrict__ ws, int splits,
     float s = red[0];
 #pragma unroll
     for (int i = 1; i < 8; ++i) s += red[i];
-    args.part[4 * ti.index + blockIdx.z] = s;
+    if constexpr (EX)
+      st.part[4 * ti.index + quarter] = s;
+    else
+      args.part[4 * ti.index + quarter] = s;
   }
 }
 
-// The two-state noise of w (K, N): bit n % 32 of bits[k * words + n / 32]
-// set iff element (k, n) draws state 1 (hash bits >= t2, common.cuh's
-// factor<2>).  One thread a word.
+// The two-state noise of w (K, N), or of a folded (E * K, N) stack of
+// experts (K its rows): bit n % 32 of bits[k * words + n / 32] set iff
+// element (k, n) draws state 1 (hash bits >= t2, common.cuh's factor<2>).
+// One thread a word.
 __global__ void __launch_bounds__(256)
 noise_bits(uint32_t* __restrict__ bits, int K, int N, int words,
            uint32_t seed, uint32_t plane, uint32_t t2) {
@@ -446,16 +537,94 @@ cudaError_t dw_gemm(const repro::tc::Operand& A, const repro::tc::Operand& B,
 
 template <int NS>
 cudaError_t dw_launch(const repro::tc::Operand& A, const repro::tc::Operand& B,
-                      int M, int m_slab, int splits,
-                      const typename DwStage<NS>::Args& a, float* ws,
-                      cudaStream_t s) {
+                      int M, int m_slab, int splits, const DwArgs& a,
+                      float* ws, cudaStream_t s) {
   if (splits == 1) return dw_gemm<DwStage<NS>>(A, B, M, m_slab, 1, a, s);
   cudaError_t err =
-      dw_gemm<SlabStage>(A, B, M, m_slab, splits, {ws, a.K, a.N}, s);
+      dw_gemm<SlabStage<>>(A, B, M, m_slab, splits, {ws, a.K, a.N}, s);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + repro::tc::kBN - 1) / repro::tc::kBN,
                   (a.K + repro::tc::kBM - 1) / repro::tc::kBM, 4);
   dw_slab_epilogue<NS><<<grid, 256, 0, s>>>(ws, splits, a);
+  return cudaGetLastError();
+}
+
+// -- a stack of experts ----------------------------------------------------
+// The experts' operands and their expert strides: both 16-byte copies in
+// mode `fast` (kAlongC for dx's g and w, kAlongR for dw's x^T and g^T)
+// where both allow it at every expert's base, else both 4-byte copies
+// (two instantiations a stage, not the single products' six).
+struct ExpertOperands {
+  repro::tc::Operand A, B;
+  long long a_exp, b_exp;
+};
+
+ExpertOperands expert_operands(const repro::tc::Operand& A, long long a_exp,
+                               const repro::tc::Operand& B, long long b_exp,
+                               int fast) {
+  ExpertOperands o{A, B, a_exp, b_exp};
+  if (!(A.mode == fast && B.mode == fast && a_exp % 4 == 0 &&
+        b_exp % 4 == 0))
+    o.A.mode = o.B.mode = kScalar;
+  return o;
+}
+
+template <class Stage, int kFast>
+cudaError_t experts_gemm(const ExpertOperands& o, int R, int k_slab,
+                         int splits, bool a_fast, int experts,
+                         const typename Stage::Args& args, cudaStream_t s) {
+  using repro::tc::launch_experts;
+  if (o.A.mode == kFast)
+    return launch_experts<kFast, kFast, Stage>(o.A, o.B, R, k_slab, splits,
+                                               a_fast, o.a_exp, o.b_exp,
+                                               experts, args, s);
+  return launch_experts<kScalar, kScalar, Stage>(o.A, o.B, R, k_slab, splits,
+                                                 a_fast, o.a_exp, o.b_exp,
+                                                 experts, args, s);
+}
+
+template <int NS>
+cudaError_t experts_dx_go(const ExpertOperands& o, int N, int n_slab,
+                          int splits, int experts, const uint32_t* bits,
+                          const NoiseArgs& nz, float* out, cudaStream_t s) {
+  return experts_gemm<DxStage<NS, true>, kAlongC>(
+      o, N, n_slab, splits, false, experts,
+      {out, o.A.rows, o.B.rows, bits, (N + 31) / 32, nz}, s);
+}
+
+// The experts' dx: A = g, B = w (any strides); two-state tables' bits of
+// the whole (experts * K, N) stack first.
+cudaError_t experts_dx_launch(const ExpertOperands& o, int N, int n_slab,
+                              int splits, int experts, uint32_t* bits,
+                              const NoiseArgs& nz, float* out,
+                              cudaStream_t s) {
+  if (nz.np.n_states != 2)
+    return experts_dx_go<0>(o, N, n_slab, splits, experts, nullptr, nz, out,
+                            s);
+  const int words = (N + 31) / 32;
+  const long long n = (long long)experts * o.B.rows * words;
+  noise_bits<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      bits, experts * o.B.rows, N, words, nz.seed, nz.plane, nz.np.t2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return experts_dx_go<2>(o, N, n_slab, splits, experts, bits, nz, out, s);
+}
+
+// The experts' dw: x^T g per expert, then DwStage<NS, true>'s epilogue in
+// the GEMM or, split along M, in the slab epilogue.
+template <int NS>
+cudaError_t experts_dw_launch(const ExpertOperands& o, int M, int m_slab,
+                              int splits, int experts, const DwArgs& a,
+                              float* ws, cudaStream_t s) {
+  if (splits == 1)
+    return experts_gemm<DwStage<NS, true>, kAlongR>(o, M, m_slab, 1, true,
+                                                    experts, a, s);
+  cudaError_t err = experts_gemm<SlabStage<true>, kAlongR>(
+      o, M, m_slab, splits, true, experts, {ws, a.K, a.N}, s);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + repro::tc::kBN - 1) / repro::tc::kBN,
+                  (a.K + repro::tc::kBM - 1) / repro::tc::kBM, 4 * experts);
+  dw_slab_epilogue<NS, true><<<grid, 256, 0, s>>>(ws, splits, a);
   return cudaGetLastError();
 }
 
@@ -535,5 +704,79 @@ extern "C" int emt_matmul_dw_f32(const float* x, const float* g,
                        {dw, w, swk, swn, part, K, N, w2, nz}, ws, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   partial_sum<<<1, kSumThreads, 0, s>>>(part, 4 * tiles, part + 4 * tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The experts' dx: dx[e] (M, K) = g[e] (M, N) @ noisy(w[e] (K, N))^T for
+// the E experts of a stack in one launch, expert e's weight hashed at rows
+// e * K + k of the folded (E * K, N) stack; g and w of any strides, dx
+// (E, M, K) contiguous.  dims = {M, K, N, splits, n_slab, sgm, sgn, swk,
+// swn, E, sge, swe}, as planned by emt_matmul.py::plan_dx(..., experts=E);
+// `part` splits * E * M * K floats with splits > 1 (slab z's experts one
+// after the other); `bits` E * K * ceil(N / 32) words for a two-state
+// table.
+extern "C" int emt_matmul_experts_dx_f32(const float* g, const float* w,
+                                         float* dx, float* part,
+                                         unsigned int* bits, const float* sig,
+                                         const long long* dims,
+                                         unsigned int seed, unsigned int plane,
+                                         const NoiseParams* np, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = (int)dims[0], K = (int)dims[1], N = (int)dims[2];
+  const int splits = (int)dims[3], n_slab = (int)dims[4], E = (int)dims[9];
+  if (M < 1 || K < 1 || E < 1 ||
+      !repro::split_plan_ok(N, splits, n_slab, repro::tc::kBK) ||
+      (np->n_states == 2 && bits == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // A = g (M rows, reduction N), B = w (K rows, reduction N)
+  const ExpertOperands o =
+      expert_operands(operand(g, dims[5], dims[6], M), dims[10],
+                      operand(w, dims[7], dims[8], K), dims[11], kAlongC);
+  float* out = splits > 1 ? part : dx;
+  cudaError_t err = experts_dx_launch(o, N, n_slab, splits, E, bits,
+                                      NoiseArgs{sig, seed, plane, *np}, out, s);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(
+      repro::split_sum(part, dx, (long long)E * M * K, splits, s));
+}
+
+// The experts' dw: for the E experts of a stack in one launch, with gs
+// the cotangent of the noisy stack's sum |w~| (a float32 scalar on the
+// device), c = fl(x[e]^T g[e] + gs sgn(w~)), dw[e] = fl(c f) (E, K, N)
+// contiguous, and dsig[0] = sum over the experts of fl(fl(c w) a), expert
+// e's noise at rows e * K + k of the folded stack; x, g and w of any
+// strides.  dims = {M, K, N, splits, m_slab, sxm, sxk, sgm, sgn, swk, swn,
+// E, sxe, sge, swe}, as planned by emt_matmul.py::plan_dw(..., experts=E);
+// `ws` splits * E * K * N floats with splits > 1; `part` four partials a
+// tile of each expert's (K, N), expert by expert, then dsigma.
+extern "C" int emt_matmul_experts_dw_f32(
+    const float* x, const float* g, const float* w, float* dw, float* ws,
+    float* part, const float* gs, const float* sig, const long long* dims,
+    unsigned int seed, unsigned int plane, const NoiseParams* np,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = (int)dims[0], K = (int)dims[1], N = (int)dims[2];
+  const int splits = (int)dims[3], m_slab = (int)dims[4], E = (int)dims[11];
+  const long long swk = dims[9], swn = dims[10], swe = dims[14];
+  if (K < 1 || N < 1 || E < 1 || gs == nullptr ||
+      !repro::split_plan_ok(M, splits, m_slab, repro::tc::kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // A = x^T (K rows, reduction M), B = g^T (N rows, reduction M)
+  const ExpertOperands o =
+      expert_operands(operand(x, dims[6], dims[5], K), dims[12],
+                      operand(g, dims[8], dims[7], N), dims[13], kAlongR);
+  const int tiles = ((K + repro::tc::kBM - 1) / repro::tc::kBM) *
+                    ((N + repro::tc::kBN - 1) / repro::tc::kBN);
+  // 8-byte loads of w's column pairs (n-major, even strides)
+  const int w2 = swn == 1 && swk % 2 == 0 && swe % 2 == 0 && aligned(w, 8);
+  const DwArgs a{dw, w, swk, swn, part, K, N, w2,
+                 NoiseArgs{sig, seed, plane, *np}, gs, swe};
+  cudaError_t err = np->n_states == 2
+                        ? experts_dw_launch<2>(o, M, m_slab, splits, E, a, ws, s)
+                        : experts_dw_launch<0>(o, M, m_slab, splits, E, a, ws,
+                                               s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n = 4 * tiles * E;
+  partial_sum<<<1, kSumThreads, 0, s>>>(part, n, part + n);
   return static_cast<int>(cudaGetLastError());
 }

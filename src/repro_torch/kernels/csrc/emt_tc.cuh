@@ -8,7 +8,9 @@
 // (Operand), B also as int8 levels dequantized by a per-row scale.  A CTA
 // computes one output tile over one slab of the reduction (the host's
 // plan, repro_torch/kernels/splitk.py plan_waves; slab z of a split
-// writes its own partial tile).  Warp-specialized, four warpgroups:
+// writes its own partial tile); gemm_3xtf32_experts runs a stack of such
+// products, one an expert along the grid's y.  Warp-specialized, four
+// warpgroups:
 //
 // * Producers (warpgroups 2-3, 256 threads): each thread owns four 4-wide
 //   reduction groups of A and four of B in every 32-deep k-tile.  It copies
@@ -682,14 +684,24 @@ gemm_3xtf32(const Operand A, const Operand B, int R, int k_slab, int a_fast,
   gemm_body<AM, BM, Stage>(A, B, R, k_slab, a_fast, args);
 }
 
-// Launch `kern` (a __global__ on gemm_body) over the (A.rows x B.rows)
-// output in `splits` slabs of `k_slab` reduction columns, A's row tiles
-// fastest if `a_fast`: one CTA per work item.
-template <auto kern, class Args>
-cudaError_t launch_kernel(const Operand& A, const Operand& B, int R,
-                          int k_slab, int splits, bool a_fast,
-                          const Args& args, cudaStream_t s) {
-  // the shared-memory opt-in, once per device (0-63)
+// K3's backward over a stack of experts (emt_matmul_bwd.cu's experts
+// entries): expert blockIdx.y's operands start at A.p + e * a_exp and
+// B.p + e * b_exp, and its stage reads the expert from blockIdx.y.  A
+// kernel of its own, so that the single products' kernels read their
+// operands from the parameters unchanged.
+template <int AM, int BM, class Stage>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_3xtf32_experts(Operand A, Operand B, int R, int k_slab, int a_fast,
+                    long long a_exp, long long b_exp,
+                    const typename Stage::Args args) {
+  A.p += blockIdx.y * a_exp;
+  B.p += blockIdx.y * b_exp;
+  gemm_body<AM, BM, Stage>(A, B, R, k_slab, a_fast, args);
+}
+
+// The shared-memory opt-in of `kern`, once per device (0-63).
+template <auto kern>
+cudaError_t smem_opt_in() {
   static unsigned long long opted = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -701,10 +713,26 @@ cudaError_t launch_kernel(const Operand& A, const Operand& B, int R,
     if (err != cudaSuccess) return err;
     opted |= 1ull << dev;
   }
-  const long long items = (long long)((A.rows + kBM - 1) / kBM) *
-                          ((B.rows + kBN - 1) / kBN) * splits;
-  kern<<<(unsigned)items, kThreads, kSmemBytes, s>>>(A, B, R, k_slab,
-                                                     (int)a_fast, args);
+  return cudaSuccess;
+}
+
+// The work items of the (A.rows x B.rows) output in `splits` slabs.
+inline long long work_items(const Operand& A, const Operand& B, int splits) {
+  return (long long)((A.rows + kBM - 1) / kBM) * ((B.rows + kBN - 1) / kBN) *
+         splits;
+}
+
+// Launch `kern` (a __global__ on gemm_body) over the (A.rows x B.rows)
+// output in `splits` slabs of `k_slab` reduction columns, A's row tiles
+// fastest if `a_fast`: one CTA per work item.
+template <auto kern, class Args>
+cudaError_t launch_kernel(const Operand& A, const Operand& B, int R,
+                          int k_slab, int splits, bool a_fast,
+                          const Args& args, cudaStream_t s) {
+  cudaError_t err = smem_opt_in<kern>();
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)work_items(A, B, splits), kThreads, kSmemBytes, s>>>(
+      A, B, R, k_slab, (int)a_fast, args);
   return cudaGetLastError();
 }
 
@@ -716,6 +744,22 @@ cudaError_t launch(const Operand& A, const Operand& B, int R, int k_slab,
                    cudaStream_t s) {
   return launch_kernel<gemm_3xtf32<AM, BM, Stage>>(A, B, R, k_slab, splits,
                                                     a_fast, args, s);
+}
+
+// gemm_3xtf32_experts<AM, BM, Stage> over `experts` products (the grid's
+// y), expert e's operands at their strides a_exp, b_exp.
+template <int AM, int BM, class Stage>
+cudaError_t launch_experts(const Operand& A, const Operand& B, int R,
+                           int k_slab, int splits, bool a_fast,
+                           long long a_exp, long long b_exp, int experts,
+                           const typename Stage::Args& args, cudaStream_t s) {
+  if (experts < 1 || experts > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = smem_opt_in<gemm_3xtf32_experts<AM, BM, Stage>>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)work_items(A, B, splits), (unsigned)experts);
+  gemm_3xtf32_experts<AM, BM, Stage><<<grid, kThreads, kSmemBytes, s>>>(
+      A, B, R, k_slab, (int)a_fast, a_exp, b_exp, args);
+  return cudaGetLastError();
 }
 
 }  // namespace tc

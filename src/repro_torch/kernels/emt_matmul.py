@@ -37,16 +37,23 @@ e's weight hashed at rows e * K + k of the folded (E * K, N) stack, as
 JAX's MoE layer draws its noise (``repro/models/moe.py`` ``_emt_stacked``;
 the TPU kernel's row base ``k0_base``), and returns the noisy stack's
 sum |w~| and max |w~| beside the product, from per-CTA partials over
-disjoint weight regions summed in a fixed order (float64).
-It is serve-only on the card: a gradient through it raises.
+disjoint weight regions summed in a fixed order (float64).  Its gradient
+on the card runs the experts' K3-dx and K3-dw
+(:func:`emt_matmul_experts_dx`, :func:`emt_matmul_experts_dw`: the two
+kernels of ``csrc/emt_matmul_bwd.cu`` over the stack in one launch each,
+the grid's y the expert, the noise hashed again at rows e * K + k), with
+the VJP XLA gives JAX's ``_emt_stacked`` + ``einsum`` + technique B's
+sum |w~|: the sum's cotangent gs adds gs * sgn(w~) to x^T g before the
+factor; the max is not differentiable (it feeds only the energy).
 
 On a CPU tensor each wrapper computes its plain version
 (:mod:`repro_torch.kernels.ref`); on a CUDA tensor it launches its kernel or
 raises.  ``emt_matmul.launches`` (float32 weights),
 ``_forward_int8.launches`` (int8 weights), ``emt_matmul_experts.launches``,
-``emt_matmul_dx.launches`` and ``emt_matmul_dw.launches`` count kernel
-launches, one a call; ``_forward_tc.launches`` counts the calls of the
-first two that ran on the tensor-core kernel (M > 16).
+``emt_matmul_dx.launches``, ``emt_matmul_dw.launches``,
+``emt_matmul_experts_dx.launches`` and ``emt_matmul_experts_dw.launches``
+count kernel launches, one a call; ``_forward_tc.launches`` counts the
+calls of the first two that ran on the tensor-core kernel (M > 16).
 """
 from __future__ import annotations
 
@@ -61,6 +68,10 @@ from repro_torch.core.device import DeviceModel
 from repro_torch.kernels import _build, splitk
 from repro_torch.kernels.ref import emt_matmul_dw_ref as plain_dw
 from repro_torch.kernels.ref import emt_matmul_dx_ref as plain_dx
+from repro_torch.kernels.ref import \
+    emt_matmul_experts_dw_ref as plain_experts_dw
+from repro_torch.kernels.ref import \
+    emt_matmul_experts_dx_ref as plain_experts_dx
 from repro_torch.kernels.ref import emt_matmul_experts_ref as plain_experts
 from repro_torch.kernels.ref import emt_matmul_ref as plain
 
@@ -270,24 +281,33 @@ def tc_bits_words(M: int, N: int, K: int) -> int:
     return N * splitk.cdiv(K, 32) if M > TC["bm"] else 0
 
 
-def plan_dx(M: int, K: int, N: int, sms: int) -> splitk.Plan:
+def plan_dx(M: int, K: int, N: int, sms: int,
+            experts: int = 0) -> splitk.Plan:
     """K3-dx's cut of g (M, N) @ w^T (N, K): 128 x 128 output tiles of
-    (M, K), N split into whole 32-column tiles by splitk.plan_waves."""
-    return splitk.plan_waves(M, K, N, sms=sms, **TC)
+    (M, K), N split into whole 32-column tiles by splitk.plan_waves.
+    `experts`: a stack of that many products in one grid (the experts'
+    dx), whose split counts every expert's tiles; 0, one product."""
+    return splitk.plan_waves(M, K, N, sms=sms, experts=max(experts, 1),
+                             **TC)
 
 
-def plan_dw(M: int, K: int, N: int, sms: int) -> splitk.Plan:
+def plan_dw(M: int, K: int, N: int, sms: int,
+            experts: int = 0) -> splitk.Plan:
     """K3-dw's cut of x^T (K, M) @ g (M, N): 128 x 128 output tiles of
-    (K, N), M split into whole 32-row tiles by splitk.plan_waves."""
-    return splitk.plan_waves(K, N, M, sms=sms, **TC)
+    (K, N), M split into whole 32-row tiles by splitk.plan_waves;
+    `experts` as plan_dx's."""
+    return splitk.plan_waves(K, N, M, sms=sms, experts=max(experts, 1),
+                             **TC)
 
 
 def dw_buffer_floats(p: splitk.Plan) -> tuple:
     """(workspace, partials) floats of K3-dw's two buffers under plan_dw's
     plan `p`, as the C entry reads them: the slabs' partial x^T g
-    (p.splits * K * N, none without a split), and four partials of dsigma
-    per output tile (its 32-row quarters) then dsigma itself."""
-    return (p.splits * p.M * p.N if p.splits > 1 else 0), 4 * p.tiles + 1
+    (p.splits * E * K * N, none without a split), and four partials of
+    dsigma per output tile (its 32-row quarters; an expert's tiles after
+    the earlier experts') then dsigma itself."""
+    return ((p.splits * p.E * p.M * p.N if p.splits > 1 else 0),
+            4 * p.tiles + 1)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -486,20 +506,169 @@ def _forward_experts(x, w, sig, *, device: DeviceModel, seed: int = 0,
     return y.view(E, M, N), stats[0], stats[1]
 
 
-class _ExpertsServing(torch.autograd.Function):
-    """The experts kernel where an input requires a gradient: the forward
-    runs, a backward raises (K3-dx and K3-dw have no row base yet)."""
+def _check_experts(what: str, a: torch.Tensor, w: torch.Tensor,
+                   sig: torch.Tensor, k_w: int) -> int:
+    """Raise unless a (E, M, .) and w (E, K, N) are stacks of one E whose
+    a's last dim matches w's dim `k_w` + 1, float32 on one CUDA device with
+    sig (_check); returns the device index."""
+    if (a.dim() != 3 or w.dim() != 3 or a.shape[0] != w.shape[0]
+            or a.shape[0] < 1):
+        raise ValueError(f"{what}: shapes {tuple(a.shape)}, "
+                         f"{tuple(w.shape)}")
+    return _check(what, a[0], w[0], sig, k_w)
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_experts_dx(index, E, M, K, N, sge, sgm, sgn, swe, swk, swn):
+    p = plan_dx(M, K, N, splitk.sm_count(index), experts=E)
+    dims = (ctypes.c_longlong * 12)(M, K, N, p.splits, p.k_slab, sgm, sgn,
+                                    swk, swn, E, sge, swe)
+    return p, dims, ctypes.addressof(dims)
+
+
+def emt_matmul_experts_dx(g: torch.Tensor, w: torch.Tensor,
+                          sig: torch.Tensor, *, device: DeviceModel,
+                          seed: int = 0, plane: int = 0):
+    """The experts' K3-dx: g (E, M, N) @ noisy(w (E, K, N))^T -> (E, M, K)
+    float32 in one launch, expert e's noise hashed at rows e * K + k as in
+    the forward; g and w of any strides."""
+    if _on_cpu("emt_matmul_experts_dx", g):
+        return plain_experts_dx(g, w, sig, device=device, seed=seed,
+                                plane=plane)
+    index = _check_experts("emt_matmul_experts_dx", g, w, sig, 1)
+    E, M, N = g.shape
+    K = w.shape[1]
+    p, _, dims = _launch_experts_dx(index, E, M, K, N, *g.stride(),
+                                    *w.stride())
+    dx, part = splitk.outputs(p, g)
+    npar = noise_params(device)
+    # a two-state table's noise-state bits of the folded stack (freed on
+    # return)
+    bits = (torch.empty(E * K * splitk.cdiv(N, 32), dtype=torch.int32,
+                        device=g.device) if npar.n_states == 2 else None)
+    err = _fn("emt_matmul_bwd", "emt_matmul_experts_dx_f32", 7)(
+        g.data_ptr(), w.data_ptr(), dx.data_ptr(), part,
+        None if bits is None else bits.data_ptr(), sig.data_ptr(), dims,
+        int(seed) & 0xFFFFFFFF, int(plane) & 0xFFFFFFFF,
+        ctypes.addressof(npar), _build.stream(index))
+    _build.check(err, "emt_matmul_experts_dx")
+    emt_matmul_experts_dx.launches += 1
+    return dx.view(E, M, K)
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_experts_dw(index, E, M, K, N, sxe, sxm, sxk, sge, sgm, sgn, swe,
+                       swk, swn):
+    p = plan_dw(M, K, N, splitk.sm_count(index), experts=E)
+    dims = (ctypes.c_longlong * 15)(M, K, N, p.splits, p.k_slab, sxm, sxk,
+                                    sgm, sgn, swk, swn, E, sxe, sge, swe)
+    return p, dims, ctypes.addressof(dims)
+
+
+def emt_matmul_experts_dw(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+                          sig: torch.Tensor, gs=None, *,
+                          device: DeviceModel, seed: int = 0,
+                          plane: int = 0):
+    """The experts' K3-dw: (dw, dsigma) of y[e] = x[e] (M, K) @ noisy(w[e]
+    (K, N)) for the cotangent g (E, M, N) of the product and `gs` (a
+    float32 scalar tensor on the device, read by the kernel, or None) of
+    the noisy stack's sum |w~|: c = x[e]^T g[e] + gs * sgn(w~), dw = c * f
+    (E, K, N), contiguous, and dsigma = sum c * w * a over the stack, a
+    float32 scalar summed in a fixed order (four partials a 128 x 128 tile
+    of each expert's dw, expert by expert, then those in order); one
+    launch, expert e's noise at rows e * K + k; x, g and w of any
+    strides."""
+    if _on_cpu("emt_matmul_experts_dw", x):
+        return plain_experts_dw(x, g, w, sig, gs, device=device, seed=seed,
+                                plane=plane)
+    index = _check_experts("emt_matmul_experts_dw", x, w, sig, 0)
+    E, M, K = x.shape
+    N = w.shape[2]
+    if (g.shape != (E, M, N) or g.dtype is not torch.float32
+            or g.get_device() != index):
+        raise ValueError(f"emt_matmul_experts_dw: g {tuple(g.shape)} "
+                         f"{g.dtype} on {g.device} for x {tuple(x.shape)} "
+                         f"@ w {tuple(w.shape)} on {x.device}")
+    if gs is None:
+        # no sum |w~| term: c = gw + (+-0), gw's value
+        gs = torch.zeros(1, dtype=torch.float32, device=x.device)
+    if (gs.numel() != 1 or gs.dtype is not torch.float32
+            or gs.get_device() != index):
+        raise ValueError(f"emt_matmul_experts_dw: gs must be a float32 "
+                         f"scalar on {x.device}, got {gs.dtype} "
+                         f"{tuple(gs.shape)} on {gs.device}")
+    gs = gs.reshape(1).contiguous()
+    p, _, dims = _launch_experts_dw(index, E, M, K, N, *x.stride(),
+                                    *g.stride(), *w.stride())
+    n_ws, n_part = dw_buffer_floats(p)
+    dw = torch.empty((E, K, N), dtype=torch.float32, device=x.device)
+    part = torch.empty(n_part, dtype=torch.float32, device=x.device)
+    # the slabs' workspace, freed on return
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=x.device)
+          if n_ws else None)
+    err = _fn("emt_matmul_bwd", "emt_matmul_experts_dw_f32", 9)(
+        x.data_ptr(), g.data_ptr(), w.data_ptr(), dw.data_ptr(),
+        None if ws is None else ws.data_ptr(), part.data_ptr(),
+        gs.data_ptr(), sig.data_ptr(), dims,
+        int(seed) & 0xFFFFFFFF, int(plane) & 0xFFFFFFFF,
+        ctypes.addressof(noise_params(device)), _build.stream(index))
+    _build.check(err, "emt_matmul_experts_dw")
+    emt_matmul_experts_dw.launches += 1
+    return dw, part[n_part - 1]
+
+
+class _NoisyExperts(torch.autograd.Function):
+    """(y, sum |w~|, max |w~|) of a stack of experts through `impl` =
+    (forward, dx, dw) functions, with the VJP XLA gives JAX's
+    ``_emt_stacked`` + ``einsum`` and technique B's sum |w~| over the
+    noisy stack: the sum's cotangent joins the product's in dw's
+    epilogue; the max is not differentiable.  dx runs only where x needs
+    a gradient, dw only where w or sigma does."""
 
     @staticmethod
-    def forward(ctx, x, w, sig, kw):
-        return _forward_experts(x, w, sig, **kw)
+    def forward(ctx, x, w, sig, impl, kw):
+        ctx.save_for_backward(x, w, sig)
+        ctx.impl, ctx.kw = impl, kw
+        y, s, m = impl[0](x, w, sig, **kw)
+        ctx.mark_non_differentiable(m)
+        return y, s, m
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "emt_matmul_experts: no gradient on the card yet (K3-dx and "
-            "K3-dw take no expert row base; ROADMAP Queue 1, MoE training "
-            "on the card); train MoE stacks on the CPU's plain path")
+    def backward(ctx, gy, gs, _):
+        x, w, sig = ctx.saved_tensors
+        _, fdx, fdw = ctx.impl
+        need_x, need_w, need_sig = ctx.needs_input_grad[:3]
+        gy = gy.contiguous()
+        dx = fdx(gy, w, sig, **ctx.kw) if need_x else None
+        dw = dsig = None
+        if need_w or need_sig:
+            dw, dsig = fdw(x, gy, w, sig, gs, **ctx.kw)
+            dsig = dsig.reshape(sig.shape).to(sig.dtype)
+        return (dx, dw if need_w else None, dsig if need_sig else None,
+                None, None)
+
+
+def experts_differentiable(forward, dx, dw):
+    """The stack's products and statistics through `forward`,
+    differentiable through `dx` and `dw` (_NoisyExperts) when grad mode is
+    on and an input requires it; else the forward alone (the serving
+    path)."""
+    def call(x, w, sig, *, device: DeviceModel, seed: int = 0,
+             plane: int = 0):
+        kw = dict(device=device, seed=seed, plane=plane)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                        or sig.requires_grad):
+            return _NoisyExperts.apply(x, w, sig, (forward, dx, dw), kw)
+        return forward(x, w, sig, **kw)
+    return call
+
+
+_experts_kernels = experts_differentiable(
+    _forward_experts, emt_matmul_experts_dx, emt_matmul_experts_dw)
+# the plain versions on any device, with the same VJP (the card's plain
+# training path for MoE stacks)
+plain_experts_differentiable = experts_differentiable(
+    plain_experts, plain_experts_dx, plain_experts_dw)
 
 
 def emt_matmul_experts(x: torch.Tensor, w: torch.Tensor, sig: torch.Tensor,
@@ -509,14 +678,14 @@ def emt_matmul_experts(x: torch.Tensor, w: torch.Tensor, sig: torch.Tensor,
     N)) -> (y (E, M, N) float32, sum |w~|, max |w~|), the noise of expert
     e's element (k, n) hashed at row e * K + k, col n (the folded (E * K,
     N) draw), and the two statistics of the noisy stack as float32 scalar
-    tensors.  x of any strides; w n-major (stride 1 along N).  On the CPU
-    the plain version, differentiable in x, w and sig; on the card the
-    kernel, whose gradient raises."""
+    tensors.  x of any strides; w n-major (stride 1 along N).
+    Differentiable in x, w and sig (the max excepted): on the CPU the
+    plain version under torch's autograd; on the card the kernel, whose
+    gradient runs the experts' K3-dx and K3-dw."""
     kw = dict(device=device, seed=seed, plane=plane)
-    if (not x.is_cuda or not torch.is_grad_enabled()
-            or not (x.requires_grad or w.requires_grad or sig.requires_grad)):
-        return _forward_experts(x, w, sig, **kw)
-    return _ExpertsServing.apply(x, w, sig, kw)
+    if _on_cpu("emt_matmul_experts", x):
+        return plain_experts(x, w, sig, **kw)
+    return _experts_kernels(x, w, sig, **kw)
 
 
 def emt_matmul_dx(g: torch.Tensor, w: torch.Tensor, sig: torch.Tensor, *,
@@ -683,3 +852,5 @@ _forward_tc.launches = 0
 emt_matmul_experts.launches = 0
 emt_matmul_dx.launches = 0
 emt_matmul_dw.launches = 0
+emt_matmul_experts_dx.launches = 0
+emt_matmul_experts_dw.launches = 0

@@ -110,6 +110,42 @@ def emt_matmul_experts_ref(x, w, sig, *, device: DeviceModel, seed=0,
             torch.amax(torch.abs(wf.detach())))
 
 
+def emt_matmul_experts_dx_ref(g, w, sig, *, device: DeviceModel, seed=0,
+                              plane=0):
+    """The input gradient of emt_matmul_experts_ref for the cotangent g (E,
+    M, N): dx[e] = g[e] @ (w[e] * f)^T, expert e's factor hashed at rows e
+    * K + k of the folded stack, one expert at a time (so no stack-sized
+    noise exists beside it).  Returns (E, M, K) in g's dtype."""
+    kdim = w.shape[1]
+    return torch.stack([
+        torch.matmul(g[i], (w[i] * _noise(w[i], sig, device, seed, plane,
+                                          row0=i * kdim)[1]).to(g.dtype).T)
+        for i in range(w.shape[0])])
+
+
+def emt_matmul_experts_dw_ref(x, g, w, sig, gs=None, *, device: DeviceModel,
+                              seed=0, plane=0):
+    """(dw, dsig) of emt_matmul_experts_ref for the cotangents g (E, M, N)
+    of the product and gs (a scalar tensor, or None for none) of the noisy
+    stack's sum |w~|: with c = x[e]^T g[e] + gs * sgn(w~) (sgn +1 where
+    fl(w f) >= 0: jax_abs's derivative), dw[e] = c * f and dsig = sum (c *
+    w) * a over every expert, the rounding of XLA's VJP of ``w * (1 + a *
+    sig)`` with the stack's two cotangents added.  One expert at a time,
+    its noise at rows e * K + k; dw in the dtype of x^T g."""
+    kdim = w.shape[1]
+    dws, dsig = [], []
+    for i in range(w.shape[0]):
+        offs, f = _noise(w[i], sig, device, seed, plane, row0=i * kdim)
+        c = torch.matmul(x[i].T, g[i])
+        if gs is not None:
+            gsc = gs.reshape(()).to(c.dtype)
+            c = c + torch.where(w[i] * f >= 0, gsc, -gsc)
+        dws.append(c * f)
+        dsig.append(torch.sum((c * w[i]) * offs))
+        del offs, f, c
+    return torch.stack(dws), torch.sum(torch.stack(dsig))
+
+
 def emt_matmul_dx_ref(g, w, sig, *, device: DeviceModel, seed=0, plane=0):
     """The input gradient of emt_matmul_ref for the cotangent g (M, N):
     g @ (w * f)^T through the materialized factor.  Returns (M, K) in g's

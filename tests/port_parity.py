@@ -71,3 +71,25 @@ def port_levels(mod, out, replay=None):
         yield
     finally:
         mod.quant_levels = orig
+
+
+@contextlib.contextmanager
+def port_levels_ste(mod, replay):
+    """The port's projections read JAX's DAC (levels, scale) from `replay`
+    (a list in call order, popped) with the straight-through gradient kept
+    (`mod` is ``repro_torch.core.emt_linear``): levels = x / scale +
+    detach(recorded - x / scale), as quant_levels builds its own, so a
+    training step's gradients flow to the DAC's input as JAX's do."""
+    orig = mod.quant_levels
+
+    def quant(x, bits, axis=None):
+        lv, sc = (torch.tensor(a) for a in replay.pop(0))
+        assert tuple(lv.shape) == tuple(x.shape)
+        xs = x / sc
+        return xs + (lv - xs).detach(), sc
+
+    mod.quant_levels = quant
+    try:
+        yield
+    finally:
+        mod.quant_levels = orig

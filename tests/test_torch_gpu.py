@@ -203,8 +203,10 @@ def test_k3_experts_row_base_zero_is_k3(cuda, M, K, N):
     for bit, on the GEMV (M <= 16); above 16 rows, where the experts'
     tensor-core kernel and K3's (both four TF32 products on a three-piece
     weight) sum in different orders and split K differently, within 1e-5,
-    and bit for bit on rows of I (both the noisy weight itself); a
-    gradient through the experts entry on the card raises (serve-only)."""
+    and bit for bit on rows of I (both the noisy weight itself); the
+    gradient through the stack of one expert (row base 0) runs the experts'
+    K3-dx and K3-dw, one launch each, and equals K3-dx's and K3-dw's on
+    its weight (the sum |w~|'s cotangent, 0 here, adds signed zeros)."""
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = torch.randn((1, M, K), generator=g, device=cuda)
     w = torch.randn((1, K, N), generator=g, device=cuda)
@@ -221,9 +223,104 @@ def test_k3_experts_row_base_zero_is_k3(cuda, M, K, N):
         ye = k3.emt_matmul_experts(eye[None], w, sig, **kw)[0]
         assert torch.equal(ye[0], k3.emt_matmul(eye, w[0], sig, **kw))
     xg = x.clone().requires_grad_(True)
-    y, _, _ = k3.emt_matmul_experts(xg, w, sig, **kw)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        y.sum().backward()
+    wg = w.clone().requires_grad_(True)
+    sg = sig.clone().requires_grad_(True)
+    y, _, _ = k3.emt_matmul_experts(xg, wg, sg, **kw)
+    c = torch.randn(y.shape, generator=g, device=cuda)
+    counters = (k3.emt_matmul_experts_dx, k3.emt_matmul_experts_dw,
+                k3.emt_matmul_dx, k3.emt_matmul_dw)
+    before = [k.launches for k in counters]
+    (y * c).sum().backward()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 0, 0]
+    dx = k3.emt_matmul_dx(c[0], w[0], sig, **kw)
+    dw, dsig = k3.emt_matmul_dw(x[0], c[0], w[0], sig, **kw)
+    assert torch.equal(xg.grad[0], dx) and torch.equal(wg.grad[0], dw)
+    assert torch.equal(sg.grad, dsig.reshape(sg.shape))
+    assert torch.equal(k3.emt_matmul_experts_dx(c, w, sig, **kw)[0], dx)
+    dwe, dse = k3.emt_matmul_experts_dw(x, c, w, sig, **kw)
+    assert torch.equal(dwe[0], dw) and torch.equal(dse, dsig)
+
+
+# (E, M, K, N, strided) for the experts' K3-dx and K3-dw: three or four
+# experts at M = 5 and 20 (a moonshot decode and a jamba chunk's expert
+# rows) and 17 and 130 (row tiles past 128); ragged K and N at the 128 x 128
+# tile's and the 32-deep k-tile's edges, the CNN-like K = 27; `strided`:
+# x column-major in each expert, g's experts interleaved (row stride E * N)
+# and w with padded rows (row stride N + 3: 4-byte copies).
+K3_EXPERTS_BWD_CASES = [(3, 5, 130, 200, False), (3, 20, 300, 1001, True),
+                        (3, 20, 27, 64, False), (4, 17, 1000, 130, True),
+                        (3, 130, 129, 257, False)]
+
+
+def _experts_bwd_inputs(cuda, E, M, K, N, strided, integer=False):
+    """x (E, M, K), g (E, M, N), w (E, K, N) n-major and gs from a seed;
+    with `integer`, x, g and gs integers (x^T g + gs exact in float32 and
+    in 3xTF32 alike)."""
+    g_ = torch.Generator(device=cuda).manual_seed(E + M + K + N)
+
+    def draw(*shape):
+        if integer:
+            return torch.randint(-4, 5, shape, generator=g_,
+                                 device=cuda).float()
+        return torch.randn(shape, generator=g_, device=cuda)
+    if strided:
+        x = draw(E, K, M).transpose(1, 2)
+        g = draw(M, E, N).transpose(0, 1)
+        w = torch.randn((E, K, N + 3), generator=g_, device=cuda)[..., :N]
+    else:
+        x, g = draw(E, M, K), draw(E, M, N)
+        w = torch.randn((E, K, N), generator=g_, device=cuda)
+    # exact zeros in w: sgn(w~) is +1 there
+    w[:, :2, :5] = 0.0
+    gs = torch.tensor(3.0 if integer else 0.37, device=cuda)
+    return x, g, w, gs
+
+
+@pytest.mark.parametrize("E,M,K,N,strided", K3_EXPERTS_BWD_CASES)
+@pytest.mark.parametrize("dev", [DeviceModel(), four_state_device()],
+                         ids=["two", "four"])
+def test_k3_experts_backward_matches_plain(cuda, E, M, K, N, strided, dev):
+    """The experts' K3-dx and K3-dw (one launch each, expert e hashed at
+    rows e * K + k) within 1e-5 of their plain versions in float64 (dx, dw
+    with the sum |w~| term gs * sgn(w~), dsigma); on integer x, g and gs dw
+    bit for bit against the float32 plain pass; two calls bit-identical;
+    and autograd through emt_matmul_experts gives them."""
+    x, g, w, gs = _experts_bwd_inputs(cuda, E, M, K, N, strided)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plans = (f"dx {k3.plan_dx(M, K, N, sms, experts=E)}, "
+             f"dw {k3.plan_dw(M, K, N, sms, experts=E)}")
+    sig = dev.sigma_rel(torch.tensor(3.5, device=cuda))
+    kw = dict(device=dev, seed=99, plane=1234)
+    before = (k3.emt_matmul_experts_dx.launches,
+              k3.emt_matmul_experts_dw.launches)
+    dx = k3.emt_matmul_experts_dx(g, w, sig, **kw)
+    dw, dsig = k3.emt_matmul_experts_dw(x, g, w, sig, gs, **kw)
+    assert (k3.emt_matmul_experts_dx.launches,
+            k3.emt_matmul_experts_dw.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    dx64 = k3.plain_experts_dx(g.double(), w, sig, **kw)
+    dw64, dsig64 = k3.plain_experts_dw(x.double(), g.double(), w, sig, gs,
+                                       **kw)
+    assert _rel(dx.double(), dx64) <= 1e-5, plans
+    assert _rel(dw.double(), dw64) <= 1e-5, plans
+    terms = (dw64.abs() * w.double().abs()).sum().item()
+    assert abs(dsig.item() - dsig64.item()) <= 1e-5 * terms, plans
+    assert torch.equal(dx, k3.emt_matmul_experts_dx(g, w, sig, **kw))
+    dw2, dsig2 = k3.emt_matmul_experts_dw(x, g, w, sig, gs, **kw)
+    assert torch.equal(dw, dw2) and torch.equal(dsig, dsig2)
+    xi, gi, _, gsi = _experts_bwd_inputs(cuda, E, M, K, N, strided, True)
+    dwi, _ = k3.emt_matmul_experts_dw(xi, gi, w, sig, gsi, **kw)
+    pdwi, _ = k3.plain_experts_dw(xi, gi, w, sig, gsi, **kw)
+    assert torch.equal(dwi, pdwi), plans
+    # autograd: the product's cotangent g and the sum's 0.37
+    xr = x.clone().requires_grad_(True)
+    wr = w.clone().requires_grad_(True)
+    sr = sig.clone().requires_grad_(True)
+    y, s, m = k3.emt_matmul_experts(xr, wr, sr, **kw)
+    assert not m.requires_grad
+    ((y * g).sum() + gs * s).backward()
+    assert torch.equal(xr.grad, dx) and torch.equal(wr.grad, dw)
+    assert torch.equal(sr.grad, dsig.reshape(sr.shape))
 
 
 def test_k3_experts_one_expert_at_64_rows_is_k3_tc(cuda):
@@ -364,6 +461,68 @@ def test_train_step_on_card_launches_k3_and_its_backward(cuda):
         kops._emt_matmul = orig
     assert abs(loss.item() - ploss.item()) <= 1e-4 * abs(ploss.item())
     from repro_torch.utils.pytrees import flatten_with_paths
+    for (path, a), (_, b) in zip(flatten_with_paths(grads),
+                                 flatten_with_paths(pgrads)):
+        assert torch.isfinite(a).all(), path
+        assert _rel(a, b) <= 1e-4, path
+
+
+@pytest.mark.parametrize("arch,placement", [
+    ("moonshot-v1-16b-a3b", "mixed"), ("xlstm-350m", None),
+    ("jamba-v0.1-52b", "mixed")])
+def test_moe_and_recurrent_train_step_on_card(cuda, arch, placement):
+    """One gradient step of the MoE and recurrent smoke stacks (2 layers;
+    jamba's mamba + MLP, then mamba + MoE) on the card at a 24-bit DAC
+    (the bit-serial MLPs' read noise off): the
+    experts' K3-dx and K3-dw once per expert projection, K3-dx and K3-dw
+    beside K3 on the other crossbars; the loss and every gradient leaf
+    finite and within 1e-4 of the plain path on the card (K3, its experts
+    entry and K5 through their plain versions with the same VJPs)."""
+    import dataclasses
+
+    from repro_torch.core.placement import LayerRule, map_corners
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.serve.spec import build_config
+    from repro_torch.train.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.train.step import init_state, make_grad_fn
+    from repro_torch.utils.pytrees import flatten_with_paths
+    cfg = build_config(arch, smoke=True, placement=placement,
+                       model_overrides={"num_layers": 2})
+    cfg = cfg.replace(dtype=torch.float32, emt=map_corners(
+        cfg.emt, lambda e: e.replace(quant=dataclasses.replace(
+            e.quant, a_bits=24))))
+    if placement:
+        # the bit-serial MLPs read without noise: a bit-serial read is not
+        # continuous in its level (jamba's layer-0 MLP gradients moved by
+        # 1.2e-4 with it on); the experts on that corner read in analog
+        # and keep theirs
+        cfg = cfg.replace(emt=dataclasses.replace(cfg.emt, rules=tuple(
+            LayerRule(r.pattern, r.emt.replace(device=dataclasses.replace(
+                r.emt.device, amplitude=0.0)))
+            if r.pattern == "*/mlp/*" else r for r in cfg.emt.rules)))
+    state = init_state(cfg, Optimizer(OptimizerConfig()), 0, device=cuda)
+    batch = SyntheticLM(cfg.vocab_size, 12, 2, device=cuda).batch_at(0)
+    grad_fn = make_grad_fn(cfg, 1e-6)
+    counters = (k3.emt_matmul_experts, k3.emt_matmul_experts_dx,
+                k3.emt_matmul_experts_dw, k3.emt_matmul_dx, k3.emt_matmul_dw)
+    before = [c.launches for c in counters]
+    loss, _, grads = grad_fn(state["params"], batch, 0)
+    torch.cuda.synchronize()
+    got = [c.launches - b for c, b in zip(counters, before)]
+    assert got[0] == got[1] == got[2], got
+    assert (got[0] > 0) == bool(cfg.num_experts), got
+    assert got[3] > 0 and got[4] > 0, got
+    names = ("_emt_matmul", "_emt_matmul_experts", "_emt_bitserial")
+    orig = {n: getattr(ops, n) for n in names}
+    ops._emt_matmul = k3.plain_differentiable
+    ops._emt_matmul_experts = k3.plain_experts_differentiable
+    ops._emt_bitserial = k5.plain_differentiable
+    try:
+        ploss, _, pgrads = grad_fn(state["params"], batch, 0)
+    finally:
+        for n, fn in orig.items():
+            setattr(ops, n, fn)
+    assert abs(loss.item() - ploss.item()) <= 1e-4 * abs(ploss.item())
     for (path, a), (_, b) in zip(flatten_with_paths(grads),
                                  flatten_with_paths(pgrads)):
         assert torch.isfinite(a).all(), path
